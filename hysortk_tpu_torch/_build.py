@@ -1,0 +1,133 @@
+"""Build and load the hand-written CUDA kernels; hold their launch counts.
+
+The kernels' sources are csrc/*.cu. At first use they are compiled by nvcc
+for sm_90a (Hopper) into one shared library with a plain C interface and
+loaded with ctypes, so the build needs the CUDA toolkit and nothing of
+PyTorch's headers. The library goes to build/kernels/<hash>/ beside the
+package, keyed by a hash of the sources and the flags, and is reused while
+neither changes. A failed build raises.
+
+`launches` counts, per kernel wrapper, the calls that launched the kernel on
+a device. Only the wrappers touch it, at their launch; `reset_launches`
+clears it before a run whose kernel use is to be shown.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+_LIB_NAME = "libhysortk_kernels.so"
+
+launches = {"keybuild": 0, "radix_sort": 0, "fused_count": 0}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def sources() -> list[str]:
+    return sorted(
+        os.path.join(_CSRC_DIR, f)
+        for f in os.listdir(_CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(fallback):
+        return fallback
+    raise RuntimeError(
+        "nvcc not found on PATH or under /usr/local/cuda/bin: the CUDA "
+        "kernels cannot be built"
+    )
+
+
+def library_path() -> str:
+    """Path of the built library for the current sources (built if absent).
+    The compiler's output, with ptxas' register and shared-memory report,
+    is kept beside it as build.log."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    out_dir = os.path.join(BUILD_DIR, digest.hexdigest()[:16])
+    lib_path = os.path.join(out_dir, _LIB_NAME)
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp_path = f"{lib_path}.{os.getpid()}.tmp"
+    cu_files = [p for p in sources() if p.endswith(".cu")]
+    proc = subprocess.run(
+        [find_nvcc(), *NVCC_FLAGS, "-o", tmp_path, *cu_files],
+        capture_output=True,
+        text=True,
+    )
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-8000:]}"
+        )
+    os.replace(tmp_path, lib_path)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(library_path()))
+        return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    lib.hk_keybuild.argtypes = [ptr, ptr, i64, i32, ptrs, ptr]
+    lib.hk_keybuild.restype = i32
+    lib.hk_radix_sort_scratch.argtypes = [i64]
+    lib.hk_radix_sort_scratch.restype = i64
+    lib.hk_radix_sort.argtypes = [ptrs, ptrs, i32, i32, i64, ptr, ptr]
+    lib.hk_radix_sort.restype = i32
+    lib.hk_fused_count_scratch.argtypes = [i64]
+    lib.hk_fused_count_scratch.restype = i64
+    lib.hk_fused_count.argtypes = [ptrs, i32, i64, i32, i32, ptr, ptr, ptr, ptr]
+    lib.hk_fused_count.restype = i32
+    lib.hk_error_string.argtypes = [i32]
+    lib.hk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def pointer_array(tensors) -> ctypes.Array:
+    """A C array of the tensors' device addresses (void* const*)."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if status != 0:
+        text = lib().hk_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({text})")
