@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's main path once on one GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Run from the repository root on a machine with an sm_90 card (H100) and
+(--profile adds a torch.profiler breakdown of each streaming run.) Run from the repository root on a machine with an sm_90 card (H100) and
 the CUDA toolkit; the kernels are built from hysortk_tpu_torch/csrc into
 build/kernels/ at first use. Phases, each printing its findings:
 
   0  the card (nvidia-smi name and power limit), versions, kernel build time
   1  each kernel against its plain PyTorch version on the card, exactly
      equal, timed with CUDA events: synthetic cases (top-bit keys,
-     duplicates, sentinel tails, poly-A-length runs), then the inputs the
-     main path gives each kernel at the size of phase 2
+     duplicates, sentinel tails, poly-A-length runs, runs of unequal fill),
+     then the inputs the main paths give each kernel at the size of phases
+     2 and 4, with each kernel's bound (the least time the card could take)
+     and, where one PyTorch call computes the same function, that call's
+     time
   2  the slice at a size users run: a seeded 2^22-base genome sampled into
      150-base reads at ~16x coverage (2^26 bases), written as FASTA, then
      read_dna_buffer -> kmer_count(K=31, L=2, U=50, device="cuda") ->
@@ -20,6 +23,14 @@ build/kernels/ at first use. Phases, each printing its findings:
      composed on the same CUDA tensors
   3  a FASTA under 10 kB through the facade on the card against the
      pure-Python oracle
+  4  bounded-memory streaming of phase 2's reads through
+     count_reads_streaming(device="cuda"): (a) the default configuration in
+     batches of 2^24 bases (host-held partials), (b) device_compact in
+     batches of 2^22 bases (device-resident runs, consolidation cycles, the
+     final device merge); each result equal to phase 2's, both streaming
+     kernels launched in both runs
+  5  python -m hysortk_tpu_torch.cli on phase 3's FASTA, streaming, against
+     the oracle
 
 Any failure raises (exit code 1). Without a CUDA device the script exits 1
 before printing any result. The last two lines of standard output are the
@@ -28,6 +39,7 @@ per-kernel JSON record and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -64,6 +76,33 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# The data sheet's only rate outside the tensor cores (float32); the
+# kernels' integer operations are held against it.
+OPS_PER_S = 67e12
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    read each input once and write each output once, or to do the
+    operations, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def packed_int64(words):
+    """W <= 2 int32 key words as one int64 per slot whose signed order is
+    the words' unsigned lexicographic order (the sign bit flipped)."""
+    from hysortk_tpu_torch.ops.kmer import widen
+
+    key = widen(words[0])
+    for w in words[1:]:
+        key = (key << 32) | widen(w)
+    shift = 64 - 32 * len(words)
+    return (key << shift) ^ -(1 << 63)
 
 
 def max_abs_err(got, want) -> int:
@@ -129,9 +168,11 @@ def phase1_synthetic(gen):
     largest error seen per kernel."""
     import torch
 
-    from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort, wire
+    from hysortk_tpu_torch.ops import (
+        fused_count, keybuild, merge, radix_sort, run_length_sum, wire,
+    )
 
-    errs = {"keybuild": 0, "radix_sort": 0, "fused_count": 0}
+    errs = {name: 0 for name in KERNELS}
     dev = "cuda"
     n = 1 << 24
 
@@ -182,9 +223,84 @@ def phase1_synthetic(gen):
         errs["radix_sort"] = max(errs["radix_sort"], e)
         del words, got, want
 
-    # count: sorted W=2 keys whose runs include poly-A lengths (10^5, 10^6),
-    # runs at exactly L and U, top-bit keys, then a sentinel tail.
+    # count and weighted sum: sorted keys whose runs include poly-A lengths
+    # (10^5, 10^6), runs at exactly L and U, top-bit keys, then a sentinel
+    # tail of 1/8.
     size = 1 << 26
+    words = synthetic_sorted_words(gen, size, 2)
+    got = fused_count.run_length_count_filter(words, LOWER, UPPER)
+    want = fused_count.run_length_count_filter_plain(words, LOWER, UPPER)
+    torch.cuda.synchronize()
+    e = max_abs_err(got, want)
+    require_equal("fused_count", e)
+    if int(got[0].max()) != 1_000_000:
+        raise AssertionError("the 10^6-slot run was not counted whole")
+    ms = cuda_ms(lambda: fused_count.run_length_count_filter(words, LOWER, UPPER), 10)
+    pms = cuda_ms(lambda: fused_count.run_length_count_filter_plain(words, LOWER, UPPER), 3)
+    log(f"phase1 fused_count W=2 n={size}: equal, kernel {ms:.4f} ms, "
+        f"plain {pms:.4f} ms")
+    errs["fused_count"] = max(errs["fused_count"], e)
+    del got, want
+
+    for w_count in (2, 4):
+        if w_count != 2:
+            words = synthetic_sorted_words(gen, size, w_count)
+        # Weights up to 65535 on every slot, the sentinel tail included
+        # (there they must count 0).
+        weights = torch.randint(1, 65536, (size,), dtype=torch.int32, device=dev,
+                                generator=gen)
+        got = run_length_sum.run_length_sum_fused(words, weights)
+        want = run_length_sum.run_length_sum_fused_plain(words, weights)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        require_equal(f"run_length_sum W={w_count}", e)
+        # int32 totals wrap (the 10^6-slot run's does), so the sums agree
+        # modulo 2^32.
+        valid = int(weights[: size - size // 8].to(torch.int64).sum())
+        if (int(got[1].to(torch.int64).sum()) - valid) % 2**32 != 0:
+            raise AssertionError("the totals do not add up to the valid weights")
+        if int(got[0].sum()) != int(fused_count.run_length_count_filter(
+                words, 1, 2**31 - 1)[1].sum()):
+            raise AssertionError("heads differ from the count kernel's")
+        ms = cuda_ms(lambda: run_length_sum.run_length_sum_fused(words, weights), 10)
+        pms = cuda_ms(lambda: run_length_sum.run_length_sum_fused_plain(words, weights), 3)
+        log(f"phase1 run_length_sum W={w_count} n={size}: equal, kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms")
+        errs["run_length_sum"] = max(errs["run_length_sum"], e)
+        del got, want, weights
+    del words
+
+    # merge: runs drawn from one pool of keys (duplicates within and across
+    # runs, half with the top bit set), sentinel tails of different lengths,
+    # one run all sentinel where there are more than two, one payload row.
+    for w_count, n_runs, run_len in ((1, 2, 1 << 24), (2, 4, 1 << 23),
+                                     (4, 8, 1 << 22), (2, 8, 1 << 22)):
+        rows = synthetic_runs(gen, w_count, n_runs, run_len)
+        got = merge.merge_sorted_runs(rows, w_count, run_len)
+        want = merge.merge_sorted_runs_plain(rows, w_count, run_len)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        require_equal(f"merge_runs W={w_count} S={n_runs} L={run_len}", e)
+        ms = cuda_ms(lambda: merge.merge_sorted_runs(rows, w_count, run_len), 5)
+        pms = cuda_ms(lambda: merge.merge_sorted_runs_plain(rows, w_count, run_len), 3)
+        log(f"phase1 merge_runs W={w_count}+1 S={n_runs} L={run_len}: equal, "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        errs["merge_runs"] = max(errs["merge_runs"], e)
+        del rows, got, want
+    return errs
+
+
+def synthetic_sorted_words(gen, size: int, n_words: int):
+    """Sorted sentinel-marked keys of n_words int32 words: distinct keys
+    (half with the top bit set) in runs of 1..59 slots, some of exactly
+    LOWER and UPPER, one of 10^5 and one of 10^6 slots, then an all-ones
+    tail of size/8 slots. Words past the second repeat the run's key bits,
+    so the order is set by the first two."""
+    import torch
+
+    from hysortk_tpu_torch.ops.kmer import narrow
+
+    dev = "cuda"
     tail = size // 8
     runs = torch.randint(1, 60, (size // 20,), device=dev, generator=gen)
     runs[::997] = LOWER
@@ -201,67 +317,177 @@ def phase1_synthetic(gen):
     keys = torch.unique((hi << 33) ^ (lo << 1))  # distinct, ascending as int64
     keys = keys[: n_runs]
     runs = runs[: keys.shape[0]]
+    # The body's last run takes up the slack, so the tail is exactly size/8.
+    runs[-1] += size - tail - int(runs.sum())
     keys = keys ^ -(1 << 63)  # flip the sign bit: signed order -> unsigned order
     body = torch.repeat_interleave(keys, runs)
-    full = torch.full((size - body.shape[0],), -1, dtype=torch.int64, device=dev)
+    full = torch.full((tail,), -1, dtype=torch.int64, device=dev)
     flat = torch.cat([body, full])
-    from hysortk_tpu_torch.ops.kmer import narrow
-
     words = [narrow(flat >> 32), narrow(flat)]
-    got = fused_count.run_length_count_filter(words, LOWER, UPPER)
-    want = fused_count.run_length_count_filter_plain(words, LOWER, UPPER)
-    torch.cuda.synchronize()
-    e = max_abs_err(got, want)
-    require_equal("fused_count", e)
-    if int(got[0].max()) != 1_000_000:
-        raise AssertionError("the 10^6-slot run was not counted whole")
-    ms = cuda_ms(lambda: fused_count.run_length_count_filter(words, LOWER, UPPER), 10)
-    pms = cuda_ms(lambda: fused_count.run_length_count_filter_plain(words, LOWER, UPPER), 3)
-    log(f"phase1 fused_count W=2 n={size}: equal, kernel {ms:.4f} ms, "
-        f"plain {pms:.4f} ms")
-    errs["fused_count"] = max(errs["fused_count"], e)
-    return errs
+    for j in range(2, n_words):
+        words.append(narrow(flat >> (7 * j)))
+    return words
+
+
+def synthetic_runs(gen, n_words: int, n_runs: int, run_len: int):
+    """n_runs sorted runs of run_len slots, concatenated: n_words key rows
+    and one payload row (int32 each)."""
+    import torch
+
+    from hysortk_tpu_torch.ops import radix_sort
+
+    dev = "cuda"
+    pool = [
+        torch.randint(-2**31, 2**31, (run_len // 2,), dtype=torch.int32, device=dev,
+                      generator=gen)
+        for _ in range(n_words)
+    ]
+    parts = []
+    for r in range(n_runs):
+        filled = run_len - r * run_len // (2 * n_runs)
+        if n_runs > 2 and r == n_runs - 1:
+            filled = 0
+        pick = torch.randint(0, run_len // 2, (filled,), device=dev, generator=gen)
+        payload = torch.randint(1, 65536, (filled,), dtype=torch.int32, device=dev,
+                                generator=gen)
+        words, (payload,) = radix_sort.sort_words_plain(
+            [w[pick] for w in pool], [payload]
+        )
+        pad = torch.full((run_len - filled,), -1, dtype=torch.int32, device=dev)
+        parts.append([torch.cat([w, pad]) for w in words]
+                     + [torch.cat([payload, torch.zeros_like(pad)])])
+    return [torch.cat([p[q] for p in parts]) for q in range(n_words + 1)]
 
 
 def phase1_main_path(codes_np, lengths_np, errs):
-    """Each kernel against its plain version on the very inputs the main
-    path gives it in phase 2 (same padding, same decode). Returns each
-    kernel's (kernel ms, plain ms)."""
+    """Each kernel of the one-shot path against its plain version on the
+    very inputs the main path gives it in phase 2 (same padding, same
+    decode). Returns each kernel's measurements."""
+    import torch
+
     from hysortk_tpu_torch import pipeline
     from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort
 
     codes, valid = pipeline.device_batch(codes_np, lengths_np, slice_config(), "cuda")
     n = codes.shape[0]
     marked = keybuild.canonical_keys_fused(codes, valid, K)
+    w = len(marked)
     e = max_abs_err(marked, keybuild.canonical_keys_plain(codes, valid, K))
     require_equal("keybuild main path", e)
-    kb = (cuda_ms(lambda: keybuild.canonical_keys_fused(codes, valid, K), 10),
-          cuda_ms(lambda: keybuild.canonical_keys_plain(codes, valid, K), 3))
     errs["keybuild"] = max(errs["keybuild"], e)
+    # In: codes int8 + valid bool; out: W words. Two shift-ors per base for
+    # the key and as many for its reverse complement, a compare and select
+    # and a sentinel select per word.
+    kb_bound = bound((2 + 4 * w) * n, (4 * K + 3 * w) * n)
+    kb = dict(
+        ms=cuda_ms(lambda: keybuild.canonical_keys_fused(codes, valid, K), 10),
+        plain_ms=cuda_ms(lambda: keybuild.canonical_keys_plain(codes, valid, K), 3),
+        bound_ms=kb_bound[0], bound_by=kb_bound[1], library_ms=None,
+    )
 
     sorted_words, _ = radix_sort.sort_words(marked)
     e = max_abs_err(sorted_words, radix_sort.sort_words_plain(marked)[0])
     require_equal("radix_sort main path", e)
-    rs = (cuda_ms(lambda: radix_sort.sort_words(marked), 5),
-          cuda_ms(lambda: radix_sort.sort_words_plain(marked), 3))
     errs["radix_sort"] = max(errs["radix_sort"], e)
+    # In and out: W words each. A comparison sort needs about log2(n!)
+    # key compares of up to W word compares.
+    rs_bound = bound(8 * w * n, w * n * np.log2(max(n, 2)))
+    rs = dict(
+        ms=cuda_ms(lambda: radix_sort.sort_words(marked), 5),
+        plain_ms=cuda_ms(lambda: radix_sort.sort_words_plain(marked), 3),
+        bound_ms=rs_bound[0], bound_by=rs_bound[1], library_ms=None,
+    )
+    if w <= 2:
+        # One torch.sort on the key packed into a sign-flipped int64 (the
+        # packing is not timed). Beyond two words no one call sorts the key.
+        packed = packed_int64(marked)
+        lib_sorted = torch.sort(packed).values
+        if not torch.equal(lib_sorted, packed_int64(sorted_words)):
+            raise AssertionError("torch.sort of the packed key differs")
+        rs["library_ms"] = cuda_ms(lambda: torch.sort(packed), 5)
+        del packed, lib_sorted
 
     got = fused_count.run_length_count_filter(sorted_words, LOWER, UPPER)
     e = max_abs_err(
         got, fused_count.run_length_count_filter_plain(sorted_words, LOWER, UPPER)
     )
     require_equal("fused_count main path", e)
-    fc = (cuda_ms(lambda: fused_count.run_length_count_filter(
-              sorted_words, LOWER, UPPER), 10),
-          cuda_ms(lambda: fused_count.run_length_count_filter_plain(
-              sorted_words, LOWER, UPPER), 3))
     errs["fused_count"] = max(errs["fused_count"], e)
+    # In: W words; out: cnt int32 + keep bool. A boundary and a sentinel
+    # compare per word, a subtraction and two bound compares.
+    fc_bound = bound((4 * w + 5) * n, (2 * w + 3) * n)
+    fc = dict(
+        ms=cuda_ms(lambda: fused_count.run_length_count_filter(
+            sorted_words, LOWER, UPPER), 10),
+        plain_ms=cuda_ms(lambda: fused_count.run_length_count_filter_plain(
+            sorted_words, LOWER, UPPER), 3),
+        bound_ms=fc_bound[0], bound_by=fc_bound[1], library_ms=None,
+    )
+    if w <= 2:
+        # torch.unique_consecutive gives the run lengths, in another layout
+        # (one entry per run, not per slot), without the filter.
+        packed = packed_int64(sorted_words)
+        _, lengths = torch.unique_consecutive(packed, return_counts=True)
+        if int(lengths.sum()) != n:
+            raise AssertionError("unique_consecutive lost slots")
+        fc["library_ms"] = cuda_ms(
+            lambda: torch.unique_consecutive(packed, return_counts=True), 5)
+        del packed, lengths
 
     times = {"keybuild": kb, "radix_sort": rs, "fused_count": fc}
-    for name, (ms, pms) in times.items():
-        log(f"phase1 {name} main-path n={n} K={K}: equal, kernel {ms:.4f} ms, "
-            f"plain {pms:.4f} ms")
+    for name, t in times.items():
+        log_kernel(f"phase1 {name} main-path n={n} K={K}", t)
     return times
+
+
+def log_kernel(what: str, t: dict) -> None:
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    log(f"{what}: equal, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library call {lib}")
+
+
+def phase1_streaming_path(merge_inputs, sum_inputs, errs, what: str):
+    """The two streaming kernels against their plain versions on the very
+    inputs a run's final merge gave them. Returns their measurements."""
+    from hysortk_tpu_torch.ops import merge, run_length_sum
+
+    rows, n_words, run_len = merge_inputs
+    n = rows[0].shape[0]
+    n_runs = n // run_len
+    got = merge.merge_sorted_runs(rows, n_words, run_len)
+    e = max_abs_err(got, merge.merge_sorted_runs_plain(rows, n_words, run_len))
+    require_equal(f"merge_runs {what}", e)
+    errs["merge_runs"] = max(errs["merge_runs"], e)
+    # In and out: every row once. Each output takes log2(runs) key compares
+    # of up to W word compares.
+    mr_bound = bound(8 * len(rows) * n, n_words * n * np.log2(n_runs))
+    mr = dict(
+        ms=cuda_ms(lambda: merge.merge_sorted_runs(rows, n_words, run_len), 5),
+        plain_ms=cuda_ms(
+            lambda: merge.merge_sorted_runs_plain(rows, n_words, run_len), 3),
+        bound_ms=mr_bound[0], bound_by=mr_bound[1], library_ms=None,
+    )
+    del got
+
+    words, weights = sum_inputs
+    w = len(words)
+    got = run_length_sum.run_length_sum_fused(words, weights)
+    e = max_abs_err(got, run_length_sum.run_length_sum_fused_plain(words, weights))
+    require_equal(f"run_length_sum {what}", e)
+    errs["run_length_sum"] = max(errs["run_length_sum"], e)
+    # In: W words + weights; out: total int32 + head bool. A boundary and a
+    # sentinel compare per word, a select and an add.
+    rl_bound = bound((4 * w + 4 + 5) * n, (2 * w + 2) * n)
+    rl = dict(
+        ms=cuda_ms(lambda: run_length_sum.run_length_sum_fused(words, weights), 10),
+        plain_ms=cuda_ms(
+            lambda: run_length_sum.run_length_sum_fused_plain(words, weights), 3),
+        bound_ms=rl_bound[0], bound_by=rl_bound[1], library_ms=None,
+    )
+    log_kernel(f"phase1 merge_runs {what} W={n_words}+{len(rows) - n_words} "
+               f"S={n_runs} L={run_len} ({int(np.log2(n_runs))} passes)", mr)
+    log_kernel(f"phase1 run_length_sum {what} W={w} n={n}", rl)
+    return {"merge_runs": mr, "run_length_sum": rl}
 
 
 KERNELS = {
@@ -272,7 +498,16 @@ KERNELS = {
                    "hysortk_tpu/ops/pallas_msort.py:396"),
     "fused_count": ("hysortk_tpu_torch/csrc/fused_count.cu",
                     "hysortk_tpu/ops/pallas_count.py:180"),
+    "run_length_sum": ("hysortk_tpu_torch/csrc/run_length_sum.cu",
+                       "hysortk_tpu/ops/pallas_count.py:342"),
+    # merge_levels entered at 2 * run_len (pallas_sort.py:392), with the
+    # member tail of hysortk_tpu/ops/pallas_msort.py:522 (call :414).
+    "merge_runs": ("hysortk_tpu_torch/csrc/merge_runs.cu",
+                   "hysortk_tpu/ops/pallas_sort.py:589"),
 }
+# Which path's run gives each kernel its launch count in the record.
+ONE_SHOT_KERNELS = ("keybuild", "radix_sort", "fused_count")
+STREAMING_KERNELS = ("run_length_sum", "merge_runs")
 
 
 # --------------------------------------------------------------------------
@@ -351,6 +586,12 @@ def phase2_slice(workdir: str, rng):
     cfg = slice_config()
     n_kmers = int(np.maximum(lengths - K + 1, 0).sum())
 
+    from hysortk_tpu_torch.io import native
+
+    # The host pack sets most of the wall time of a call.
+    log(f"phase2 pack_codes_2bit runs "
+        f"{'the native library' if native.available() else 'numpy'}")
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
     kl, hist = ht.kmer_count(codes, lengths, cfg, device="cuda")
@@ -362,9 +603,10 @@ def phase2_slice(workdir: str, rng):
         walls.append(time.perf_counter() - t0)
     launches = dict(_build.launches)
     log(f"phase2 launches during the main path: {json.dumps(launches)}")
-    for name, count in launches.items():
-        if count == 0:
+    for name in ONE_SHOT_KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
+    peak = torch.cuda.max_memory_allocated()
     best = min(walls)
     log(f"phase2 kmer_count first call {first_s:.4f} s; steady "
         f"{', '.join(f'{w:.4f}' for w in walls)} s; best {best:.4f} s = "
@@ -387,15 +629,15 @@ def phase2_slice(workdir: str, rng):
         raise AssertionError("histogram does not match the list")
     log(f"phase2 {len(kl)} k-mers kept, equal to the plain composition; "
         f"histogram mode at count {int(np.argmax(hist))}; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return codes, lengths, launches
+        f"peak device memory {peak / 2**30:.3f} GiB")
+    return codes, lengths, launches, (kl, hist), peak
 
 
 # --------------------------------------------------------------------------
 # Phase 3
 
 
-def phase3_small(workdir: str, rng) -> None:
+def phase3_small(workdir: str, rng):
     import hysortk_tpu_torch as ht
     from hysortk_tpu_torch import testing
     from hysortk_tpu_torch.io import writer
@@ -424,6 +666,209 @@ def phase3_small(workdir: str, rng) -> None:
         if {c: int(v) for c, v in enumerate(hist) if v} != want_hist:
             raise AssertionError(f"phase 3 k={k}: histogram differs from the oracle")
         log(f"phase3 k={k}: {len(got)} k-mers equal to the oracle")
+    return path, reads
+
+
+# --------------------------------------------------------------------------
+# Phase 4
+
+
+class Recorder:
+    """Wraps a function of a module for one run and counts its calls. With
+    `keep_args_within` it also keeps the arguments of its last call made
+    inside a call of one of those recorders (and of no other call, so that
+    it holds no tensor alive that the run itself would have let go)."""
+
+    def __init__(self, module, name: str, keep_args_within=()):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.keep_args_within = keep_args_within
+        self.calls = 0
+        self.active = 0
+        self.last_args = None
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        if any(outer.active for outer in self.keep_args_within):
+            self.last_args = args
+        self.active += 1
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.active -= 1
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase4_streaming(codes, lengths, one_shot, one_shot_peak, errs, profile):
+    """Both streaming configurations on phase 2's reads, each equal to the
+    one-shot result. Returns the launch counts of run (a) and the two
+    streaming kernels' measurements on its final merge's inputs."""
+    import dataclasses
+
+    import torch
+
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch import _build
+    from hysortk_tpu_torch.ops import merge, run_length_sum
+    from hysortk_tpu_torch.runtime import scheduler
+
+    runs = (
+        ("a", slice_config(), 1 << 24),
+        ("b", dataclasses.replace(slice_config(), device_compact=True), 1 << 22),
+    )
+    def stream(cfg, batch_bases, keep_args):
+        """One streaming call under call counters of the scheduler's
+        passes. With keep_args the two kernels' wrappers are wrapped too and
+        the final merge's inputs are kept; a wrapper's frame holds its
+        arguments, which keeps the merge from releasing its first pass's
+        input, so the peak is read from a run without."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        cycles = Recorder(scheduler, "_consolidate_device_runs")
+        resident = Recorder(scheduler, "_merge_device_resident")
+        host_merge = Recorder(scheduler, "merge_partial_lists")
+        recorders = [cycles, resident, host_merge]
+        if keep_args:
+            within = (resident, host_merge)
+            merges = Recorder(merge, "merge_sorted_runs", within)
+            sums = Recorder(run_length_sum, "run_length_sum_fused", within)
+            recorders += [merges, sums]
+        with contextlib.ExitStack() as stack:
+            for recorder in recorders:
+                stack.enter_context(recorder)
+            t0 = time.perf_counter()
+            kl, hist = ht.count_reads_streaming(
+                codes, lengths, cfg, batch_bases, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        want, want_hist = one_shot
+        if not (np.array_equal(kl.keys, want.keys)
+                and np.array_equal(kl.counts, want.counts)
+                and np.array_equal(hist, want_hist)):
+            raise AssertionError("a streaming run differs from the one-shot result")
+        return dict(
+            kept=len(kl), wall=wall, peak=torch.cuda.max_memory_allocated(),
+            launches=dict(_build.launches), cycles=cycles.calls,
+            resident=resident.calls, host_merge=host_merge.calls,
+            merge_args=merges.last_args if keep_args else None,
+            sum_args=sums.last_args if keep_args else None,
+        )
+
+    out = {}
+    for tag, cfg, batch_bases in runs:
+        r = stream(cfg, batch_bases, keep_args=False)
+        launches, peak = r["launches"], r["peak"]
+        batches = len(scheduler.read_batch_spans(
+            lengths, scheduler.snap_batch_to_pow2_flat(batch_bases, cfg.pad_multiple)))
+        log(f"phase4{tag} device_compact={cfg.device_compact} batch_bases={batch_bases}: "
+            f"{batches} batches, {r['cycles']} consolidation cycles, "
+            f"{r['resident']} device-resident merges, {r['host_merge']} host-list "
+            f"merges, wall {r['wall']:.4f} s, peak device memory {peak / 2**30:.3f} GiB, "
+            f"launches {json.dumps(launches)}")
+        for name, count in launches.items():
+            if count == 0:
+                raise AssertionError(
+                    f"kernel {name} was not launched by streaming run ({tag})")
+        if tag == "a" and not (r["host_merge"] == 1 and r["resident"] == 0):
+            raise AssertionError("run (a) did not merge host-held partial lists")
+        if tag == "b":
+            if not (r["cycles"] >= 1 and r["resident"] == 1 and r["host_merge"] == 0):
+                raise AssertionError(
+                    "run (b) did not stay device-resident through a "
+                    "consolidation cycle and the final device merge")
+            if peak >= one_shot_peak:
+                raise AssertionError(
+                    f"run (b) peaked at {peak} B, one-shot at {one_shot_peak} B")
+        log(f"phase4{tag} {r['kept']} k-mers, equal to phase 2's one-shot result")
+        r = stream(cfg, batch_bases, keep_args=True)
+        rows, n_words, run_len = r["merge_args"]
+        times = phase1_streaming_path(
+            (list(rows), n_words, run_len),
+            (list(r["sum_args"][0]), r["sum_args"][1]),
+            errs, f"final merge of 4({tag})",
+        )
+        out[tag] = (launches, times)
+        del r, rows
+        if profile:
+            profile_streaming(lambda: ht.count_reads_streaming(
+                codes, lengths, cfg, batch_bases, device="cuda"), f"phase4{tag}")
+    return out["a"]
+
+
+def profile_streaming(run, what: str) -> None:
+    """One streaming call under torch.profiler: where its wall time goes by
+    the scheduler's stage spans, and its device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    run()  # warm
+    with profile(activities=activities):  # the tracer's own start-up
+        torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    on_device = torch.autograd.DeviceType.CUDA
+    # Kernels and copies as the device ran them; the spans' device-side
+    # twins cover the same time again and are left out.
+    kernels = [e for e in events
+               if e.device_type == on_device and not e.key.startswith("stream/")]
+    spans = [e for e in events
+             if e.device_type != on_device and e.key.startswith("stream/")]
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0)
+
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    log(f"{what} profile: wall {wall_ms:.1f} ms under the profiler, device busy "
+        f"{busy_ms:.1f} ms, device idle {100 * (1 - busy_ms / wall_ms):.1f}%")
+    for e in sorted(spans, key=lambda e: -e.cpu_time_total):
+        log(f"{what} profile span {e.key}: {e.cpu_time_total / 1e3:.1f} ms host "
+            f"over {e.count} calls")
+    for e in sorted(kernels, key=device_us, reverse=True)[:10]:
+        log(f"{what} profile device {e.key[:60]}: {device_us(e) / 1e3:.2f} ms "
+            f"over {e.count} calls")
+
+
+# --------------------------------------------------------------------------
+# Phase 5
+
+
+def phase5_cli(workdir: str, fasta: str, reads) -> None:
+    """python -m hysortk_tpu_torch.cli, streaming, on phase 3's FASTA."""
+    from hysortk_tpu_torch import testing
+    from hysortk_tpu_torch.io import writer
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for tag, extra in (("host", []), ("compact", ["--device-compact"])):
+        out_dir = os.path.join(workdir, f"cli_out_{tag}")
+        proc = subprocess.run(
+            [sys.executable, "-m", "hysortk_tpu_torch.cli", fasta, out_dir,
+             "-k", str(K), "-m", str(M), "-l", "2", "-u", "10", "--device", "cuda",
+             "--stream-batch-bases", "2000", *extra],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 5 cli exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        got = {km.decode(): c for km, c in writer.parse_output_files(out_dir).items()}
+        want = testing.oracle_filtered(reads, K, 2, 10)
+        if got != want or not want:
+            raise AssertionError(f"phase 5 ({tag}): {len(got)} k-mers vs oracle {len(want)}")
+        log(f"phase5 cli --stream-batch-bases 2000 {' '.join(extra)}: "
+            f"{len(got)} k-mers equal to the oracle")
 
 
 def main() -> int:
@@ -446,18 +891,23 @@ def main() -> int:
     os.makedirs(scratch_root, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch_root)
     try:
-        codes, lengths, launches = phase2_slice(workdir, rng)
+        codes, lengths, launches, one_shot, peak = phase2_slice(workdir, rng)
         torch.cuda.empty_cache()
         times = phase1_main_path(codes, lengths, errs)
-        phase3_small(workdir, rng)
+        fasta, reads = phase3_small(workdir, rng)
+        stream_launches, stream_times = phase4_streaming(
+            codes, lengths, one_shot, peak, errs, "--profile" in sys.argv[1:])
+        phase5_cli(workdir, fasta, reads)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    times.update(stream_times)
+    for name in STREAMING_KERNELS:
+        launches[name] = stream_launches[name]
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "max_abs_err": errs[name], **times[name]}
         for name in KERNELS
     ]}
     print(json.dumps(record))

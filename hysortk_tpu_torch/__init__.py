@@ -8,7 +8,8 @@ the reference library API (reference: include/hysortk.hpp:10-16):
     print_kmer_histogram  -> frequency histogram in the reference format
     write_output_file     -> per-shard `{kmer}\\t{count}` files
 
-This package covers single-device, non-extension counting. It imports
+This package covers single-device, non-extension counting, one-shot and in
+bounded device memory (runtime/scheduler.count_reads_streaming). It imports
 neither jax nor hysortk_tpu.
 """
 
@@ -21,7 +22,9 @@ import numpy as np
 from .config import KmerConfig, from_jax_fields
 from .io import fasta as _fasta
 from .io import writer as _writer
-from .pipeline import KmerList, count_flat, count_reads
+from .pipeline import KmerList, count_flat, count_reads, resolve_device
+from .runtime import memcheck as _memcheck
+from .runtime.scheduler import count_reads_streaming, suggest_batch_bases
 
 __version__ = "0.1.0"
 
@@ -35,6 +38,7 @@ __all__ = [
     "write_output_file",
     "count_flat",
     "count_reads",
+    "count_reads_streaming",
 ]
 
 
@@ -63,9 +67,12 @@ def kmer_count(
     histogram array).
 
     `device` is a torch device ("cuda", "cuda:1", "cpu"); "cpu" runs the
-    plain PyTorch versions of the kernels. Extension mode, more than one
-    device and bounded-memory streaming are not ported yet: the first two
-    raise NotImplementedError."""
+    plain PyTorch versions of the kernels. Streams in bounded device memory
+    by itself (count_reads_streaming) when the one-shot working set would
+    not fit the device's memory headroom; the reference instead switches
+    sorters on MemFree (src/kmerops.cpp:1344-1379). The CPU reports no
+    headroom and always runs one-shot. Extension mode and more than one
+    device are not ported yet and raise NotImplementedError."""
     cfg = config or KmerConfig()
     if cfg.extension:
         raise NotImplementedError("extension mode is not ported yet")
@@ -75,7 +82,13 @@ def kmer_count(
                 "counting across more than one device is not ported yet"
             )
         device = device[0]
-    return count_reads(codes, lengths, cfg, device=device)
+    dev = resolve_device(device)
+    headroom = _memcheck.hbm_headroom_bytes(dev)
+    need = int(codes.size) * (4 + 2 * cfg.words * 4 + 8) * 2
+    if headroom is not None and 0 < headroom < need:
+        batch = suggest_batch_bases(cfg, dev)
+        return count_reads_streaming(codes, lengths, cfg, batch, device=dev)
+    return count_reads(codes, lengths, cfg, device=dev)
 
 
 def print_kmer_histogram(hist: np.ndarray) -> str:

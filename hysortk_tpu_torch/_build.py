@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels; hold their launch counts.
 
 The kernels' sources are csrc/*.cu. At first use they are compiled by nvcc
-for sm_90a (Hopper) into one shared library with a plain C interface and
-loaded with ctypes, so the build needs the CUDA toolkit and nothing of
-PyTorch's headers. The library goes to build/kernels/<hash>/ beside the
+for sm_90a (Hopper), one nvcc process per source and all at once, and
+linked into one shared library with a plain C interface that is loaded with
+ctypes, so the build needs the CUDA toolkit and nothing of PyTorch's
+headers. The library goes to build/kernels/<hash>/ beside the
 package, keyed by a hash of the sources and the flags, and is reused while
 neither changes. A failed build raises.
 
@@ -26,12 +27,15 @@ _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 _LIB_NAME = "libhysortk_kernels.so"
 
-launches = {"keybuild": 0, "radix_sort": 0, "fused_count": 0}
+launches = {
+    "keybuild": 0, "radix_sort": 0, "fused_count": 0,
+    "run_length_sum": 0, "merge_runs": 0,
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -77,19 +81,39 @@ def library_path() -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp_path = f"{lib_path}.{os.getpid()}.tmp"
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
     cu_files = [p for p in sources() if p.endswith(".cu")]
-    proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", tmp_path, *cu_files],
-        capture_output=True,
-        text=True,
-    )
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-8000:]}"
+    objects = [
+        os.path.join(out_dir, f"{os.path.basename(p)[:-3]}.{tag}.o")
+        for p in cu_files
+    ]
+    compiles = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
+        for src, obj in zip(cu_files, objects)
+    ]
+    outputs = [proc.communicate() for proc in compiles]
+    log = "".join(out + err for out, err in outputs)
+    failed = [proc.returncode for proc in compiles if proc.returncode != 0]
+    tmp_path = f"{lib_path}.{tag}"
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp_path, *objects],
+            capture_output=True, text=True,
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = [link.returncode]
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(log)
+    for obj in objects:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed (exit {failed[0]}):\n{log[-8000:]}")
     os.replace(tmp_path, lib_path)
     return lib_path
 
@@ -116,6 +140,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_fused_count_scratch.restype = i64
     lib.hk_fused_count.argtypes = [ptrs, i32, i64, i32, i32, ptr, ptr, ptr, ptr]
     lib.hk_fused_count.restype = i32
+    lib.hk_run_length_sum_scratch.argtypes = [i64]
+    lib.hk_run_length_sum_scratch.restype = i64
+    lib.hk_run_length_sum.argtypes = [ptrs, i32, ptr, i64, ptr, ptr, ptr, ptr]
+    lib.hk_run_length_sum.restype = i32
+    lib.hk_merge_pass_scratch.argtypes = [i64, i64]
+    lib.hk_merge_pass_scratch.restype = i64
+    lib.hk_merge_pass.argtypes = [ptrs, ptrs, i32, i32, i64, i64, ptr, ptr]
+    lib.hk_merge_pass.restype = i32
     lib.hk_error_string.argtypes = [i32]
     lib.hk_error_string.restype = ctypes.c_char_p
     return lib

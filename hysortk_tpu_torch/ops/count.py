@@ -8,8 +8,9 @@ sequential run-length encoder.
   next head = suffix-min over (head ? index : N) -> run length by subtraction
 
 Word equality is bitwise, so the int32 words need no widening here. The
-hand-written CUDA kernel that fuses this with the filter is
-ops/fused_count.py; these functions are its plain version.
+hand-written CUDA kernels that fuse these scans are ops/fused_count.py
+(count + filter) and ops/run_length_sum.py (weighted sum); these functions
+are their plain versions.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from .kmer import narrow, widen
 
 
 def run_length_count(
@@ -47,6 +50,46 @@ def run_length_count(
     run_end = torch.minimum(next_head, nvalid)
     count = torch.where(head, run_end - idx, 0).to(torch.int32)
     return head, count
+
+
+def run_length_sum(
+    sorted_valid: torch.Tensor,
+    sorted_words: Sequence[torch.Tensor],
+    weights: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Like run_length_count but each slot contributes `weights[i]` to its run.
+
+    Used where pre-aggregated (key, count) pairs meet again: the streaming
+    merge of per-batch partial counts (the analogue of the reference's
+    GatheredKmerList merge, src/kmerops.cpp:546-581). With weights == valid
+    this reduces to run_length_count. Returns (head bool, total int32); the
+    sums are int32 and wrap like the JAX version's: the prefix sums are
+    taken in int64 and the difference is cut to its low 32 bits.
+    """
+    n = sorted_valid.shape[0]
+    dev = sorted_valid.device
+    neq = torch.zeros(n, dtype=torch.bool, device=dev)
+    for w in sorted_words:
+        neq = neq | (w != torch.roll(w, 1))
+    if n:
+        neq[0] = True
+    head = sorted_valid & neq
+
+    w64 = torch.where(sorted_valid, widen(weights), 0)
+    prefix = torch.cumsum(w64, 0)  # inclusive, nondecreasing
+    # Run sum at a head i = prefix[last slot of i's run] - prefix[i] + w[i].
+    # The last slot of a run is the one before the next head (or n-1);
+    # invalid tail slots weigh 0, so letting the final run extend into the
+    # sentinel tail changes nothing. A reverse cummin over
+    # (pre-head ? prefix : max) carries each run's closing prefix back to
+    # every slot of the run.
+    pre_head = torch.cat(
+        [head[1:], torch.ones(1, dtype=torch.bool, device=dev)]
+    )[:n]
+    closing = torch.where(pre_head, prefix, torch.iinfo(torch.int64).max)
+    end_prefix = torch.cummin(closing.flip(0), dim=0).values.flip(0)
+    total = narrow(end_prefix - prefix + w64)
+    return head, torch.where(head, total, 0).to(torch.int32)
 
 
 def frequency_filter(

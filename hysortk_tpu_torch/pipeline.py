@@ -88,6 +88,61 @@ def compact_keys(
     )
 
 
+def pull_prefix(tensors, n: int) -> list[np.ndarray]:
+    """The first n elements of each device tensor, as host arrays: only the
+    prefix crosses to the host, not the padded tail."""
+    return [t[:n].cpu().numpy() for t in tensors]
+
+
+def narrow_counts(cnt: torch.Tensor, upper: int) -> torch.Tensor:
+    """Cast FILTERED device counts to the narrowest dtype `upper` fits
+    before the host copy: uint8 for U <= 255, uint16 for U <= 65535 (the
+    reference's own count bound, compiletime.h:21), else unchanged. Every
+    kept count is <= upper by the frequency filter, so the cast is exact;
+    a caller widens back to int32 on the host."""
+    if upper <= 0xFF:
+        return cnt.to(torch.uint8)
+    if upper <= 0xFFFF:
+        return cnt.to(torch.uint16)
+    return cnt
+
+
+def _count_device_packed(
+    packed: torch.Tensor, lengths: torch.Tensor, k: int, n: int,
+    lower: int, upper: int,
+) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Wire-fed single-device step: (n/16,) packed words + (R,) read lengths
+    -> decode on the device -> sorted key words, counts, keep. The bounds
+    are arguments: streaming pre-counts pass (1, 2**31 - 1)."""
+    codes, valid = wire.decode_block(packed, lengths, k, n)
+    return _count_core(codes, valid, k, lower, upper)
+
+
+def _count_device_packed_compact(
+    packed: torch.Tensor, lengths: torch.Tensor, k: int, n: int,
+    lower: int, upper: int,
+) -> tuple[list[torch.Tensor], torch.Tensor, int]:
+    """Wire-fed step + on-device compaction: the kept (key, count) rows as
+    an ascending prefix [0, n_kept) of (n,) tensors whose tail is the
+    all-ones sentinel (counts 0), i.e. one sorted sentinel-padded run.
+    Returns (words, counts, n_kept).
+
+    The JAX package folds dropped slots to the sentinel and sorts once more;
+    the rows are already in key order here, so a mask gather keeps that
+    order and gives the same prefix."""
+    words_s, cnt, keep = _count_device_packed(packed, lengths, k, n, lower, upper)
+    idx = torch.nonzero(keep).squeeze(1)
+    n_kept = int(idx.shape[0])
+    words = []
+    for w in words_s:
+        out = torch.full_like(w, -1)
+        out[:n_kept] = w[idx]
+        words.append(out)
+    counts = torch.zeros_like(cnt)
+    counts[:n_kept] = cnt[idx]
+    return words, counts, n_kept
+
+
 def host_histogram(counts: np.ndarray, upper: int) -> np.ndarray:
     """hist[c] = number of kept kmers with frequency c (c in [0, upper])."""
     return np.bincount(
@@ -141,7 +196,12 @@ def count_reads(
     device="cuda",
 ) -> tuple[KmerList, np.ndarray]:
     """Full single-device pipeline from host reads, fed over the 2-bit
-    packed wire (`device_batch`)."""
+    packed wire (`device_batch`).
+
+    `cfg.device_compact` selects nothing here: the JAX count_reads uses it
+    to compact on the device before the host copy, and `compact_keys`
+    already gathers the kept rows on the device in every configuration, so
+    the result is the same KmerList either way."""
     codes_d, valid_d = device_batch(codes, lengths, cfg, device)
     words, cnt, keep = _count_core(
         codes_d, valid_d, cfg.k, cfg.lower, cfg.upper

@@ -1,0 +1,39 @@
+"""Buffered logging in the reference's layout.
+
+The port of hysortk_tpu/runtime/logger.py (reference Logger,
+include/logger.hpp:12-30, src/logger.cpp:109-160), which buffers per-rank
+messages and gathers them to the root. This package runs one process, so
+the gather is the local buffer; runs across processes are not ported yet.
+"""
+
+from __future__ import annotations
+
+import io
+import sys
+
+
+class Logger:
+    """Buffered logger with a labelled flush."""
+
+    def __init__(self, stream=None):
+        self._buf = io.StringIO()
+        self._stream = stream or sys.stdout
+
+    def log(self, msg: str) -> None:
+        """Buffer a message for the next flush (reference Logger::operator())."""
+        self._buf.write(msg)
+        self._buf.write("\n")
+
+    def root(self, msg: str) -> None:
+        """Print immediately (reference flush_root)."""
+        print(msg, file=self._stream)
+
+    def flush(self, label: str = "") -> None:
+        """Print the buffered messages, labelled by process (reference
+        Logger::flush, src/logger.cpp:109-160)."""
+        mine = self._buf.getvalue()
+        self._buf = io.StringIO()
+        if label:
+            print(f"## {label}", file=self._stream)
+        if mine:
+            print(f"[proc 0] {mine}", end="", file=self._stream)

@@ -2,6 +2,7 @@
 count_reads in its production configuration (fused keybuild, fused count,
 member Pallas sort; Pallas in interpret mode) and the pure-Python oracle."""
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -128,13 +129,72 @@ def test_bad_configs_refused_alike(bad):
         config.KmerConfig(**bad)
 
 
+def _port_sources():
+    """Every .py of the package, and chip_smoke.py."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "hysortk_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
 def test_import_leaves_jax_out():
-    code = ("import sys, hysortk_tpu_torch; "
-            "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'hysortk_tpu' not in sys.modules, 'hysortk_tpu imported'")
+    """Importing every module of the package (runtime/ and cli.py included)
+    brings in neither jax nor hysortk_tpu, and no source of the package nor
+    chip_smoke.py names either in an import statement."""
+    code = ("import sys, pkgutil, importlib, hysortk_tpu_torch as ht\n"
+            "names = [m.name for m in pkgutil.walk_packages(ht.__path__, ht.__name__ + '.')]\n"
+            "for name in names: importlib.import_module(name)\n"
+            "assert len(names) > 20 and 'hysortk_tpu_torch.cli' in names, names\n"
+            "assert 'hysortk_tpu_torch.runtime.scheduler' in names, names\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'hysortk_tpu' not in sys.modules, 'hysortk_tpu imported'\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    sources = _port_sources()
+    assert len(sources) > 25
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not {"jax", "jaxlib", "hysortk_tpu"} & set(roots), (path, roots)
+
+
+@pytest.mark.parametrize("k", KS)
+def test_count_reads_device_compact_is_the_same_list(k):
+    """cfg.device_compact selects nothing in the port's count_reads (the
+    kept rows are always gathered on the device); the JAX count_reads
+    honours it. All three give one KmerList."""
+    codes, lengths = hysortk_tpu_torch.io.fasta.reads_to_codes(_reads())
+    xla = dict(fuse_keybuild=False, fuse_count=False, sort_backend="xla")
+    cfg, _ = _cfgs(k, **xla)
+    cfg_dc, jcfg_dc = _cfgs(k, device_compact=True, **xla)
+    plain, hist = pipeline.count_reads(codes, lengths, cfg, device="cpu")
+    got, dhist = pipeline.count_reads(codes, lengths, cfg_dc, device="cpu")
+    want, jhist = jpipeline.count_reads(codes, lengths, jcfg_dc)
+    for other, ohist in ((plain, hist), (want, jhist)):
+        assert np.array_equal(got.keys, other.keys)
+        assert np.array_equal(got.counts, other.counts)
+        assert np.array_equal(dhist, ohist)
+    assert len(got) > 0
+
+
+@pytest.mark.parametrize("upper,dtype", [(50, torch.uint8), (255, torch.uint8),
+                                         (256, torch.uint16), (65535, torch.uint16)])
+def test_narrow_counts_and_pull_prefix(upper, dtype):
+    cnt = torch.tensor([1, 2, upper, 7, 0, 0], dtype=torch.int32)
+    narrow = pipeline.narrow_counts(cnt, upper)
+    assert narrow.dtype == dtype
+    pulled, words = pipeline.pull_prefix([narrow, cnt], 4)
+    assert pulled.astype(np.int32).tolist() == [1, 2, upper, 7]
+    assert words.tolist() == [1, 2, upper, 7] and words.dtype == np.int32
+    assert pipeline.pull_prefix([cnt], 0)[0].shape == (0,)
 
 
 def test_cuda_request_raises_without_cuda():
