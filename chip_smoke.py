@@ -31,6 +31,19 @@ build/kernels/ at first use. Phases, each printing its findings:
      kernels launched in both runs
   5  python -m hysortk_tpu_torch.cli on phase 3's FASTA, streaming, against
      the oracle
+  6  phase 2's call again with HYSORTK_FUSED_SORT=1 (the key build fused
+     into the sort's first pass): the same result, through the fused kernel
+     and neither the separate key build nor the radix sort wrapper
+  7  key build -> sort_words(formulation="roll") (block sort + run merge) ->
+     fused count on phase 2's device batch: sorted words equal to the radix
+     sort's, kept k-mers equal to phase 2's
+  8  extension mode ((ReadId, PosInRead) per occurrence): kmer_count with
+     extension=True on phase 2's reads, its device outputs equal to the plain
+     composition on the same CUDA tensors; count_reads_streaming_ext on the
+     first 2^24 bases in batches of 2^22 with a read id offset, equal to the
+     one-shot extension result on the same reads; phase 3's FASTA through
+     the facade and the CLI (--extension, one-shot and streamed) against an
+     oracle of kmer -> (count, {(rid, pos)})
 
 Any failure raises (exit code 1). Without a CUDA device the script exits 1
 before printing any result. The last two lines of standard output are the
@@ -55,6 +68,8 @@ SEED = 20261016
 K, M, LOWER, UPPER = 31, 17, 2, 50
 GENOME_BASES = 1 << 22
 READ_LEN = 150
+EXT_STREAM_BASES = 1 << 24  # host numpy merges every occurrence: cut to size
+EXT_STREAM_BATCH = 1 << 22
 N_READS = (1 << 26) // READ_LEN  # 2^26 bases of reads, ~16x coverage
 
 
@@ -154,7 +169,7 @@ def phase0_device():
         f"{os.path.relpath(path, ROOT)}")
     with open(os.path.join(os.path.dirname(path), "build.log")) as f:
         for line in f:
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("phase0 ptxas:", line.strip())
     return smi
 
@@ -169,7 +184,8 @@ def phase1_synthetic(gen):
     import torch
 
     from hysortk_tpu_torch.ops import (
-        fused_count, keybuild, merge, radix_sort, run_length_sum, wire,
+        block_sort, fused_count, fused_sort, keybuild, merge, radix_sort,
+        run_length_sum, wire,
     )
 
     errs = {name: 0 for name in KERNELS}
@@ -192,7 +208,62 @@ def phase1_synthetic(gen):
         log(f"phase1 keybuild k={k} n={n}: equal, kernel {ms:.4f} ms, "
             f"plain {pms:.4f} ms")
         errs["keybuild"] = max(errs["keybuild"], e)
+        # fused sort on the same codes: invalid runs, valid k-mers whose
+        # halo crosses a radix tile's edge, and a sentinel tail of 1/8.
+        valid = valid.clone()
+        valid[1000:5000] = False
+        valid[4096 * 7 - 40:4096 * 7 + 8] = True
+        valid[-n // 8:] = False
+        got = fused_sort.sort_codes_fused(codes, valid, k)
+        want = fused_sort.sort_codes_fused_plain(codes, valid, k)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        require_equal(f"fused_sort k={k}", e)
+        if not bool((got[0][-n // 8:] == -1).all()):
+            raise AssertionError("the sentinel tail is not last")
+        ms = cuda_ms(lambda: fused_sort.sort_codes_fused(codes, valid, k), 5)
+        pms = cuda_ms(lambda: fused_sort.sort_codes_fused_plain(codes, valid, k), 3)
+        log(f"phase1 fused_sort k={k} n={n}: equal, kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms")
+        errs["fused_sort"] = max(errs["fused_sort"], e)
     del codes, lengths, valid, got, want
+
+    # block sort: full-range words, a pool of duplicates, equal keys across
+    # every block's edge, a sentinel tail; with and without payload rows,
+    # both orientations, up to the largest block the kernel holds.
+    size = 1 << 22
+    for w_count, n_pay, block in ((1, 0, 16384), (1, 2, 2048), (2, 0, 16384),
+                                  (2, 2, 2048), (4, 0, 2048), (4, 2, 8192)):
+        if block > block_sort.max_block(w_count):
+            raise AssertionError(f"block {block} exceeds the kernel's largest")
+        rows = [
+            torch.randint(-2**31, 2**31, (size,), dtype=torch.int32, device=dev,
+                          generator=gen)
+            for _ in range(w_count)
+        ]
+        dup = torch.randint(0, size, (size // 4,), device=dev, generator=gen)
+        pool = torch.randint(0, 4096, (size // 4,), device=dev, generator=gen)
+        for w in rows:
+            w[dup] = w[pool]
+            w.view(-1, block)[:, :5] = 9
+            w.view(-1, block)[:, -5:] = 9
+            w[-size // 8:] = -1
+        rows += [torch.arange(size, dtype=torch.int32, device=dev) + j
+                 for j in range(n_pay)]
+        for descending_odd in (True, False):
+            got = block_sort.block_bitonic_sort(rows, w_count, block, descending_odd)
+            want = block_sort.block_bitonic_sort_plain(rows, w_count, block,
+                                                       descending_odd)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            require_equal(f"block_sort W={w_count}+{n_pay} B={block} "
+                          f"descending_odd={descending_odd}", e)
+            errs["block_sort"] = max(errs["block_sort"], e)
+        ms = cuda_ms(lambda: block_sort.block_bitonic_sort(rows, w_count, block), 5)
+        pms = cuda_ms(lambda: block_sort.block_bitonic_sort_plain(rows, w_count, block), 3)
+        log(f"phase1 block_sort W={w_count}+{n_pay} B={block} n={size}: equal in "
+            f"both orientations, kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        del rows, got, want
 
     # sort: full-range words (top bit set in half of them), a pool of
     # duplicates, word-0 ties that differ only in the last word, and a
@@ -366,7 +437,9 @@ def phase1_main_path(codes_np, lengths_np, errs):
     import torch
 
     from hysortk_tpu_torch import pipeline
-    from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort
+    from hysortk_tpu_torch.ops import (
+        block_sort, fused_count, fused_sort, keybuild, radix_sort,
+    )
 
     codes, valid = pipeline.device_batch(codes_np, lengths_np, slice_config(), "cuda")
     n = codes.shape[0]
@@ -407,6 +480,56 @@ def phase1_main_path(codes_np, lengths_np, errs):
         rs["library_ms"] = cuda_ms(lambda: torch.sort(packed), 5)
         del packed, lib_sorted
 
+    # Path A: the key build fused into the sort, on the codes themselves.
+    got = fused_sort.sort_codes_fused(codes, valid, K)
+    e = max(max_abs_err(got, sorted_words),
+            max_abs_err(got, fused_sort.sort_codes_fused_plain(codes, valid, K)))
+    require_equal("fused_sort main path", e)
+    errs["fused_sort"] = max(errs["fused_sort"], e)
+    del got
+    # In: codes int8 + valid bool; out: W sorted words. The key build's
+    # operations plus the sort's compares.
+    fs_bound = bound((2 + 4 * w) * n,
+                     (4 * K + 3 * w) * n + w * n * np.log2(max(n, 2)))
+    fs = dict(
+        ms=cuda_ms(lambda: fused_sort.sort_codes_fused(codes, valid, K), 5),
+        plain_ms=cuda_ms(lambda: fused_sort.sort_codes_fused_plain(codes, valid, K), 3),
+        bound_ms=fs_bound[0], bound_by=fs_bound[1], library_ms=None,
+    )
+    # The unfused pair on the same inputs, in turns with the fused kernel.
+    pair = lambda: radix_sort.sort_words(keybuild.canonical_keys_fused(codes, valid, K))
+    fused = lambda: fused_sort.sort_codes_fused(codes, valid, K)
+    turns = [cuda_ms(f, 5) for f in (pair, fused, fused, pair)]
+    log(f"phase1 fused_sort main-path n={n} K={K}: unfused pair {turns[0]:.4f} / "
+        f"{turns[3]:.4f} ms, fused {turns[1]:.4f} / {turns[2]:.4f} ms")
+
+    # Path B: the block sort as sort_words(formulation="roll") calls it (the
+    # key rows padded to B * 2^m, ascending blocks), here without a pad.
+    block = block_sort.DEFAULT_BLOCK
+    if n % block:
+        raise AssertionError(f"{n} slots are not whole blocks of {block}")
+    got = block_sort.block_bitonic_sort(marked, w, block, descending_odd=False)
+    e = max_abs_err(got, block_sort.block_bitonic_sort_plain(marked, w, block, False))
+    require_equal("block_sort main path", e)
+    errs["block_sort"] = max(errs["block_sort"], e)
+    # In and out: W words each. A comparison sort of B slots per block.
+    bs_bound = bound(8 * w * n, w * n * np.log2(block))
+    bs = dict(
+        ms=cuda_ms(lambda: block_sort.block_bitonic_sort(marked, w, block, False), 5),
+        plain_ms=cuda_ms(
+            lambda: block_sort.block_bitonic_sort_plain(marked, w, block, False), 3),
+        bound_ms=bs_bound[0], bound_by=bs_bound[1], library_ms=None,
+    )
+    if w <= 2:
+        # One torch.sort along the blocks of the packed key.
+        packed = packed_int64(marked).view(-1, block)
+        lib_sorted = torch.sort(packed, dim=1).values
+        if not torch.equal(lib_sorted.view(-1), packed_int64(got)):
+            raise AssertionError("torch.sort of the packed blocks differs")
+        bs["library_ms"] = cuda_ms(lambda: torch.sort(packed, dim=1), 5)
+        del packed, lib_sorted
+    del got
+
     got = fused_count.run_length_count_filter(sorted_words, LOWER, UPPER)
     e = max_abs_err(
         got, fused_count.run_length_count_filter_plain(sorted_words, LOWER, UPPER)
@@ -434,7 +557,8 @@ def phase1_main_path(codes_np, lengths_np, errs):
             lambda: torch.unique_consecutive(packed, return_counts=True), 5)
         del packed, lengths
 
-    times = {"keybuild": kb, "radix_sort": rs, "fused_count": fc}
+    times = {"keybuild": kb, "radix_sort": rs, "fused_count": fc,
+             "fused_sort": fs, "block_sort": bs}
     for name, t in times.items():
         log_kernel(f"phase1 {name} main-path n={n} K={K}", t)
     return times
@@ -504,8 +628,15 @@ KERNELS = {
     # member tail of hysortk_tpu/ops/pallas_msort.py:522 (call :414).
     "merge_runs": ("hysortk_tpu_torch/csrc/merge_runs.cu",
                    "hysortk_tpu/ops/pallas_sort.py:589"),
+    # pallas_msort.block_sort_keybuild, driven by pallas_sort.sort_codes_fused
+    # (pallas_sort.py:535).
+    "fused_sort": ("hysortk_tpu_torch/csrc/fused_sort.cu",
+                   "hysortk_tpu/ops/pallas_msort.py:355"),
+    "block_sort": ("hysortk_tpu_torch/csrc/block_sort.cu",
+                   "hysortk_tpu/ops/pallas_sort.py:179"),
 }
-# Which path's run gives each kernel its launch count in the record.
+# Which path's run gives each kernel its launch count in the record:
+# phase 2, phase 4(a), and for fused_sort phase 6, for block_sort phase 7.
 ONE_SHOT_KERNELS = ("keybuild", "radix_sort", "fused_count")
 STREAMING_KERNELS = ("run_length_sum", "merge_runs")
 
@@ -630,7 +761,7 @@ def phase2_slice(workdir: str, rng):
     log(f"phase2 {len(kl)} k-mers kept, equal to the plain composition; "
         f"histogram mode at count {int(np.argmax(hist))}; "
         f"peak device memory {peak / 2**30:.3f} GiB")
-    return codes, lengths, launches, (kl, hist), peak
+    return codes, lengths, launches, (kl, hist), peak, best
 
 
 # --------------------------------------------------------------------------
@@ -772,8 +903,8 @@ def phase4_streaming(codes, lengths, one_shot, one_shot_peak, errs, profile):
             f"{r['resident']} device-resident merges, {r['host_merge']} host-list "
             f"merges, wall {r['wall']:.4f} s, peak device memory {peak / 2**30:.3f} GiB, "
             f"launches {json.dumps(launches)}")
-        for name, count in launches.items():
-            if count == 0:
+        for name in ONE_SHOT_KERNELS + STREAMING_KERNELS:
+            if launches[name] == 0:
                 raise AssertionError(
                     f"kernel {name} was not launched by streaming run ({tag})")
         if tag == "a" and not (r["host_merge"] == 1 and r["resident"] == 0):
@@ -870,6 +1001,287 @@ def phase5_cli(workdir: str, fasta: str, reads) -> None:
         log(f"phase5 cli --stream-batch-bases 2000 {' '.join(extra)}: "
             f"{len(got)} k-mers equal to the oracle")
 
+# --------------------------------------------------------------------------
+# Phase 6
+
+
+def same_list(a, b) -> bool:
+    return np.array_equal(a.keys, b.keys) and np.array_equal(a.counts, b.counts)
+
+
+def phase6_fused_sort(codes, lengths, one_shot):
+    """Path A at full width: phase 2's call with HYSORTK_FUSED_SORT set.
+    Returns the launch counts of its calls."""
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch import _build
+
+    cfg = slice_config()
+    want, want_hist = one_shot
+    before = os.environ.get("HYSORTK_FUSED_SORT")
+    os.environ["HYSORTK_FUSED_SORT"] = "1"
+    try:
+        _build.reset_launches()
+        walls = []
+        for call in range(3):
+            t0 = time.perf_counter()
+            kl, hist = ht.kmer_count(codes, lengths, cfg, device="cuda")
+            walls.append(time.perf_counter() - t0)
+            if call == 0 and [_build.launches[name] for name in (
+                    "fused_sort", "fused_count", "keybuild", "radix_sort")] != [1, 1, 0, 0]:
+                raise AssertionError(
+                    f"one fused call launched {json.dumps(_build.launches)}")
+            if not (same_list(kl, want) and np.array_equal(hist, want_hist)):
+                raise AssertionError("the fused path differs from phase 2's result")
+        launches = dict(_build.launches)
+    finally:
+        if before is None:
+            del os.environ["HYSORTK_FUSED_SORT"]
+        else:
+            os.environ["HYSORTK_FUSED_SORT"] = before
+    log(f"phase6 HYSORTK_FUSED_SORT=1 kmer_count: {len(kl)} k-mers equal to phase "
+        f"2's; walls {', '.join(f'{w:.4f}' for w in walls)} s; launches "
+        f"{json.dumps(launches)}")
+    return launches, min(walls)
+
+
+# --------------------------------------------------------------------------
+# Phase 7
+
+
+def phase7_roll(codes, lengths, one_shot):
+    """Path B at full width, composed: key build -> sort_words("roll") ->
+    fused count on phase 2's device batch. Returns its launch counts."""
+    import torch
+
+    from hysortk_tpu_torch import _build, pipeline
+    from hysortk_tpu_torch.ops import block_sort, fused_count, keybuild, radix_sort
+
+    cfg = slice_config()
+    codes_d, valid_d = pipeline.device_batch(codes, lengths, cfg, "cuda")
+    _build.reset_launches()
+    marked = keybuild.canonical_keys_fused(codes_d, valid_d, cfg.k)
+    words, _ = radix_sort.sort_words(marked, formulation="roll")
+    cnt, keep = fused_count.run_length_count_filter(words, cfg.lower, cfg.upper)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for name in ("keybuild", "block_sort", "merge_runs", "fused_count"):
+        if launches[name] != 1:
+            raise AssertionError(f"path B launched {name} {launches[name]} times")
+    if launches["radix_sort"] or launches["fused_sort"]:
+        raise AssertionError("path B went through the radix sort")
+    radix_words, _ = radix_sort.sort_words(marked)
+    require_equal("roll sort against the radix sort", max_abs_err(words, radix_words))
+    del radix_words
+    kl = pipeline.compact_keys(words, cnt, keep, cfg.k)
+    if not same_list(kl, one_shot[0]):
+        raise AssertionError("path B differs from phase 2's result")
+    del words, cnt, keep
+    n = marked[0].shape[0]
+    radix = lambda: radix_sort.sort_words(marked)
+    roll = lambda: radix_sort.sort_words(marked, formulation="roll")
+    turns = [cuda_ms(f, 3) for f in (radix, roll, roll, radix)]
+    log(f"phase7 roll sort n={n} W={len(marked)} B={block_sort.DEFAULT_BLOCK}: "
+        f"{len(kl)} k-mers equal to phase 2's, sorted words equal to the radix "
+        f"sort's; radix {turns[0]:.4f} / {turns[3]:.4f} ms, roll {turns[1]:.4f} / "
+        f"{turns[2]:.4f} ms; launches {json.dumps(launches)}")
+    for block in (4096, 8192, 16384):
+        ms = cuda_ms(lambda: radix_sort.sort_words(
+            marked, formulation="roll", block=block), 3)
+        bms = cuda_ms(lambda: block_sort.block_bitonic_sort(
+            marked, len(marked), block, False), 3)
+        log(f"phase7 roll sort B={block}: {ms:.4f} ms, of which block sort {bms:.4f} ms")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 8
+
+
+def oracle_ext(reads, k: int, lower: int, upper: int, rid0: int = 0):
+    """kmer -> (count, {(rid, pos)}) by pure Python."""
+    from hysortk_tpu_torch import testing
+
+    occ: dict = {}
+    for r, read in enumerate(reads):
+        s = testing.normalize(read)
+        for i in range(len(s) - k + 1):
+            occ.setdefault(testing.canonical(s[i:i + k]).encode(), set()).add(
+                (r + rid0, i))
+    return {km: (len(v), v) for km, v in occ.items() if lower <= len(v) <= upper}
+
+
+def sample_ext(kl, step: int):
+    """Every step-th k-mer of an extension list, as its as_dict()."""
+    from hysortk_tpu_torch import pipeline
+
+    return pipeline.KmerListExt(
+        keys=kl.keys[::step], counts=kl.counts[::step], k=kl.k,
+        pos=kl.pos[::step], rid=kl.rid[::step]).as_dict()
+
+
+def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
+                     reads, errs):
+    """Path C: extension mode one-shot at full width, streamed, and on the
+    small FASTA through the facade and the CLI."""
+    import dataclasses
+
+    import torch
+
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch import _build, pipeline, testing
+    from hysortk_tpu_torch.io import fasta as fasta_io
+    from hysortk_tpu_torch.io import writer
+    from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort
+    from hysortk_tpu_torch.ops import kmer as kmer_ops
+
+    cfg = dataclasses.replace(slice_config(), extension=True)
+
+    # (a) one-shot at 2^26 bases through the facade.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    kl, hist = ht.kmer_count(codes, lengths, cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_build.launches)
+    if [launches[name] for name in ONE_SHOT_KERNELS] != [1, 1, 1]:
+        raise AssertionError(f"extension call launched {json.dumps(launches)}")
+    if not isinstance(kl, ht.KmerListExt):
+        raise AssertionError("extension call returned no KmerListExt")
+    if not (same_list(kl, one_shot[0]) and np.array_equal(hist, one_shot[1])):
+        raise AssertionError("extension counts differ from phase 2's")
+    n_occ = int(kl.counts.sum())
+    sizes = np.fromiter((p.size for p in kl.pos), dtype=np.int64, count=len(kl))
+    if not (np.array_equal(sizes, kl.counts) and len(kl.rid) == len(kl)):
+        raise AssertionError("occurrence lists do not match the counts")
+    # Every occurrence of a sample of k-mers, read back from the reads.
+    read_codes = codes[: lengths.size * READ_LEN].reshape(-1, READ_LEN)
+    sample = range(0, len(kl), max(len(kl) // 500, 1))
+    decoded = kmer_ops.decode_keys(kl.keys[sample.start::sample.step], K).tolist()
+    for j, want_kmer in zip(sample, decoded):
+        for r, p in zip(kl.rid[j].tolist(), kl.pos[j].tolist()):
+            kmer = "".join("ACGT"[c] for c in read_codes[r, p:p + K])
+            if testing.canonical(kmer).encode() != want_kmer:
+                raise AssertionError(f"k-mer {j} does not occur at read {r} pos {p}")
+    d2h = kl.keys.nbytes + kl.counts.nbytes + 8 * len(kl) + 8 * n_occ
+    plain_d2h = one_shot[0].keys.nbytes + one_shot[0].counts.nbytes
+    log(f"phase8a kmer_count(extension=True) {int(codes.size)} bases: {len(kl)} "
+        f"k-mers equal to phase 2's, {n_occ} occurrences; wall {wall:.4f} s; peak "
+        f"device memory {peak / 2**30:.3f} GiB (phase 2: {one_shot_peak / 2**30:.3f}); "
+        f"D2H {d2h} B (phase 2: {plain_d2h} B); launches {json.dumps(launches)}")
+    del kl, sizes
+
+    # (b) the device outputs against the plain composition, same tensors.
+    t0 = time.perf_counter()
+    flat, valid, rid, pos = fasta_io.flatten_for_device_ext(
+        codes, lengths, cfg.k, cfg.pad_multiple)
+    t_flatten = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev = [torch.from_numpy(a).cuda() for a in
+           (flat, valid, rid, pos.view(np.int32))]
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    del flat, valid, rid, pos
+    t0 = time.perf_counter()
+    words, cnt, keep, rid_s, pos_s = pipeline._count_device_ext(
+        *dev, cfg.k, cfg.lower, cfg.upper)
+    torch.cuda.synchronize()
+    t_device = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assembled = pipeline.assemble_ext_result(words, cnt, keep, rid_s, pos_s, cfg)
+    t_assemble = time.perf_counter() - t0
+    if not same_list(assembled, one_shot[0]):
+        raise AssertionError("the assembled extension list differs from phase 2's")
+    del assembled
+    log(f"phase8b stages of the one-shot extension call: host flatten "
+        f"{t_flatten:.4f} s, H2D {t_h2d:.4f} s, device pipeline {t_device:.4f} s, "
+        f"gather + D2H + occurrence lists {t_assemble:.4f} s")
+    marked = keybuild.canonical_keys_plain(dev[0], dev[1], cfg.k)
+    p_words, (p_rid, p_pos) = radix_sort.sort_words_plain(marked, dev[2:])
+    p_cnt, p_keep = fused_count.run_length_count_filter_plain(
+        p_words, cfg.lower, cfg.upper)
+    e_sort = max_abs_err(words + [rid_s, pos_s], p_words + [p_rid, p_pos])
+    e_count = max_abs_err([cnt, keep], [p_cnt, p_keep])
+    require_equal("extension sort (words + rid + pos)", e_sort)
+    require_equal("extension count", e_count)
+    errs["radix_sort"] = max(errs["radix_sort"], e_sort)
+    errs["fused_count"] = max(errs["fused_count"], e_count)
+    del words, cnt, keep, rid_s, pos_s, p_words, p_rid, p_pos, p_cnt, p_keep
+    marked = keybuild.canonical_keys_fused(dev[0], dev[1], cfg.k)
+    ms = cuda_ms(lambda: radix_sort.sort_words(marked, dev[2:]), 3)
+    ms_keys = cuda_ms(lambda: radix_sort.sort_words(marked), 3)
+    log(f"phase8b device outputs (words, rid, pos, counts, keep) equal to the plain "
+        f"composition; radix sort W=2+2 payload rows {ms:.4f} ms (keys only "
+        f"{ms_keys:.4f} ms)")
+    del dev, marked
+    torch.cuda.empty_cache()
+
+    # (c) streamed against one-shot on the first EXT_STREAM_BASES bases.
+    n_reads = EXT_STREAM_BASES // READ_LEN
+    sub_codes, sub_lengths = codes[: n_reads * READ_LEN], lengths[:n_reads]
+    rid0 = 1_000_000
+    t0 = time.perf_counter()
+    want, want_hist = ht.count_reads_ext(sub_codes, sub_lengths, cfg, rid0,
+                                         device="cuda")
+    one_wall = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got, got_hist = ht.count_reads_streaming_ext(
+        sub_codes, sub_lengths, cfg, EXT_STREAM_BATCH, rid0, device="cuda")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not (same_list(got, want) and np.array_equal(got_hist, want_hist)):
+        raise AssertionError("streamed extension counts differ from one-shot")
+    sizes = np.fromiter((r.size for r in got.rid), dtype=np.int64, count=len(got))
+    if not np.array_equal(sizes, got.counts):
+        raise AssertionError("streamed occurrence lists do not match the counts")
+    step = 64
+    if sample_ext(got, step) != sample_ext(want, step):
+        raise AssertionError("streamed occurrences differ from one-shot")
+    if min(int(got.rid[j][0]) for j in range(0, len(got), step)) < rid0:
+        raise AssertionError("the read id offset was lost")
+    log(f"phase8c count_reads_streaming_ext {int(sub_codes.size)} bases in batches "
+        f"of {EXT_STREAM_BATCH}, read_id_offset {rid0}: {len(got)} k-mers, keys, counts "
+        f"and histogram equal to count_reads_ext, occurrences of every {step}th "
+        f"k-mer equal as sets; wall {wall:.4f} s (one-shot {one_wall:.4f} s); peak "
+        f"device memory {peak / 2**30:.3f} GiB; launches {json.dumps(_build.launches)}")
+    del got, want
+
+    # (d) the small FASTA: facade and CLI against the oracle.
+    want = oracle_ext(reads, K, 2, 10)
+    small_cfg = ht.KmerConfig(k=K, m=M, lower=2, upper=10, extension=True)
+    s_codes, s_lengths = ht.read_dna_buffer(fasta)
+    kl, _ = ht.kmer_count(s_codes, s_lengths, small_cfg, device="cuda")
+    streamed, _ = ht.count_reads_streaming_ext(s_codes, s_lengths, small_cfg, 2000,
+                                               device="cuda")
+    if not (kl.as_dict() == want and streamed.as_dict() == want and want):
+        raise AssertionError("extension result on the small FASTA differs from "
+                             "the oracle")
+    log(f"phase8d kmer_count(extension=True) and count_reads_streaming_ext on the "
+        f"small FASTA: {len(want)} k-mers with their occurrences equal to the oracle")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    counts = {km.decode(): c for km, (c, _) in want.items()}
+    for tag, extra in (("one_shot", []), ("stream", ["--stream-batch-bases", "2000"])):
+        out_dir = os.path.join(workdir, f"cli_ext_{tag}")
+        proc = subprocess.run(
+            [sys.executable, "-m", "hysortk_tpu_torch.cli", fasta, out_dir,
+             "-k", str(K), "-m", str(M), "-l", "2", "-u", "10", "--device", "cuda",
+             "--extension", "--validate", *extra],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+        )
+        if proc.returncode != 0 or "validate OK" not in proc.stdout:
+            raise AssertionError(f"phase 8 cli exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        got = {km.decode(): c for km, c in writer.parse_output_files(out_dir).items()}
+        if got != counts:
+            raise AssertionError(f"phase 8 cli ({tag}): {len(got)} k-mers vs oracle "
+                                 f"{len(counts)}")
+        log(f"phase8d cli --extension {' '.join(extra)}: {len(got)} k-mers equal "
+            f"to the oracle")
+
 
 def main() -> int:
     import torch
@@ -891,18 +1303,26 @@ def main() -> int:
     os.makedirs(scratch_root, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch_root)
     try:
-        codes, lengths, launches, one_shot, peak = phase2_slice(workdir, rng)
+        codes, lengths, launches, one_shot, peak, best_wall = phase2_slice(workdir, rng)
         torch.cuda.empty_cache()
         times = phase1_main_path(codes, lengths, errs)
         fasta, reads = phase3_small(workdir, rng)
         stream_launches, stream_times = phase4_streaming(
             codes, lengths, one_shot, peak, errs, "--profile" in sys.argv[1:])
         phase5_cli(workdir, fasta, reads)
+        torch.cuda.empty_cache()
+        fused_launches, fused_wall = phase6_fused_sort(codes, lengths, one_shot)
+        log(f"phase6 best wall {fused_wall:.4f} s beside phase 2's {best_wall:.4f} s")
+        roll_launches = phase7_roll(codes, lengths, one_shot)
+        torch.cuda.empty_cache()
+        phase8_extension(workdir, codes, lengths, one_shot, peak, fasta, reads, errs)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     times.update(stream_times)
     for name in STREAMING_KERNELS:
         launches[name] = stream_launches[name]
+    launches["fused_sort"] = fused_launches["fused_sort"]
+    launches["block_sort"] = roll_launches["block_sort"]
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

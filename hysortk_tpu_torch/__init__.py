@@ -8,9 +8,10 @@ the reference library API (reference: include/hysortk.hpp:10-16):
     print_kmer_histogram  -> frequency histogram in the reference format
     write_output_file     -> per-shard `{kmer}\\t{count}` files
 
-This package covers single-device, non-extension counting, one-shot and in
-bounded device memory (runtime/scheduler.count_reads_streaming). It imports
-neither jax nor hysortk_tpu.
+This package covers single-device counting, one-shot and in bounded device
+memory (runtime/scheduler.count_reads_streaming), with and without
+extension mode ((ReadId, PosInRead) occurrence payloads: count_reads_ext,
+count_reads_streaming_ext). It imports neither jax nor hysortk_tpu.
 """
 
 from __future__ import annotations
@@ -22,15 +23,28 @@ import numpy as np
 from .config import KmerConfig, from_jax_fields
 from .io import fasta as _fasta
 from .io import writer as _writer
-from .pipeline import KmerList, count_flat, count_reads, resolve_device
+from .pipeline import (
+    KmerList,
+    KmerListExt,
+    count_flat,
+    count_flat_ext,
+    count_reads,
+    count_reads_ext,
+    resolve_device,
+)
 from .runtime import memcheck as _memcheck
-from .runtime.scheduler import count_reads_streaming, suggest_batch_bases
+from .runtime.scheduler import (
+    count_reads_streaming,
+    count_reads_streaming_ext,
+    suggest_batch_bases,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "KmerConfig",
     "KmerList",
+    "KmerListExt",
     "from_jax_fields",
     "read_dna_buffer",
     "kmer_count",
@@ -39,6 +53,9 @@ __all__ = [
     "count_flat",
     "count_reads",
     "count_reads_streaming",
+    "count_flat_ext",
+    "count_reads_ext",
+    "count_reads_streaming_ext",
 ]
 
 
@@ -61,7 +78,7 @@ def kmer_count(
     lengths: np.ndarray,
     config: Optional[KmerConfig] = None,
     device="cuda",
-) -> tuple[KmerList, np.ndarray]:
+) -> tuple[KmerList | KmerListExt, np.ndarray]:
     """Count canonical k-mers on one device. Facade analogue of
     hysortk::kmer_count (src/hysortk.cpp:36-95). Returns (filtered KmerList,
     histogram array).
@@ -71,11 +88,13 @@ def kmer_count(
     by itself (count_reads_streaming) when the one-shot working set would
     not fit the device's memory headroom; the reference instead switches
     sorters on MemFree (src/kmerops.cpp:1344-1379). The CPU reports no
-    headroom and always runs one-shot. Extension mode and more than one
-    device are not ported yet and raise NotImplementedError."""
+    headroom and always runs one-shot. Under cfg.extension the result is a
+    KmerListExt with every k-mer's (read id, position) occurrences, counted
+    one-shot (count_reads_ext; as in the JAX package the facade does not
+    stream extension mode by itself, count_reads_streaming_ext does when
+    called). More than one device is not ported yet and raises
+    NotImplementedError."""
     cfg = config or KmerConfig()
-    if cfg.extension:
-        raise NotImplementedError("extension mode is not ported yet")
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
             raise NotImplementedError(
@@ -83,6 +102,8 @@ def kmer_count(
             )
         device = device[0]
     dev = resolve_device(device)
+    if cfg.extension:
+        return count_reads_ext(codes, lengths, cfg, device=dev)
     headroom = _memcheck.hbm_headroom_bytes(dev)
     need = int(codes.size) * (4 + 2 * cfg.words * 4 + 8) * 2
     if headroom is not None and 0 < headroom < need:
@@ -99,7 +120,7 @@ def print_kmer_histogram(hist: np.ndarray) -> str:
 
 
 def write_output_file(
-    kmerlist: KmerList, output_dir: str, shard: int = 0
+    kmerlist: KmerList | KmerListExt, output_dir: str, shard: int = 0
 ) -> str:
     """Write `<outdir>/<shard>.out` (src/hysortk.cpp:138-164)."""
     return _writer.write_output_file(kmerlist, output_dir, shard)

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels; hold their launch counts.
 
-The kernels' sources are csrc/*.cu. At first use they are compiled by nvcc
+The kernels' sources are csrc/*.cu and the headers csrc/*.cuh that they
+share. At first use they are compiled by nvcc
 for sm_90a (Hopper), one nvcc process per source and all at once, and
 linked into one shared library with a plain C interface that is loaded with
 ctypes, so the build needs the CUDA toolkit and nothing of PyTorch's
@@ -35,6 +36,7 @@ _LIB_NAME = "libhysortk_kernels.so"
 launches = {
     "keybuild": 0, "radix_sort": 0, "fused_count": 0,
     "run_length_sum": 0, "merge_runs": 0,
+    "fused_sort": 0, "block_sort": 0,
 }
 
 _lock = threading.Lock()
@@ -136,6 +138,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_radix_sort_scratch.restype = i64
     lib.hk_radix_sort.argtypes = [ptrs, ptrs, i32, i32, i64, ptr, ptr]
     lib.hk_radix_sort.restype = i32
+    lib.hk_fused_sort.argtypes = [ptr, ptr, i64, i32, ptrs, ptrs, ptr, ptr]
+    lib.hk_fused_sort.restype = i32
+    lib.hk_block_sort.argtypes = [ptrs, ptrs, i32, i32, i64, i64, i32, ptr]
+    lib.hk_block_sort.restype = i32
     lib.hk_fused_count_scratch.argtypes = [i64]
     lib.hk_fused_count_scratch.restype = i64
     lib.hk_fused_count.argtypes = [ptrs, i32, i64, i32, i32, ptr, ptr, ptr, ptr]

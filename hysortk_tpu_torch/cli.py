@@ -3,8 +3,8 @@
 The port of hysortk_tpu/cli.py. Mirrors the reference standalone binary
 (reference: standalone/main.cpp:9-72): prints the parameter block, runs
 read -> count -> histogram -> output files, on one device. Flags of paths
-that are not ported yet (extension mode, the sharded and multi-process
-paths, supermer routing) are accepted and end the run with an error.
+that are not ported yet (the sharded and multi-process paths, supermer
+routing) are accepted and end the run with an error.
 """
 
 from __future__ import annotations
@@ -58,9 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--validate", action="store_true",
         help="after counting, cross-check the result against a brute-force "
              "host oracle (runtime sanitizer; inputs up to ~4 Mb)")
-    # Paths that are not ported yet: accepted, then refused.
     p.add_argument("--extension", action="store_true",
-                   help="EXT mode (not ported yet)")
+                   help="EXT mode: track (ReadId, PosInRead) per occurrence")
+    # Paths that are not ported yet: accepted, then refused.
     p.add_argument("--combiner", action="store_true",
                    help="sharded pre-aggregation (not ported yet)")
     p.add_argument("--routing",
@@ -85,7 +85,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags of `args` that ask for a path this package does not have."""
     asked = {
-        "--extension": args.extension,
         "--combiner": args.combiner,
         "--routing": args.routing != "range",
         "--classifier": args.classifier != "heavy_hitter",
@@ -122,12 +121,12 @@ def main(argv=None) -> int:
     from .pipeline import resolve_device
     from .runtime import memcheck
     from .runtime.logger import Logger
-    from .runtime.scheduler import count_reads_streaming
+    from .runtime.scheduler import count_reads_streaming, count_reads_streaming_ext
     from .runtime.timer import Timer
 
     cfg = KmerConfig(
         k=args.k, m=args.m, lower=args.lower, upper=args.upper,
-        device_compact=args.device_compact,
+        device_compact=args.device_compact, extension=args.extension,
     )
     dev = resolve_device(args.device)
 
@@ -152,6 +151,12 @@ def main(argv=None) -> int:
         profile_cm = contextlib.nullcontext()
 
     def _do_count():
+        if args.extension and args.stream_batch_bases:
+            # Bounded-memory EXT: per-batch unfiltered occurrence partials
+            # merged on the host.
+            return count_reads_streaming_ext(
+                codes, lengths, cfg, args.stream_batch_bases, device=dev
+            )
         if args.stream_batch_bases:
             return count_reads_streaming(
                 codes, lengths, cfg, args.stream_batch_bases, device=dev
@@ -196,6 +201,8 @@ def main(argv=None) -> int:
             ).items()
         }
         got = kmerlist.as_dict()
+        if args.extension:  # (count, occurrences) per k-mer: the counts
+            got = {km: entry[0] for km, entry in got.items()}
         if got != want:
             log.root("VALIDATE FAILED: device result != host oracle")
             return 1

@@ -17,6 +17,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "canonical_key.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -25,14 +27,6 @@ constexpr int kMaxWords = 6;
 struct KeyRows {
   uint32_t* row[kMaxWords];
 };
-
-__device__ __forceinline__ uint32_t crumb_reverse32(uint32_t x) {
-  x = (x >> 16) | (x << 16);
-  x = ((x & 0xFF00FF00u) >> 8) | ((x & 0x00FF00FFu) << 8);
-  x = ((x & 0xF0F0F0F0u) >> 4) | ((x & 0x0F0F0F0Fu) << 4);
-  x = ((x & 0xCCCCCCCCu) >> 2) | ((x & 0x33333333u) << 2);
-  return x;
-}
 
 template <int W>
 __global__ void __launch_bounds__(kThreads)
@@ -55,47 +49,10 @@ keybuild_kernel(const int8_t* __restrict__ codes,
     return;
   }
 
-  // Forward words: bases i+16w .. i+16w+15, the last word cut to r bases.
-  const uint32_t* s = tile + threadIdx.x;
-  uint32_t fwd[W];
+  uint32_t key[W];
+  hk::canonical_key<W>(tile + threadIdx.x, k, key);
 #pragma unroll
-  for (int w = 0; w < W; ++w) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) word = (word << 2) | s[16 * w + j];
-    fwd[w] = word;
-  }
-  const int r = k - 16 * (W - 1);
-  if (r < 16) fwd[W - 1] &= 0xFFFFFFFFu << (32 - 2 * r);
-
-  // Twin: reverse the crumbs of the reversed word list, complement, and
-  // shift the whole key left so its first base sits at the top of word 0.
-  uint32_t rev[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) rev[w] = ~crumb_reverse32(fwd[W - 1 - w]);
-  const int shift = 32 * W - 2 * k;  // 0 when k == 16W
-  uint32_t twn[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    if (shift == 0) {
-      twn[w] = rev[w];
-    } else {
-      const uint32_t lo = w + 1 < W ? rev[w + 1] >> (32 - shift) : 0u;
-      twn[w] = (rev[w] << shift) | lo;
-    }
-  }
-
-  // Canonical = lexicographic min(fwd, twn), word 0 most significant.
-  bool less = false, decided = false;
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    if (!decided && twn[w] != fwd[w]) {
-      less = twn[w] < fwd[w];
-      decided = true;
-    }
-  }
-#pragma unroll
-  for (int w = 0; w < W; ++w) out.row[w][i] = less ? twn[w] : fwd[w];
+  for (int w = 0; w < W; ++w) out.row[w][i] = key[w];
 }
 
 }  // namespace

@@ -228,3 +228,32 @@ def flatten_for_device(
         read_len = np.repeat(lengths, lengths)
         valid[:n] = pos_in_read <= read_len - k
     return out_codes, valid
+
+
+def flatten_for_device_ext(
+    codes: np.ndarray,
+    lengths: np.ndarray,
+    k: int,
+    pad_multiple: int = 1024,
+    read_id_offset: int = 0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Extension-mode device input: (codes, valid, rid, pos).
+
+    rid[i] = global read id owning flat position i (offset by read_id_offset,
+    the analogue of the reference's MPI_Exscan read-id base,
+    src/kmerops.cpp:66); pos[i] = position within the read. Only meaningful at
+    valid k-mer starts.
+    """
+    out_codes, valid = flatten_for_device(codes, lengths, k, pad_multiple)
+    n = int(codes.size)
+    rid = np.zeros(out_codes.shape[0], dtype=np.int32)
+    pos = np.zeros(out_codes.shape[0], dtype=np.uint32)
+    if lengths.size:
+        offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        rid[:n] = np.repeat(
+            np.arange(lengths.size, dtype=np.int64) + read_id_offset, lengths
+        ).astype(np.int32)
+        pos[:n] = (np.arange(n, dtype=np.int64) - np.repeat(offsets, lengths)).astype(
+            np.uint32
+        )
+    return out_codes, valid, rid, pos

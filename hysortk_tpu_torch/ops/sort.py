@@ -8,7 +8,8 @@ include/kmer.hpp:316-321), hence the all-ones pattern in every word is
 unreachable and sorts strictly after every real key.
 
 The sort itself is ops/radix_sort.sort_words: the hand-written CUDA radix
-sort on a CUDA tensor, its plain PyTorch version on a CPU tensor. The JAX
+sort on a CUDA tensor, its plain PyTorch version on a CPU tensor, or under
+formulation="roll" the block sort followed by the run merge. The JAX
 package's backend choice (`resolve_backend`, `sort_decision`) picks between
 XLA and Pallas on a TPU and has no counterpart here.
 """
@@ -47,18 +48,23 @@ def sort_keys(
     invalid: torch.Tensor,
     words: Sequence[torch.Tensor],
     payloads: Sequence[torch.Tensor] = (),
+    formulation: str = "member",
 ) -> tuple[torch.Tensor, list[torch.Tensor], list[torch.Tensor]]:
     """Sort by key words lexicographically, invalid slots last, carrying
     payloads. Returns (sorted_invalid, sorted_words, sorted_payloads), where
-    sorted_invalid is int32 (0 = valid, 1 = invalid)."""
-    return sort_marked(apply_sentinel(invalid, words), payloads)
+    sorted_invalid is int32 (0 = valid, 1 = invalid). `formulation` as in
+    radix_sort.sort_words."""
+    return sort_marked(apply_sentinel(invalid, words), payloads, formulation)
 
 
 def sort_marked(
     marked: Sequence[torch.Tensor],
     payloads: Sequence[torch.Tensor] = (),
+    formulation: str = "member",
 ) -> tuple[torch.Tensor, list[torch.Tensor], list[torch.Tensor]]:
     """Sort keys already carrying the all-ones invalid sentinel."""
-    sorted_words, sorted_payloads = radix_sort.sort_words(marked, payloads)
+    sorted_words, sorted_payloads = radix_sort.sort_words(
+        marked, payloads, formulation
+    )
     inv_sorted = (~sentinel_valid(sorted_words)).to(torch.int32)
     return inv_sorted, sorted_words, sorted_payloads

@@ -64,3 +64,46 @@ def decode_block(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Wire block -> (codes int8 (n,), valid bool (n,))."""
     return unpack_codes(packed, n), valid_from_lengths(lengths, k, n)
+
+
+def rid_pos_from_lengths(
+    lengths: torch.Tensor, n: int, rid_base: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R,) read lengths -> per-position (read id, pos in read), both int32
+    (pos a uint32 bit pattern, like the key words).
+
+    Extension payloads need not travel the wire at all: both follow from
+    the lengths with one boundary scatter and cumulative scans (rid = the
+    running count of read starts; pos = the distance from the last start,
+    by a cumulative max of start positions). Only meaningful where
+    valid_from_lengths is True.
+    """
+    dev = lengths.device
+    lengths = lengths.to(torch.int32)
+    ends = torch.cumsum(lengths, 0, dtype=torch.int32)
+    starts = ends - lengths
+    # EVERY read marks its start, zero-length records too: their marks
+    # stack on the next read's start (hence a scatter-add, which sums
+    # repeated indices), so read ids keep counting ALL records, like the
+    # host flattener and the reference's global read numbering. The
+    # zero-padding pseudo-reads of `lengths` mark at or after the real
+    # total, where the valid mask is already False.
+    marks = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    marks.scatter_add_(
+        0, starts.clamp(max=n).to(torch.int64), torch.ones_like(starts)
+    )
+    rid = torch.cumsum(marks[:-1], 0, dtype=torch.int32) - 1 + rid_base
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    last_start = torch.cummax(
+        torch.where(marks[:-1] > 0, idx, torch.zeros_like(idx)), 0
+    ).values
+    return rid, idx - last_start
+
+
+def decode_block_ext(
+    packed: torch.Tensor, lengths: torch.Tensor, k: int, n: int, rid_base: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Extension wire block -> (codes, valid, rid, pos)."""
+    codes, valid = decode_block(packed, lengths, k, n)
+    rid, pos = rid_pos_from_lengths(lengths, n, rid_base)
+    return codes, valid, rid, pos

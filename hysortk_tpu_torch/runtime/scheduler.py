@@ -1,7 +1,7 @@
 """Streaming device-batch scheduler: bounded device memory whatever the
 input size.
 
-The port of hysortk_tpu/runtime/scheduler.py, non-extension part. The
+The port of hysortk_tpu/runtime/scheduler.py. The
 reference bounds memory by exchanging fixed-size rounds (MAX_SEND_BATCH,
 src/kmerops.cpp:587-1007). Here the *input* streams: reads are processed in
 device batches of a fixed base budget; each batch is counted unfiltered (a
@@ -18,6 +18,10 @@ runtime/profiling.annotate) that a torch.profiler trace sums by name.
 Partials are held on the host by default. Under cfg.device_compact they
 stay on the device as sorted sentinel-padded runs, folded together every
 `group` batches, and only the final filtered result crosses to the host.
+
+Extension mode streams the same batches (count_reads_streaming_ext): each
+runs the extension pipeline unfiltered and the per-batch (key, count,
+occurrences) partials merge on the host.
 """
 
 from __future__ import annotations
@@ -35,11 +39,16 @@ from ..ops import count as count_ops
 from ..ops import merge as merge_ops
 from ..ops import run_length_sum as sum_ops
 from ..pipeline import (
+    UNFILTERED as _UNFILTERED,
     KmerList,
+    KmerListExt,
+    _count_device_ext_packed,
     _count_device_packed,
     _count_device_packed_compact,
+    assemble_ext_result,
     compact_keys,
     host_histogram,
+    merge_ext_partials,
     narrow_counts,
     pull_prefix,
     resolve_device,
@@ -48,9 +57,6 @@ from . import memcheck
 from .profiling import annotate
 
 _LOG = logging.getLogger("hysortk_tpu_torch.stream")
-
-# Unfiltered bounds: partial counts must survive until the final merge.
-_UNFILTERED = (1, 2**31 - 1)
 
 
 def _next_pow2(x: int) -> int:
@@ -143,9 +149,55 @@ def suggest_pipe_depth(
     return max(1, min(d, max_depth))
 
 
-def count_reads_streaming_ext(*args, **kwargs):
-    """Bounded-memory extension-mode counting: not ported yet."""
-    raise NotImplementedError("extension mode is not ported yet")
+def count_reads_streaming_ext(
+    codes: np.ndarray,
+    lengths: np.ndarray,
+    cfg: KmerConfig,
+    batch_bases: int = 1 << 26,
+    read_id_offset: int = 0,
+    device="cuda",
+) -> tuple[KmerListExt, np.ndarray]:
+    """Bounded-memory extension-mode counting on one device: each device
+    batch runs the extension pipeline UNFILTERED, and the per-batch (key,
+    count, occurrences) partials merge on the host with the [L, U] filter
+    applied to the merged totals only, the reference's EXT-indifferent
+    bounded round loop (src/kmerops.cpp:906-1007). Peak device memory is set
+    by batch_bases. Read ids count from read_id_offset across the batches."""
+    from ..io import supermer as supermer_io
+
+    dev = resolve_device(device)
+    snapped = snap_batch_to_pow2_flat(batch_bases, cfg.pad_multiple)
+    if 0 < snapped <= batch_bases:
+        batch_bases = snapped
+    target = -(-(batch_bases + 16) // cfg.pad_multiple) * cfg.pad_multiple
+    spans = read_batch_spans(lengths, batch_bases)
+    lmax = max((end - start for start, end in spans), default=1)
+
+    partials = []
+    rid_off = read_id_offset
+    for b_codes, b_lengths in iter_read_batches(codes, lengths, batch_bases):
+        # 2-bit wire feed; (rid, pos) are derived on the device from the
+        # read lengths, zero-padded to the longest batch's read count.
+        n = target
+        if b_codes.size + 16 > target:
+            n = -(-(b_codes.size + 16) // cfg.pad_multiple) * cfg.pad_multiple
+        buf = np.zeros(n, dtype=np.int8)
+        buf[: b_codes.size] = b_codes
+        packed = supermer_io.pack_codes_2bit(buf)
+        lens = np.zeros(max(lmax, 1), dtype=np.int32)
+        lens[: b_lengths.size] = b_lengths
+        outs = _count_device_ext_packed(
+            torch.from_numpy(packed.view(np.int32)).to(dev),
+            torch.from_numpy(lens).to(dev),
+            rid_off, cfg.k, n, *_UNFILTERED,
+        )
+        partials.append(assemble_ext_result(*outs, cfg))
+        rid_off += b_lengths.size
+
+    merged = merge_ext_partials(
+        partials, cfg.lower, cfg.upper, cfg.k, cfg.words
+    )
+    return merged, host_histogram(merged.counts, cfg.upper)
 
 
 def _consolidation_group_size(target: int, words: int, device) -> int:

@@ -76,10 +76,52 @@ def test_cli_matches_jax_cli(fasta, tmp_path, capsys, k, stream):
     ["--num-processes", "2"], ["--process-id", "0"],
     ["--extension", "--stream-batch-bases", "700"],
 ])
-def test_unported_paths_exit_nonzero(fasta, capsys, flags):
-    assert cli.main([fasta[0], "--device", "cpu", *flags]) != 0
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and flags[0] in err
+def test_unported_paths_exit_nonzero(fasta, tmp_path, capsys, monkeypatch, flags):
+    """Flags of paths that are not ported end the run with an error.
+    --extension is ported: one-shot it goes through count_reads_ext,
+    with --stream-batch-bases through count_reads_streaming_ext, and the
+    output and the validated counts are those of the run without it."""
+    if flags[0] != "--extension":
+        assert cli.main([fasta[0], "--device", "cpu", *flags]) != 0
+        err = capsys.readouterr().err
+        assert "not ported yet" in err and flags[0] in err
+        return
+    import hysortk_tpu_torch
+    from hysortk_tpu_torch import pipeline
+    from hysortk_tpu_torch.runtime import scheduler
+
+    results = []
+
+    def spy(module, name):
+        real = getattr(module, name)
+
+        def wrapped(*a, **k):
+            out = real(*a, **k)
+            results.append((name, out[0]))
+            return out
+        monkeypatch.setattr(module, name, wrapped)
+
+    spy(scheduler, "count_reads_streaming_ext")
+    spy(pipeline, "count_reads_ext")
+    monkeypatch.setattr(hysortk_tpu_torch, "count_reads_ext", pipeline.count_reads_ext)
+    path, reads = fasta
+    out_dir = str(tmp_path / "ext")
+    assert cli.main([path, out_dir, *BOUNDS, "--device", "cpu", "--validate",
+                     *flags]) == 0
+    out = capsys.readouterr()
+    assert "not ported yet" not in out.err and "validate OK" in out.out
+    want_entry = ("count_reads_streaming_ext" if len(flags) > 1
+                  else "count_reads_ext")
+    assert [name for name, _ in results] == [want_entry]
+    kl = results[0][1]
+    assert isinstance(kl, hysortk_tpu_torch.KmerListExt)
+    want = oracle.oracle_filtered(reads, 31, 2, 50)
+    got = {km.decode(): c
+           for km, c in writer.parse_output_files(out_dir).items()}
+    assert got == want and want
+    occ = kl.as_dict()
+    assert {km.decode(): c for km, (c, _) in occ.items()} == want
+    assert all(len(pairs) == c for c, pairs in occ.values())
 
 
 @pytest.mark.parametrize("flag", ["--sort", "--fuse-keybuild", "--fuse-count"])

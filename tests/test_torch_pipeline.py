@@ -208,10 +208,24 @@ def test_cuda_request_raises_without_cuda():
 
 
 def test_unported_modes_raise():
+    """More than one device is not ported; extension mode is, and gives the
+    counts of the plain call with every occurrence beside them."""
     codes, lengths = hysortk_tpu_torch.io.fasta.reads_to_codes(_reads())
+    ext, hist = hysortk_tpu_torch.kmer_count(
+        codes, lengths, config.KmerConfig(extension=True, lower=2, upper=6),
+        device="cpu"
+    )
+    plain, phist = hysortk_tpu_torch.kmer_count(
+        codes, lengths, config.KmerConfig(lower=2, upper=6), device="cpu"
+    )
+    assert isinstance(ext, hysortk_tpu_torch.KmerListExt) and len(ext) > 0
+    assert np.array_equal(ext.keys, plain.keys)
+    assert np.array_equal(ext.counts, plain.counts) and np.array_equal(hist, phist)
+    assert [p.size for p in ext.pos] == ext.counts.tolist()
     with pytest.raises(NotImplementedError):
         hysortk_tpu_torch.kmer_count(
-            codes, lengths, config.KmerConfig(extension=True), device="cpu"
+            codes, lengths, config.KmerConfig(extension=True),
+            device=["cuda:0", "cuda:1"]
         )
     with pytest.raises(NotImplementedError):
         hysortk_tpu_torch.kmer_count(

@@ -278,8 +278,19 @@ def test_out_of_memory_drains_and_other_errors_rise(group, monkeypatch):
 
 
 def test_streaming_ext_not_ported():
-    with pytest.raises(NotImplementedError):
-        scheduler.count_reads_streaming_ext(None, None, None)
+    """It is ported: the streamed extension result has the streamed plain
+    result's keys and counts, with every occurrence beside them."""
+    codes, lengths = fasta_io.reads_to_codes(_reads(5))
+    cfg, _ = _cfgs(31)
+    ext_cfg = dataclasses.replace(cfg, extension=True)
+    ext, hist = scheduler.count_reads_streaming_ext(
+        codes, lengths, ext_cfg, 700, read_id_offset=4, device="cpu")
+    plain, phist = scheduler.count_reads_streaming(
+        codes, lengths, cfg, 700, device="cpu")
+    assert np.array_equal(ext.keys, plain.keys) and len(ext) > 0
+    assert np.array_equal(ext.counts, plain.counts) and np.array_equal(hist, phist)
+    assert [r.size for r in ext.rid] == ext.counts.tolist()
+    assert min(int(r.min()) for r in ext.rid) >= 4
 
 
 def test_group_size_rule(monkeypatch):

@@ -61,6 +61,68 @@ def test_pack_decode_matches_jax(monkeypatch, k):
     assert np.array_equal(valid.numpy(), host_valid)
 
 
+@pytest.mark.parametrize("rid_base,pad_reads", [(0, 0), (1000, 7)])
+def test_rid_pos_from_lengths_matches_jax(rid_base, pad_reads):
+    """Per-position (read id, position in read) from the lengths alone:
+    zero-length reads (one leading, two stacked on one slot) keep counting,
+    and the zero-padded pseudo-reads of `lens` mark past the real total."""
+    rng = np.random.default_rng(rid_base + 3)
+    lengths = rng.integers(1, 90, 30)
+    lengths[[0, 11, 12, 29]] = 0
+    total = int(lengths.sum())
+    n = -(-(total + 16) // 256) * 256
+    lens = np.concatenate([lengths, np.zeros(pad_reads, np.int64)]).astype(np.int32)
+    rid, pos = wire.rid_pos_from_lengths(torch.from_numpy(lens), n, rid_base)
+    jrid, jpos = jwire.rid_pos_from_lengths(jnp.asarray(lens), n, rid_base)
+    assert rid.dtype == torch.int32 and pos.dtype == torch.int32
+    assert np.array_equal(rid.numpy(), np.asarray(jrid))
+    assert np.array_equal(pos.numpy().view(np.uint32), np.asarray(jpos))
+    # Against the host flattener wherever a base lies.
+    _, _, hrid, hpos = fasta.flatten_for_device_ext(
+        np.zeros(total, np.uint8), lengths, 31, 256, rid_base)
+    assert np.array_equal(rid.numpy()[:total], hrid[:total])
+    assert np.array_equal(pos.numpy().view(np.uint32)[:total], hpos[:total])
+    assert rid[0] == rid_base + 1  # the leading empty record took id rid_base
+
+
+@pytest.mark.parametrize("k", [15, 31, 55])
+def test_decode_block_ext_matches_jax(k):
+    rng = np.random.default_rng(40 + k)
+    lengths = rng.integers(0, 3 * k, 40)
+    lengths[5] = 0
+    total = int(lengths.sum())
+    n = -(-(total + 16) // 256) * 256
+    buf = np.zeros(n, dtype=np.int8)
+    buf[:total] = rng.integers(0, 4, total)
+    packed = supermer.pack_codes_2bit(buf)
+    lens = np.concatenate([lengths, np.zeros(9, np.int64)]).astype(np.int32)
+    got = wire.decode_block_ext(
+        torch.from_numpy(packed.view(np.int32)), torch.from_numpy(lens), k, n, 17)
+    want = jwire.decode_block_ext(jnp.asarray(packed), jnp.asarray(lens), k, n, 17)
+    for g, w in zip(got, want):
+        g = g.numpy()
+        w = np.asarray(w)
+        assert np.array_equal(g.view(w.dtype) if g.dtype != w.dtype else g, w)
+    host = fasta.flatten_for_device_ext(buf[:total], lengths, k, 256, 17)
+    valid = host[1]
+    assert np.array_equal(got[1].numpy(), valid)
+    assert np.array_equal(got[2].numpy()[valid], host[2][valid])
+    assert np.array_equal(got[3].numpy().view(np.uint32)[valid], host[3][valid])
+
+
+@pytest.mark.parametrize("offset", [0, 123456])
+def test_flatten_for_device_ext_matches_jax(offset):
+    from hysortk_tpu.io import fasta as jfasta
+
+    rng = np.random.default_rng(8)
+    for lengths in (rng.integers(0, 80, 25), np.zeros(0, np.int64)):
+        codes = rng.integers(0, 4, int(lengths.sum())).astype(np.uint8)
+        got = fasta.flatten_for_device_ext(codes, lengths, 31, 256, offset)
+        want = jfasta.flatten_for_device_ext(codes, lengths, 31, 256, offset)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
 def test_decode_block_no_reads():
     codes, valid = wire.decode_block(
         torch.zeros(4, dtype=torch.int32), torch.zeros(0, dtype=torch.int32), 31, 64
