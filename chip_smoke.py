@@ -11,6 +11,9 @@ build/kernels/ at first use. Phases, each printing its findings:
   1  each kernel against its plain PyTorch version on the card, exactly
      equal, timed with CUDA events: synthetic cases (top-bit keys,
      duplicates, sentinel tails, poly-A-length runs, runs of unequal fill),
+     the sorts' hard cases of hysortk_tpu_torch.testing at the kernels' tile
+     sizes (all keys equal, one varying digit, ragged and single-slot
+     inputs, one to six key words, up to eight rows with arange payloads),
      then the inputs the main paths give each kernel at the size of phases
      2 and 4, with each kernel's bound (the least time the card could take)
      and, where one PyTorch call computes the same function, that call's
@@ -20,7 +23,8 @@ build/kernels/ at first use. Phases, each printing its findings:
      read_dna_buffer -> kmer_count(K=31, L=2, U=50, device="cuda") ->
      print_kmer_histogram -> write_output_file; every kernel's launch
      count must rise, and the result must equal the plain functions
-     composed on the same CUDA tensors
+     composed on the same CUDA tensors; then the same call stage by stage
+     with a synchronize after each, for the stage times
   3  a FASTA under 10 kB through the facade on the card against the
      pure-Python oracle
   4  bounded-memory streaming of phase 2's reads through
@@ -212,7 +216,7 @@ def phase1_synthetic(gen):
         # halo crosses a radix tile's edge, and a sentinel tail of 1/8.
         valid = valid.clone()
         valid[1000:5000] = False
-        valid[4096 * 7 - 40:4096 * 7 + 8] = True
+        valid[8192 * 3 - 40:8192 * 3 + 8] = True
         valid[-n // 8:] = False
         got = fused_sort.sort_codes_fused(codes, valid, k)
         want = fused_sort.sort_codes_fused_plain(codes, valid, k)
@@ -268,7 +272,9 @@ def phase1_synthetic(gen):
     # sort: full-range words (top bit set in half of them), a pool of
     # duplicates, word-0 ties that differ only in the last word, and a
     # sentinel tail.
-    for w_count, size in ((1, 1 << 24), (2, 1 << 24), (4, 1 << 24), (2, 1 << 26)):
+    # The last size is not a power of two: the sort pads nothing.
+    for w_count, size in ((1, 1 << 24), (2, 1 << 24), (4, 1 << 24), (2, 1 << 26),
+                          (2, (1 << 26) - 12345)):
         words = [
             torch.randint(-2**31, 2**31, (size,), dtype=torch.int32, device=dev,
                           generator=gen)
@@ -293,6 +299,8 @@ def phase1_synthetic(gen):
             f"plain {pms:.4f} ms")
         errs["radix_sort"] = max(errs["radix_sort"], e)
         del words, got, want
+
+    phase1_sort_cases(errs)
 
     # count and weighted sum: sorted keys whose runs include poly-A lengths
     # (10^5, 10^6), runs at exactly L and U, top-bit keys, then a sentinel
@@ -359,6 +367,46 @@ def phase1_synthetic(gen):
         errs["merge_runs"] = max(errs["merge_runs"], e)
         del rows, got, want
     return errs
+
+
+def phase1_sort_cases(errs) -> None:
+    """The sorts' hard cases (hysortk_tpu_torch.testing) at the kernels' own
+    tile sizes, each kernel exactly equal to its plain version."""
+    import torch
+
+    from hysortk_tpu_torch import testing
+    from hysortk_tpu_torch.ops import fused_sort, radix_sort
+
+    def on_card(rows):
+        return [torch.from_numpy(np.ascontiguousarray(r).view(np.int32)).cuda()
+                for r in rows]
+
+    cases = testing.sort_cases(testing.SORT_TILE)
+    for name, kind, n, n_words, n_payloads in cases:
+        words = on_card(testing.sort_case_words(kind, n, n_words, SEED))
+        pays = on_card(testing.sort_case_payloads(n, n_payloads))
+        got = radix_sort.sort_words(words, pays)
+        want = radix_sort.sort_words_plain(words, pays)
+        torch.cuda.synchronize()
+        e = max_abs_err(got[0] + got[1], want[0] + want[1])
+        require_equal(f"radix_sort case {name}", e)
+        if any(g.data_ptr() == w.data_ptr() for g in got[0] for w in words):
+            raise AssertionError("the sort returned the caller's own rows")
+        errs["radix_sort"] = max(errs["radix_sort"], e)
+    log(f"phase1 radix_sort hard cases at tile {testing.SORT_TILE}: "
+        f"{len(cases)} equal (keys and arange payloads: the stable order)")
+    fused_cases = testing.fused_sort_cases()
+    for name, kind, n, k in fused_cases:
+        codes, valid = testing.fused_sort_case_codes(kind, n, k, SEED)
+        codes, valid = torch.from_numpy(codes).cuda(), torch.from_numpy(valid).cuda()
+        got = fused_sort.sort_codes_fused(codes, valid, k)
+        want = fused_sort.sort_codes_fused_plain(codes, valid, k)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        require_equal(f"fused_sort case {name}", e)
+        errs["fused_sort"] = max(errs["fused_sort"], e)
+    log(f"phase1 fused_sort hard cases at tiles {testing.FUSED_SORT_TILES[2]} "
+        f"(W <= 2) and {testing.FUSED_SORT_TILES[3]}: {len(fused_cases)} equal")
 
 
 def synthetic_sorted_words(gen, size: int, n_words: int):
@@ -743,6 +791,8 @@ def phase2_slice(workdir: str, rng):
         f"{', '.join(f'{w:.4f}' for w in walls)} s; best {best:.4f} s = "
         f"{n_kmers / best:.1f} k-mers/s ({n_kmers} k-mers)")
 
+    phase2_stages(codes, lengths, cfg)
+
     text = ht.print_kmer_histogram(hist)
     out_path = ht.write_output_file(kl, os.path.join(workdir, "out"))
     with open(out_path, "rb") as f:
@@ -762,6 +812,38 @@ def phase2_slice(workdir: str, rng):
         f"histogram mode at count {int(np.argmax(hist))}; "
         f"peak device memory {peak / 2**30:.3f} GiB")
     return codes, lengths, launches, (kl, hist), peak, best
+
+
+def phase2_stages(codes, lengths, cfg) -> None:
+    """The one-shot call stage by stage, a synchronize after each."""
+    import torch
+
+    from hysortk_tpu_torch import pipeline
+    from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort
+
+    stages = []
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages.append(f"{name} {(time.perf_counter() - t0) * 1e3:.1f}")
+        return out
+
+    for _ in range(2):
+        stages.clear()
+        codes_d, valid_d = timed("host feed (pad, pack, H2D, decode)", lambda:
+                                 pipeline.device_batch(codes, lengths, cfg, "cuda"))
+        marked = timed("keybuild", lambda: keybuild.canonical_keys_fused(
+            codes_d, valid_d, cfg.k))
+        words = timed("radix sort", lambda: radix_sort.sort_words(marked)[0])
+        cnt, keep = timed("fused count", lambda: fused_count.run_length_count_filter(
+            words, cfg.lower, cfg.upper))
+        kl = timed("compaction + D2H", lambda: pipeline.compact_keys(
+            words, cnt, keep, cfg.k))
+        timed("host histogram", lambda: pipeline.host_histogram(kl.counts, cfg.upper))
+        del codes_d, valid_d, marked, words, cnt, keep, kl
+    log(f"phase2 stages of the one-shot call, second of two, ms: {'; '.join(stages)}")
 
 
 # --------------------------------------------------------------------------

@@ -30,6 +30,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    # The source with the most kernels sets the build's time: let nvcc
+    # (12.1 or later) optimise its kernels on all cores.
+    "-split-compile", "0",
 )
 _LIB_NAME = "libhysortk_kernels.so"
 
@@ -115,7 +118,14 @@ def library_path() -> str:
         if os.path.exists(obj):
             os.remove(obj)
     if failed:
-        raise RuntimeError(f"nvcc failed (exit {failed[0]}):\n{log[-8000:]}")
+        # The errors first: ptxas' report of the sources that did compile
+        # can fill the log's tail.
+        errors = "\n".join(
+            line for line in log.splitlines() if "error" in line.lower()
+        )
+        raise RuntimeError(
+            f"nvcc failed (exit {failed[0]}):\n{errors[:4000]}\n...\n{log[-4000:]}"
+        )
     os.replace(tmp_path, lib_path)
     return lib_path
 
@@ -136,7 +146,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_keybuild.restype = i32
     lib.hk_radix_sort_scratch.argtypes = [i64]
     lib.hk_radix_sort_scratch.restype = i64
-    lib.hk_radix_sort.argtypes = [ptrs, ptrs, i32, i32, i64, ptr, ptr]
+    lib.hk_radix_sort.argtypes = [ptrs, ptrs, ptrs, i32, i32, i64, ptr, ptr]
     lib.hk_radix_sort.restype = i32
     lib.hk_fused_sort.argtypes = [ptr, ptr, i64, i32, ptrs, ptrs, ptr, ptr]
     lib.hk_fused_sort.restype = i32

@@ -5,23 +5,26 @@
 // pallas_msort.block_sort_keybuild (the key build inside phase A of the
 // bitonic block sort) and the merge levels behind it. What the TPU kernel
 // buys is kept, not its shape: the unsorted key words never reach device
-// memory. Here the key build is fused into pass 0 of the LSD radix sort
-// (radix_pass.cuh): pass 0's histogram and pass 0's scatter both derive each
-// slot's canonical key from the codes (canonical_key.cuh, the definition
-// keybuild.cu uses too) instead of reading key rows, and the scatter writes
-// the W words straight to their pass-0 places. Passes 1 .. 4W-1 are the
-// plain ones of radix_sort.cu.
+// memory. Here the key build is fused into the two kernels of the LSD radix
+// sort (radix_pass.cuh) that would read them: the histogram of all 4W
+// digits and pass 0 both derive each slot's canonical key from the codes
+// (canonical_key.cuh, the definition keybuild.cu uses too), and pass 0
+// writes the W words straight to their pass-0 places. Passes 1 .. 4W-1 are
+// the row passes of radix_sort.cu.
 //
 // Bound on the H100: HBM bytes, 2 B read (code + valid) and 4W B written per
-// slot. Against the unfused pair (key build, then the sort on a copy of its
-// rows) the fusion never writes the unsorted key rows, never copies them,
-// and pass 0 reads 2 B per slot twice instead of 4 B and then 4W B; it pays
-// for that with the key arithmetic done twice. The 4W - 1 later passes,
-// whose scattered writes set the sort's time, are untouched. Design: a
-// block stages its tile's 4096 codes plus the (16W - 1)-base halo in shared
-// memory once, as bytes; reads past N are masked to 0 in both kernels, so
-// both derive the same bits; an invalid slot's key is all ones, so its
-// digit is 0xFF in every pass.
+// slot. Against the unfused pair (key build, then the sort) the fusion never
+// writes the unsorted key rows and reads 2 B per slot twice where the sort
+// reads 4W B twice; it pays for that with the key arithmetic done twice.
+// Design: a block stages its tile's codes plus the (16W - 1)-base halo in
+// shared memory once, packed 16 bases to a word, so that a slot's forward
+// words are one funnel shift each of two neighbouring words (the arithmetic
+// done twice has to be cheap: the passes are bound by instructions, not
+// bytes); reads past N are masked to 0 in both kernels, so both derive the
+// same bits; an invalid slot's key is all ones,
+// so its digit is 0xFF in every pass. Pass 0 holds its tile's keys in
+// registers (kItems x W words a thread) from the ranking to the write, so
+// its tile is 8192 slots up to W = 2 and 4096 beyond.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,81 +40,169 @@ extern "C" int hk_radix_sort_passes(void* const* rows_a, void* const* rows_b,
 
 namespace {
 
-constexpr int kMaxWords = 6;
+constexpr int kPassThreads = 512;
 
-struct KeyRows {
-  uint32_t* row[kMaxWords];
+// Items a thread of pass 0 holds, by key width.
+template <int W>
+struct PassItems {
+  static constexpr int value = W <= 2 ? 16 : 8;
 };
 
-// Stage the tile's codes and halo: codes[base .. base + kTile + 16W - 1).
+struct KeyRows {
+  uint32_t* row[kMaxKeyWords];
+};
+
+// Words of a staged tile: its slots and the (16W - 1)-base halo, 16 bases to
+// a word, and one word more, which the funnel shift reads and discards.
+template <int W, int kTile>
+struct StagedWords {
+  static constexpr int value = kTile / 16 + W + 1;
+};
+
+// Stage a tile's codes and halo, packed 16 bases to a word (the first in the
+// top crumb), bases past n as 0. Word m holds codes[tile_base + 16m ..].
 template <int W>
 __device__ __forceinline__ void stage_codes(const int8_t* __restrict__ codes,
-                                            int64_t n, uint8_t* tile) {
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
-  for (int j = threadIdx.x; j < kTile + 16 * W - 1; j += kThreads) {
-    const int64_t p = base + j;
-    tile[j] = p < n ? static_cast<uint8_t>(codes[p]) & 3u : 0u;
+                                            int64_t n, int64_t tile_base,
+                                            int tile, uint32_t* room) {
+  __syncthreads();  // the tile before has been read
+  const bool aligned = (reinterpret_cast<uintptr_t>(codes) & 15u) == 0;
+  for (int m = threadIdx.x; m < tile / 16 + W + 1; m += blockDim.x) {
+    const int64_t p = tile_base + 16 * static_cast<int64_t>(m);
+    uint32_t word = 0;
+    if (aligned && p + 16 <= n) {
+      const uint4 v = *reinterpret_cast<const uint4*>(codes + p);
+      word = (hk::pack_four_codes(v.x) << 24) | (hk::pack_four_codes(v.y) << 16) |
+             (hk::pack_four_codes(v.z) << 8) | hk::pack_four_codes(v.w);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t c =
+            p + j < n ? static_cast<uint8_t>(codes[p + j]) & 3u : 0u;
+        word = (word << 2) | c;
+      }
+    }
+    room[m] = word;
   }
   __syncthreads();
 }
 
-// Pass 0's elements: each slot's key derived from the staged codes; the
-// digit is the lowest byte of the last word, the store writes the W words.
+// A slot's key from the staged codes, all ones where the slot is invalid.
 template <int W>
-struct CodeSource {
-  const uint8_t* tile;
+__device__ __forceinline__ void slot_key(const uint32_t* staged,
+                                         const uint8_t* __restrict__ valid,
+                                         int k, int64_t i, int local,
+                                         uint32_t (&key)[W]) {
+  if (valid[i]) {
+    hk::canonical_key_packed<W>(staged, local, k, key);
+  } else {
+#pragma unroll
+    for (int w = 0; w < W; ++w) key[w] = kFull;
+  }
+}
+
+template <int W>
+struct CodeKeys {
+  const int8_t* codes;
   const uint8_t* valid;
   int k;
-  KeyRows out;
-  uint32_t key[W];
-
-  __device__ __forceinline__ unsigned load(int64_t i, int local) {
-    if (valid[i]) {
-      hk::canonical_key<W>(tile + local, k, key);
-    } else {
-#pragma unroll
-      for (int w = 0; w < W; ++w) key[w] = kFull;
-    }
-    return key[W - 1] & 0xFFu;
+  uint32_t* staged;
+  __device__ __forceinline__ void stage(int64_t tile_base, int64_t n) const {
+    stage_codes<W>(codes, n, tile_base, kHistTile, staged);
   }
-  __device__ __forceinline__ void store(int pos) const {
-#pragma unroll
-    for (int w = 0; w < W; ++w) out.row[w][pos] = key[w];
+  __device__ __forceinline__ void get(int64_t i, int local,
+                                      uint32_t (&key)[W]) const {
+    slot_key<W>(staged, valid, k, i, local, key);
   }
 };
 
 template <int W>
-__global__ void __launch_bounds__(kThreads)
-fused_histogram(const int8_t* __restrict__ codes,
+__global__ void __launch_bounds__(kHistThreads)
+fused_digit_histogram(const int8_t* __restrict__ codes,
                 const uint8_t* __restrict__ valid, int64_t n, int k,
-                int num_tiles, int* __restrict__ counts) {
-  __shared__ uint8_t tile[kTile + 16 * W];
-  stage_codes<W>(codes, n, tile);
-  CodeSource<W> source{tile, valid, k, KeyRows{}, {}};
-  histogram_tile(source, n, num_tiles, counts);
+                unsigned* __restrict__ hist) {
+  __shared__ uint32_t staged[StagedWords<W, kHistTile>::value];
+  CodeKeys<W> keys{codes, valid, k, staged};
+  histogram_tiles<W>(keys, n, hist);
+}
+
+// Pass 0's elements: each slot's key derived from the staged codes; the
+// digit is the lowest byte of the last word; all W words go through the
+// exchange, the last word first.
+template <int W, int kItems>
+struct CodeSource {
+  const int8_t* codes;
+  const uint8_t* valid;
+  int k;
+  KeyRows out;
+  const uint32_t* staged;
+  uint32_t key[kItems][W];
+
+  __device__ __forceinline__ void stage(int64_t tile_base, int64_t n,
+                                        unsigned char* room) {
+    uint32_t* words = reinterpret_cast<uint32_t*>(room);
+    stage_codes<W>(codes, n, tile_base, kPassThreads * kItems, words);
+    staged = words;
+  }
+  __device__ __forceinline__ void load(int j, int64_t i, int local) {
+    slot_key<W>(staged, valid, k, i, local, key[j]);
+  }
+  __device__ __forceinline__ unsigned digit(int j) const {
+    return key[j][W - 1] & 0xFFu;
+  }
+  template <bool kFullTile>
+  __device__ __forceinline__ void scatter(PassShared<kPassThreads, kItems>& sh,
+                                          const int (&pos)[kItems], int tile_n,
+                                          int64_t) const {
+    int dst[kItems];
+    uint32_t vals[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) vals[j] = key[j][W - 1];
+    exchange_row<kPassThreads, kItems, true, kFullTile>(sh, vals, pos, dst,
+                                                        tile_n, 0, out.row[W - 1]);
+#pragma unroll
+    for (int w = 0; w < W - 1; ++w) {
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) vals[j] = key[j][w];
+      exchange_row<kPassThreads, kItems, false, kFullTile>(sh, vals, pos, dst,
+                                                           tile_n, 0, out.row[w]);
+    }
+  }
+};
+
+template <int W>
+__global__ void __launch_bounds__(kPassThreads)
+fused_pass0(const int8_t* __restrict__ codes, const uint8_t* __restrict__ valid,
+            int64_t n, int k, KeyRows out, const unsigned* __restrict__ hist,
+            unsigned* ticket, unsigned* desc) {
+  CodeSource<W, PassItems<W>::value> source{codes, valid, k, out, nullptr, {}};
+  radix_pass_tile<kPassThreads, PassItems<W>::value>(source, n, hist, ticket, desc);
 }
 
 template <int W>
-__global__ void __launch_bounds__(kThreads)
-fused_scatter(const int8_t* __restrict__ codes,
-              const uint8_t* __restrict__ valid, int64_t n, int k,
-              KeyRows out, int num_tiles, const int* __restrict__ counts,
-              const int* __restrict__ totals) {
-  __shared__ uint8_t tile[kTile + 16 * W];
-  stage_codes<W>(codes, n, tile);
-  CodeSource<W> source{tile, valid, k, out, {}};
-  scatter_tile(source, n, num_tiles, counts, totals);
-}
-
-template <int W>
-cudaError_t fused_pass0(const int8_t* codes, const uint8_t* valid, int64_t n,
-                        int k, const KeyRows& out, int num_tiles, int* counts,
-                        int* totals, cudaStream_t s) {
-  fused_histogram<W><<<num_tiles, kThreads, 0, s>>>(codes, valid, n, k,
-                                                    num_tiles, counts);
-  radix_scan<<<kRadix, kScanThreads, 0, s>>>(counts, num_tiles, totals);
-  fused_scatter<W><<<num_tiles, kThreads, 0, s>>>(codes, valid, n, k, out,
-                                                  num_tiles, counts, totals);
+cudaError_t fused_front(const int8_t* codes, const uint8_t* valid, int64_t n,
+                        int k, const KeyRows& out, const SortScratch& sc,
+                        cudaStream_t s) {
+  constexpr int kItems = PassItems<W>::value;
+  constexpr int kTile = kPassThreads * kItems;
+  static_assert(kTile >= kMinTile, "the scratch is sized for tiles of kMinTile");
+  cudaError_t err = reset_header(sc, s);
+  if (err != cudaSuccess) return err;
+  fused_digit_histogram<W><<<histogram_blocks(n), kHistThreads, 0, s>>>(codes, valid, n,
+                                                                k, sc.hist);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int num_tiles = static_cast<int>((n + kTile - 1) / kTile);
+  const int shared = static_cast<int>(sizeof(PassShared<kPassThreads, kItems>) +
+                                      StagedWords<W, kTile>::value * sizeof(uint32_t));
+  err = reset_descriptors(sc, num_tiles, s);
+  if (err != cudaSuccess) return err;
+  // Above 48 KB a kernel has to opt in to its dynamic shared memory.
+  err = cudaFuncSetAttribute(fused_pass0<W>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return err;
+  fused_pass0<W><<<num_tiles, kPassThreads, shared, s>>>(
+      codes, valid, n, k, out, sc.hist, sc.tickets, sc.desc);
   return cudaGetLastError();
 }
 
@@ -120,17 +211,15 @@ cudaError_t fused_pass0(const int8_t* codes, const uint8_t* valid, int64_t n,
 // codes (n,) int8, valid (n,) bool; rows_a, rows_b: W device pointers each to
 // (n,) uint32 rows, W = ceil(k/16) in 1..6, neither initialised; scratch: as
 // hk_radix_sort_scratch(n). The sorted key words land in rows_a. Returns
-// cudaGetLastError() of the first failing launch, else 0.
+// the first CUDA error, else 0.
 extern "C" int hk_fused_sort(const void* codes, const void* valid, int64_t n,
                              int k, void* const* rows_a, void* const* rows_b,
                              void* scratch, void* stream) {
   const int w_count = (k + 15) / 16;
-  if (n <= 0 || n >= (int64_t{1} << 31) || k < 1 || w_count > kMaxWords) {
+  if (n <= 0 || n >= (int64_t{1} << 31) || k < 1 || w_count > kMaxKeyWords) {
     return cudaErrorInvalidValue;
   }
-  const int num_tiles = static_cast<int>((n + kTile - 1) / kTile);
-  int* counts = static_cast<int*>(scratch);
-  int* totals = counts + static_cast<int64_t>(kRadix) * num_tiles;
+  const SortScratch sc = carve_scratch(scratch);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* c = static_cast<const int8_t*>(codes);
   const auto* v = static_cast<const uint8_t*>(valid);
@@ -140,12 +229,12 @@ extern "C" int hk_fused_sort(const void* codes, const void* valid, int64_t n,
   }
   cudaError_t err = cudaSuccess;
   switch (w_count) {
-    case 1: err = fused_pass0<1>(c, v, n, k, out, num_tiles, counts, totals, s); break;
-    case 2: err = fused_pass0<2>(c, v, n, k, out, num_tiles, counts, totals, s); break;
-    case 3: err = fused_pass0<3>(c, v, n, k, out, num_tiles, counts, totals, s); break;
-    case 4: err = fused_pass0<4>(c, v, n, k, out, num_tiles, counts, totals, s); break;
-    case 5: err = fused_pass0<5>(c, v, n, k, out, num_tiles, counts, totals, s); break;
-    case 6: err = fused_pass0<6>(c, v, n, k, out, num_tiles, counts, totals, s); break;
+    case 1: err = fused_front<1>(c, v, n, k, out, sc, s); break;
+    case 2: err = fused_front<2>(c, v, n, k, out, sc, s); break;
+    case 3: err = fused_front<3>(c, v, n, k, out, sc, s); break;
+    case 4: err = fused_front<4>(c, v, n, k, out, sc, s); break;
+    case 5: err = fused_front<5>(c, v, n, k, out, sc, s); break;
+    case 6: err = fused_front<6>(c, v, n, k, out, sc, s); break;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return hk_radix_sort_passes(rows_a, rows_b, w_count, w_count, n, scratch,

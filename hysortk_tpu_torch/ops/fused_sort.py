@@ -4,7 +4,7 @@ The port of hysortk_tpu/ops/pallas_sort.py sort_codes_fused (the kernel
 pallas_msort.block_sort_keybuild and the merge levels behind it): the
 unsorted key words never reach device memory. On a CUDA tensor the wrapper
 launches the hand-written kernels of csrc/fused_sort.cu, the key build fused
-into the first pass of the LSD radix sort (that pass's histogram and scatter
+into the LSD radix sort (its histogram of all digits and its first pass
 derive each slot's key from the codes; the later passes are
 csrc/radix_sort.cu's); on a CPU tensor it runs the plain version,
 keybuild.canonical_keys_plain then radix_sort.sort_words_plain.

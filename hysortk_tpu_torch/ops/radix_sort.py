@@ -3,9 +3,11 @@
 The port of hysortk_tpu/ops/pallas_sort.py sort_words (the member-tile
 bitonic sort: pallas_msort.block_sort_member + pallas_sort.merge_levels).
 On a CUDA tensor the wrapper launches the hand-written stable LSD radix sort
-csrc/radix_sort.cu (8-bit digits, 4W passes, each a tile histogram, a scan
-and a stable scatter); on a CPU tensor it runs the plain version, a chain of
-stable torch.sort passes, last word first.
+csrc/radix_sort.cu (8-bit digits: one histogram kernel over all 4W digits,
+then 4W passes of one kernel each, which reads the rows once, places its
+tile by decoupled look-back and writes the rows coalesced; the caller's rows
+are only read); on a CPU tensor it runs the plain version, a chain of stable
+torch.sort passes, last word first.
 
 Words are int32 tensors holding uint32 bit patterns and sort as unsigned, so
 the all-ones sentinel sorts last. Both versions are stable, so equal keys
@@ -112,11 +114,14 @@ def _sort_words_cuda(
     words: list[torch.Tensor], payloads: list[torch.Tensor]
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     n_keys = len(words)
-    a = torch.stack(words + payloads)  # owned copy, sorted in place
-    n = a.shape[1]
+    rows_in = [r.contiguous() for r in words + payloads]  # read only
+    n = rows_in[0].shape[0]
+    # Two sets of rows, neither initialised: pass 0 reads the caller's rows
+    # and writes b, the last pass leaves the result in a.
+    a = torch.empty((len(rows_in), n), dtype=torch.int32, device=rows_in[0].device)
+    rows_a = list(a.unbind(0))
     if n == 0:
-        rows = list(a.unbind(0))
-        return rows[:n_keys], rows[n_keys:]
+        return rows_a[:n_keys], rows_a[n_keys:]
     if n >= 2**31:
         raise ValueError(f"radix sort takes n < 2^31, got {n}")
     lib = _build.lib()
@@ -124,10 +129,10 @@ def _sort_words_cuda(
     scratch = torch.empty(
         lib.hk_radix_sort_scratch(n), dtype=torch.int32, device=a.device
     )
-    rows_a, rows_b = list(a.unbind(0)), list(b.unbind(0))
     with torch.cuda.device(a.device):
         status = lib.hk_radix_sort(
-            _build.pointer_array(rows_a), _build.pointer_array(rows_b),
+            _build.pointer_array(rows_in), _build.pointer_array(rows_a),
+            _build.pointer_array(list(b.unbind(0))),
             n_keys, len(rows_a), n, scratch.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -8,7 +8,9 @@ import numpy as np
 import pytest
 import torch
 
+from hysortk_tpu.ops import kmer as jkmer
 from hysortk_tpu.ops import pallas_sort
+from hysortk_tpu.ops import sort as jsort
 from hysortk_tpu_torch import config, pipeline
 from hysortk_tpu_torch.io import fasta as fasta_io
 from hysortk_tpu_torch import testing
@@ -142,7 +144,7 @@ def test_fused_sort_kernel_matches_plain_on_cuda(cuda, k):
     rng = np.random.default_rng(40 + k)
     n = 100_003  # several radix tiles, a ragged last one, halos across tiles
     codes, valid = _codes_valid(rng, n, k)
-    valid[4096 - 20:4096 + 5] = True  # k-mers that straddle a tile boundary
+    valid[8192 - 20:8192 + 5] = True  # k-mers that straddle a tile boundary
     tc, tv = torch.from_numpy(codes).to(cuda), torch.from_numpy(valid).to(cuda)
     before = dict(_build.launches)
     got = fused_sort.sort_codes_fused(tc, tv, k)
@@ -170,3 +172,49 @@ def test_count_reads_fused_on_cuda_matches_cpu(cuda, monkeypatch):
     assert _build.launches["fused_sort"] == before + 1
     assert np.array_equal(got.keys, want.keys)
     assert np.array_equal(got.counts, want.counts) and np.array_equal(hist, whist)
+
+
+# The fused sort's hard cases of hysortk_tpu_torch.testing: on the CPU at a
+# small tile against the JAX fused sort in interpret mode, on the card
+# kernel against plain at the kernel's own tiles.
+CPU_TILES = {w: 64 for w in range(1, 7)}
+CPU_CASES = testing.fused_sort_cases(CPU_TILES)
+CARD_CASES = testing.fused_sort_cases()
+
+
+@pytest.mark.parametrize("name,kind,n,k", CPU_CASES, ids=[c[0] for c in CPU_CASES])
+def test_sort_codes_fused_hard_cases_match_jax(name, kind, n, k):
+    """Sorted key words bit-equal (tolerance 0) to the JAX package's: to
+    pallas_sort.sort_codes_fused in interpret mode up to two key words, and
+    beyond (where interpret mode takes half a minute a case) to its XLA key
+    derivation (ops/kmer.canonical_words) sorted by ops/sort.sort_keys; and to a numpy lexsort of the
+    port's unfused key build."""
+    codes, valid = testing.fused_sort_case_codes(kind, n, k, seed=21)
+    tc, tv = torch.from_numpy(codes), torch.from_numpy(valid)
+    got = fused_sort.sort_codes_fused(tc, tv, k)
+    if k <= 32:
+        want = pallas_sort.sort_codes_fused(jnp.asarray(codes), jnp.asarray(valid), k)
+    else:
+        jwords = jkmer.canonical_words(jnp.asarray(codes), k)
+        want = jsort.sort_keys(jnp.asarray(~valid), jwords, backend="xla")[1]
+    marked = np.stack([m.numpy().view(np.uint32)
+                       for m in keybuild.canonical_keys_fused(tc, tv, k)])
+    expect = marked[:, testing.stable_order(marked)]
+    assert len(got) == len(want) == config.words_per_kmer(k)
+    for g, w, e in zip(got, want, expect):
+        assert np.array_equal(g.numpy().view(np.uint32), np.asarray(w))
+        assert np.array_equal(g.numpy().view(np.uint32), e)
+    if kind == "poly_a" and valid.any():
+        first = int(valid.sum())
+        assert all((g[:first] == g[0]).all() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kind,n,k", CARD_CASES, ids=[c[0] for c in CARD_CASES])
+def test_fused_sort_kernel_hard_cases_on_cuda(cuda, name, kind, n, k):
+    codes, valid = testing.fused_sort_case_codes(kind, n, k, seed=22)
+    tc, tv = torch.from_numpy(codes).to(cuda), torch.from_numpy(valid).to(cuda)
+    got = fused_sort.sort_codes_fused(tc, tv, k)
+    want = fused_sort.sort_codes_fused_plain(tc, tv, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

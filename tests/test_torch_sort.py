@@ -10,6 +10,7 @@ import torch
 
 from hysortk_tpu.ops import pallas_sort
 from hysortk_tpu.ops import sort as jsort
+from hysortk_tpu_torch import testing
 from hysortk_tpu_torch.ops import radix_sort
 from hysortk_tpu_torch.ops import sort as sort_ops
 
@@ -141,3 +142,84 @@ def test_radix_kernel_matches_plain_on_cuda(cuda, n_words):
     want_w, want_p = radix_sort.sort_words_plain(words, pay)
     for g, x in zip(got_w + got_p, want_w + want_p):
         assert torch.equal(g, x)
+
+
+# The sorts' hard cases of hysortk_tpu_torch.testing. On the CPU they run
+# through the plain version at a small tile (the sizes straddle 64 slots as
+# the card's straddle the kernel's 8192) against the JAX package's sorts; on
+# the card they run kernel against plain at the kernel's own tile.
+CPU_TILE = 64
+CPU_CASES = testing.sort_cases(CPU_TILE)
+CARD_CASES = testing.sort_cases(testing.SORT_TILE)
+
+
+def _case_inputs(kind, n, n_words, n_payloads, seed):
+    words = testing.sort_case_words(kind, n, n_words, seed)
+    pays = testing.sort_case_payloads(n, n_payloads)
+    return words, pays
+
+
+@pytest.mark.parametrize("name,kind,n,n_words,n_payloads", CPU_CASES,
+                         ids=[c[0] for c in CPU_CASES])
+def test_sort_hard_cases_match_jax(name, kind, n, n_words, n_payloads):
+    """Keys bit-equal to the JAX sort (tolerance 0): the member-tile Pallas
+    sort in interpret mode for the keys-only multi-tile cases, ops/sort's XLA
+    sort for the others. Payloads against numpy's stable lexsort: the JAX
+    sort is unstable, the port's keeps equal keys in input order."""
+    words, pays = _case_inputs(kind, n, n_words, n_payloads, seed=11)
+    got_w, got_p = radix_sort.sort_words(_to_torch(words), _to_torch(pays))
+    jwords = [jnp.asarray(w) for w in words]
+    if n_payloads == 0 and n > CPU_TILE + 1:
+        want, _ = pallas_sort.sort_words(jwords, formulation="member")
+    else:
+        want = jsort.sort_marked(jwords, [jnp.asarray(p) for p in pays],
+                                 backend="xla")[1]
+    order = testing.stable_order(words)
+    assert len(got_w) == n_words and len(got_p) == n_payloads
+    for g, j, w in zip(got_w, want, words):
+        assert np.array_equal(g.numpy().view(np.uint32), np.asarray(j))
+        assert np.array_equal(g.numpy().view(np.uint32), w[order])
+    for g, p in zip(got_p, pays):
+        assert np.array_equal(g.numpy().view(np.uint32), p[order])
+
+
+def test_sort_case_generators_are_what_they_say():
+    n = 3 * CPU_TILE + 17
+    for w in (1, 2, 6):
+        same = testing.sort_case_words("all_equal", n, w, 1)
+        assert (same == same[:, :1]).all()
+        one = testing.sort_case_words("one_digit", n, w, 1)
+        varying = [(word >> shift) & 0xFF for word in one for shift in (0, 8, 16, 24)]
+        assert sum(len(np.unique(d)) > 1 for d in varying) == 1
+        tail = testing.sort_case_words("sentinel_tail", n, w, 1)
+        assert (tail[:, n - n // 8:] == FULL).all() and (tail[:, 0] != FULL).any()
+    assert testing.sort_case_sizes(8192) == [1, 8191, 8192, 8193, 24593]
+    shapes = {(w, p) for _, _, _, w, p in CARD_CASES}
+    assert {(w, 2) for w in range(1, 7)} | {(1, 6), (2, 6), (2, 0)} <= shapes
+    assert np.array_equal(testing.sort_case_payloads(4, 2),
+                          np.array([[0, 1, 2, 3], [1, 2, 3, 4]], dtype=np.uint32))
+
+
+def test_sort_leaves_its_inputs_alone():
+    """The caller's rows are read only and never handed back."""
+    words, pays = _case_inputs("sentinel_tail", 500, 2, 1, seed=5)
+    tw, tp = _to_torch(words), _to_torch(pays)
+    got_w, got_p = radix_sort.sort_words(tw, tp)
+    for t, w in zip(tw + tp, list(words) + list(pays)):
+        assert np.array_equal(t.numpy().view(np.uint32), w)
+    assert not {t.data_ptr() for t in tw + tp} & {t.data_ptr() for t in got_w + got_p}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kind,n,n_words,n_payloads", CARD_CASES,
+                         ids=[c[0] for c in CARD_CASES])
+def test_radix_kernel_hard_cases_on_cuda(cuda, name, kind, n, n_words, n_payloads):
+    words, pays = _case_inputs(kind, n, n_words, n_payloads, seed=12)
+    tw = [w.to(cuda) for w in _to_torch(words)]
+    tp = [p.to(cuda) for p in _to_torch(pays)]
+    got_w, got_p = radix_sort.sort_words(tw, tp)
+    want_w, want_p = radix_sort.sort_words_plain(tw, tp)
+    for g, x in zip(got_w + got_p, want_w + want_p):
+        assert torch.equal(g, x)
+    for t, w in zip(tw + tp, list(words) + list(pays)):
+        assert np.array_equal(t.cpu().numpy().view(np.uint32), w)
