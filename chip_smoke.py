@@ -14,7 +14,10 @@ build/kernels/ at first use. Phases, each printing its findings:
      the sorts' hard cases of hysortk_tpu_torch.testing at the kernels' tile
      sizes (all keys equal, one varying digit, ragged and single-slot
      inputs, one to six key words, up to eight rows with arange payloads),
-     then the inputs the main paths give each kernel at the size of phases
+     the count's and the block sort's hard cases there (runs and sentinel
+     tails against tile edges, tiles without a boundary, every block size
+     from 2 to the largest, rows that are not 16-byte aligned), then the
+     inputs the main paths give each kernel at the size of phases
      2 and 4, with each kernel's bound (the least time the card could take)
      and, where one PyTorch call computes the same function, that call's
      time
@@ -144,6 +147,21 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def rows_on_card(rows, offset: int = 0):
+    """(n,) uint32 numpy rows as int32 tensors on the card; with `offset`
+    each is a view that many words into its own buffer (offset 1: no
+    16-byte alignment)."""
+    import torch
+
+    out = []
+    for r in rows:
+        r = torch.from_numpy(np.ascontiguousarray(r).view(np.int32))
+        buf = torch.empty(r.shape[0] + offset, dtype=torch.int32, device="cuda")
+        buf[offset:] = r
+        out.append(buf[offset:])
+    return out
+
+
 def require_equal(name: str, err: int) -> None:
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from plain, max |err| {err}")
@@ -266,7 +284,8 @@ def phase1_synthetic(gen):
         ms = cuda_ms(lambda: block_sort.block_bitonic_sort(rows, w_count, block), 5)
         pms = cuda_ms(lambda: block_sort.block_bitonic_sort_plain(rows, w_count, block), 3)
         log(f"phase1 block_sort W={w_count}+{n_pay} B={block} n={size}: equal in "
-            f"both orientations, kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            f"both orientations, kernel {ms:.4f} ms, plain {pms:.4f} ms "
+            f"({block_sort_regime(block)})")
         del rows, got, want
 
     # sort: full-range words (top bit set in half of them), a pool of
@@ -301,6 +320,7 @@ def phase1_synthetic(gen):
         del words, got, want
 
     phase1_sort_cases(errs)
+    phase1_count_block_sort_cases(errs)
 
     # count and weighted sum: sorted keys whose runs include poly-A lengths
     # (10^5, 10^6), runs at exactly L and U, top-bit keys, then a sentinel
@@ -377,14 +397,10 @@ def phase1_sort_cases(errs) -> None:
     from hysortk_tpu_torch import testing
     from hysortk_tpu_torch.ops import fused_sort, radix_sort
 
-    def on_card(rows):
-        return [torch.from_numpy(np.ascontiguousarray(r).view(np.int32)).cuda()
-                for r in rows]
-
     cases = testing.sort_cases(testing.SORT_TILE)
     for name, kind, n, n_words, n_payloads in cases:
-        words = on_card(testing.sort_case_words(kind, n, n_words, SEED))
-        pays = on_card(testing.sort_case_payloads(n, n_payloads))
+        words = rows_on_card(testing.sort_case_words(kind, n, n_words, SEED))
+        pays = rows_on_card(testing.sort_case_payloads(n, n_payloads))
         got = radix_sort.sort_words(words, pays)
         want = radix_sort.sort_words_plain(words, pays)
         torch.cuda.synchronize()
@@ -407,6 +423,64 @@ def phase1_sort_cases(errs) -> None:
         errs["fused_sort"] = max(errs["fused_sort"], e)
     log(f"phase1 fused_sort hard cases at tiles {testing.FUSED_SORT_TILES[2]} "
         f"(W <= 2) and {testing.FUSED_SORT_TILES[3]}: {len(fused_cases)} equal")
+
+
+def block_sort_regime(block: int) -> str:
+    """How csrc/block_sort.cu's one body takes a block of this size."""
+    from hysortk_tpu_torch import testing
+
+    chunk = testing.BLOCK_SORT_CHUNK
+    if block < chunk:
+        return f"{chunk // block} blocks share a thread block's registers"
+    if block == chunk:
+        return "one block in a thread block's registers"
+    return (f"{block // chunk} register chunks, strides of {chunk} and up in "
+            f"shared memory")
+
+
+def phase1_count_block_sort_cases(errs) -> None:
+    """The count's and the block sort's hard cases (hysortk_tpu_torch.testing)
+    at the kernels' own tile sizes, on aligned rows and on rows that are views
+    one word into their buffers, each exactly equal to its plain version."""
+    import torch
+
+    from hysortk_tpu_torch import testing
+    from hysortk_tpu_torch.ops import block_sort, fused_count
+
+    cases = testing.count_cases(testing.COUNT_TILE)
+    for name, runs, n_sentinel, n_words, lower, upper in cases:
+        words = testing.count_case_words(runs, n_sentinel, n_words, SEED)
+        for offset in (0, 1):
+            rows = rows_on_card(words, offset)
+            got = fused_count.run_length_count_filter(rows, lower, upper)
+            want = fused_count.run_length_count_filter_plain(rows, lower, upper)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            require_equal(f"fused_count case {name} offset {offset}", e)
+            errs["fused_count"] = max(errs["fused_count"], e)
+    log(f"phase1 fused_count hard cases at tile {testing.COUNT_TILE}: {len(cases)} "
+        f"equal, on 16-byte aligned rows and on rows one word off")
+    cases = testing.block_sort_cases(testing.BLOCK_SORT_CHUNK)
+    for name, kind, n_words, n_pay, block, n_blocks in cases:
+        rows_np = testing.block_sort_case_rows(kind, n_words, n_pay, block,
+                                               n_blocks, SEED)
+        for offset in (0, 1):
+            rows = rows_on_card(rows_np, offset)
+            for descending_odd in (True, False):
+                got = block_sort.block_bitonic_sort(rows, n_words, block,
+                                                    descending_odd)
+                want = block_sort.block_bitonic_sort_plain(rows, n_words, block,
+                                                           descending_odd)
+                torch.cuda.synchronize()
+                e = max_abs_err(got, want)
+                require_equal(f"block_sort case {name} offset {offset} "
+                              f"descending_odd={descending_odd}", e)
+                errs["block_sort"] = max(errs["block_sort"], e)
+    sizes = sorted({c[4] for c in cases})
+    log(f"phase1 block_sort hard cases around chunk {testing.BLOCK_SORT_CHUNK}: "
+        f"{len(cases)} equal in both orientations, aligned and one word off; "
+        f"B = {sizes[0]} .. {sizes[-1]} ({block_sort_regime(sizes[0])} .. "
+        f"{block_sort_regime(sizes[-1])})")
 
 
 def synthetic_sorted_words(gen, size: int, n_words: int):
@@ -605,6 +679,29 @@ def phase1_main_path(codes_np, lengths_np, errs):
             lambda: torch.unique_consecutive(packed, return_counts=True), 5)
         del packed, lengths
 
+    # The look-back's worst inputs beside the main path's, in turns: one run
+    # over every slot (every tile but the first has no boundary and walks),
+    # and runs of 10^5 and 10^6 slots among short ones.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    one_run = [torch.full((n,), 7, dtype=torch.int32, device="cuda")
+               for _ in range(w)]
+    long_runs = synthetic_sorted_words(gen, n, w)
+    for what, words in (("one run", one_run), ("long runs", long_runs)):
+        e = max_abs_err(
+            fused_count.run_length_count_filter(words, LOWER, UPPER),
+            fused_count.run_length_count_filter_plain(words, LOWER, UPPER))
+        require_equal(f"fused_count {what}", e)
+        errs["fused_count"] = max(errs["fused_count"], e)
+    count = lambda words: (lambda: fused_count.run_length_count_filter(
+        words, LOWER, UPPER))
+    turns = [cuda_ms(count(words), 10) for words in
+             (sorted_words, one_run, long_runs, long_runs, one_run, sorted_words)]
+    log(f"phase1 fused_count look-back n={n}: main-path input {turns[0]:.4f} / "
+        f"{turns[5]:.4f} ms, one run over every slot {turns[1]:.4f} / "
+        f"{turns[4]:.4f} ms, runs of 10^5 and 10^6 slots {turns[2]:.4f} / "
+        f"{turns[3]:.4f} ms")
+    del one_run, long_runs
+
     times = {"keybuild": kb, "radix_sort": rs, "fused_count": fc,
              "fused_sort": fs, "block_sort": bs}
     for name, t in times.items():
@@ -668,6 +765,7 @@ KERNELS = {
     # With the merge levels of hysortk_tpu/ops/pallas_sort.py:392.
     "radix_sort": ("hysortk_tpu_torch/csrc/radix_sort.cu",
                    "hysortk_tpu/ops/pallas_msort.py:396"),
+    # With the look-back of csrc/lookback.cuh.
     "fused_count": ("hysortk_tpu_torch/csrc/fused_count.cu",
                     "hysortk_tpu/ops/pallas_count.py:180"),
     "run_length_sum": ("hysortk_tpu_torch/csrc/run_length_sum.cu",

@@ -7,156 +7,251 @@
 // cnt = next boundary - i, else 0; keep = head && lower <= cnt <= upper.
 //
 // The TPU kernel walks its blocks right to left and carries "first boundary
-// to the right" in a scalar across the sequential grid. Blocks on the H100
-// run in parallel and in no order, so the carry becomes a separate pass:
-//   1. count_flags: per slot a flag byte (bit 0 boundary, bit 1 sentinel)
-//      and per tile the position of its first boundary;
-//   2. count_tile_suffix: one block turns those into, per tile, the first
-//      boundary in any later tile (a suffix-min over tiles);
-//   3. count_finish: an in-tile reverse suffix-min of boundary positions,
-//      capped by the tile's suffix value, gives every head its next
-//      boundary; cnt and keep are written.
-// No head walks forward over its run, so a poly-A run or the long sentinel
-// tail costs the same per slot as anything else.
+// to the right" in a scalar across the sequential grid. Here all tiles run
+// at once, in one kernel, and the carry travels by a decoupled look-back
+// that runs right to left (lookback.cuh): a tile publishes its own first
+// boundary, or "none" and then what it found further right. A tile with a
+// boundary waits for nobody; only the last boundary of a tile needs the
+// carry at all.
 //
-// Bound on the H100: HBM bytes. Pass 1 reads 4W B/slot and writes 1 B; pass
-// 3 reads 1 B and writes 5 B (cnt int32 + keep bool); pass 2 touches 8 B per
-// 1024 slots. Reading the flags instead of the words again keeps pass 3 at a
-// sixth of the key bytes at W = 2.
+// One tile is 256 threads x 16 slots:
+//   1. every word row is read once, 16 bytes a thread (uint4), a warp's 32
+//      threads on 512 consecutive bytes, four such loads per row in flight;
+//      slot i-1 comes from the neighbouring register, the neighbouring lane
+//      (__shfl_up_sync) or, for a warp's first slot only, one extra 4-byte
+//      load per row. Boundary and sentinel bits stay in registers, 16 each;
+//   2. a warp finds, per vector of 128 slots, every lane's next boundary in
+//      a later lane by one ballot and one shuffle, and the vector's first
+//      boundary; the warps' first boundaries meet in shared memory (one
+//      barrier), warp 0 publishes the tile's and looks right (second
+//      barrier);
+//   3. each thread walks its 16 slots right to left and writes cnt as int4
+//      and keep as uchar4.
+// No head walks forward over its run, so a poly-A run or the sentinel tail
+// costs the same per slot as anything else; a look-back over a long run
+// steps over 32 tiles per read.
+//
+// A full tile whose rows are 16-byte aligned takes the body above without a
+// bounds test. The last tile, and every tile of rows that are not aligned
+// (views at odd offsets), take the same body with guarded 4-byte loads and
+// stores.
+//
+// Bound on the H100: HBM bytes, 4W B/slot in, 5 B/slot out (cnt int32 + keep
+// bool), moved once each; scratch is one word per tile.
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "lookback.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 4;  // consecutive slots per thread
-constexpr int kTile = kThreads * kItems;
-constexpr int kSuffixThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kVecs = 4;                    // uint4 loads per thread and row
+constexpr int kVecSlots = 32 * 4;           // slots a warp covers per load
+constexpr int kWarpSlots = kVecs * kVecSlots;
+constexpr int kTile = kWarps * kWarpSlots;  // 4096
 constexpr int kMaxWords = 6;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr unsigned kNoBoundary = 0xFFFFFFFFu;  // above every position
 
 struct WordRows {
   const uint32_t* row[kMaxWords];
 };
 
-// Exclusive suffix-min over the threads of a block: the min of `v` over all
-// threads with a larger index (INT_MAX for the last). `warp_buf` holds one
-// int per warp.
-template <int kBlock>
-__device__ __forceinline__ int block_suffix_min_excl(int v, int* warp_buf) {
-  constexpr int kNumWarps = kBlock / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;  // inclusive suffix-min within the warp
+struct CountShared {
+  unsigned warp_first[kWarps];  // each warp's first boundary
+  unsigned right;               // the first boundary right of the tile
+  int tile;
+};
+
+// Four consecutive slots of a row from slot i (a multiple of 4).
+template <bool kFast>
+__device__ __forceinline__ void load4(const uint32_t* __restrict__ row, int64_t i,
+                                      int64_t n, uint32_t (&x)[4]) {
+  if (kFast) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + i);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else {
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_down_sync(kFull, incl, o);
-    if (lane + o < 32) incl = min(incl, y);
+    for (int e = 0; e < 4; ++e) x[e] = i + e < n ? row[i + e] : kFull;
   }
-  if (lane == 0) warp_buf[warp] = incl;
+}
+
+// One tile. Positions are unsigned 32-bit: n < 2^31, and a ragged last
+// tile's slots past n stay below 2^31 + kTile.
+template <int W, bool kFast>
+__device__ __forceinline__ void count_tile(const WordRows& words, int64_t n,
+                                           int tile, int num_tiles, int lower,
+                                           int upper, int* __restrict__ cnt,
+                                           uint8_t* __restrict__ keep,
+                                           unsigned* desc, CountShared& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t warp_base =
+      static_cast<int64_t>(tile) * kTile + warp * kWarpSlots;
+  // Bit 4v + e of each mask: slot warp_base + 128 v + 4 lane + e.
+  unsigned boundary = 0, sentinel = (1u << (4 * kVecs)) - 1u;
+  // One row at a time, the loop kept a loop: unrolled over the rows, nvcc
+  // 12.9 at -O3 puts the second row's bits of vector 0 sixteen places up
+  // (seen at W = 2 in the guarded body: a boundary that only the last word
+  // shows was lost; the hard cases of testing.count_cases catch it).
+#pragma unroll 1
+  for (int w = 0; w < W; ++w) {
+    const uint32_t* __restrict__ row = words.row[w];
+    uint32_t x[kVecs][4];
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+      load4<kFast>(row, warp_base + v * kVecSlots + 4 * lane, n, x[v]);
+    }
+    // The slot before the warp's first: the one value no lane holds.
+    uint32_t edge = 0;
+    if (lane == 0 && warp_base > 0 && (kFast || warp_base - 1 < n)) {
+      edge = row[warp_base - 1];
+    }
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+      uint32_t left = __shfl_up_sync(kFull, x[v][3], 1);
+      const uint32_t wrap =
+          v > 0 ? __shfl_sync(kFull, x[v > 0 ? v - 1 : 0][3], 31) : edge;
+      if (lane == 0) left = wrap;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t before = e > 0 ? x[v][e > 0 ? e - 1 : 0] : left;
+        boundary |= static_cast<unsigned>(x[v][e] != before) << (4 * v + e);
+        sentinel &= ~(static_cast<unsigned>(x[v][e] != kFull) << (4 * v + e));
+      }
+    }
+  }
+  if (warp_base == 0 && lane == 0) boundary |= 1u;  // slot 0
+  if (!kFast) {
+    // No boundary past n: the carry of the last tile is n itself.
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+      const int64_t left_in = n - (warp_base + v * kVecSlots + 4 * lane);
+      const unsigned in = left_in >= 4 ? 15u : left_in <= 0 ? 0u : (1u << left_in) - 1u;
+      boundary &= ~((15u & ~in) << (4 * v));
+    }
+  }
+
+  // Within each vector: my next boundary in a later lane, and the vector's
+  // first boundary.
+  const unsigned pos_base = static_cast<unsigned>(warp_base);
+  unsigned next_lane[kVecs], vec_first[kVecs];
+  unsigned warp_first = kNoBoundary;
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+    const unsigned bits = (boundary >> (4 * v)) & 15u;
+    const int first_e = __ffs(bits) - 1;
+    const unsigned lanes = __ballot_sync(kFull, bits != 0);
+    const unsigned later = lanes & (0xFFFFFFFEu << lane);
+    const int next = __ffs(later) - 1;
+    const int lowest = __ffs(lanes) - 1;
+    const int next_e = __shfl_sync(kFull, first_e, next & 31);
+    const int lowest_e = __shfl_sync(kFull, first_e, lowest & 31);
+    const unsigned vec_base = pos_base + v * kVecSlots;
+    next_lane[v] = later ? vec_base + 4 * next + next_e : kNoBoundary;
+    vec_first[v] = lanes ? vec_base + 4 * lowest + lowest_e : kNoBoundary;
+    warp_first = min(warp_first, vec_first[v]);
+  }
+  if (lane == 0) sh.warp_first[warp] = warp_first;
   __syncthreads();
-  int later_warps = INT_MAX;
-  for (int w = warp + 1; w < kNumWarps; ++w) later_warps = min(later_warps, warp_buf[w]);
-  int excl = __shfl_down_sync(kFull, incl, 1);
-  if (lane == 31) excl = INT_MAX;
-  __syncthreads();  // warp_buf may be reused by the caller
-  return min(excl, later_warps);
-}
 
-__global__ void __launch_bounds__(kThreads)
-count_flags(WordRows words, int n_words, int64_t n, uint8_t* __restrict__ flags,
-            int* __restrict__ tile_first) {
-  __shared__ int warp_min[kThreads / 32];
-  const int64_t base =
-      static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
-  int first = INT_MAX;
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = base + j;
-    if (i >= n) {
-      flags[i] = 0;  // the flag buffer is padded to whole tiles
-      continue;
+  if (warp == 0) {
+    unsigned first = lane < kWarps ? sh.warp_first[lane] : kNoBoundary;
+    first = __reduce_min_sync(kFull, first);
+    if (lane == 0) {
+      if (first != kNoBoundary) {
+        lookback::publish_value(desc, tile, first);
+      } else {
+        lookback::publish_none(desc, tile);
+      }
     }
-    bool boundary = i == 0;
-    bool sentinel = true;
-    for (int w = 0; w < n_words; ++w) {
-      const uint32_t v = words.row[w][i];
-      sentinel = sentinel && v == 0xFFFFFFFFu;
-      if (i > 0) boundary = boundary || v != words.row[w][i - 1];
+    const unsigned right =
+        lookback::walk_right(desc, tile, num_tiles, static_cast<unsigned>(n));
+    if (lane == 0) {
+      if (first == kNoBoundary) lookback::publish_value(desc, tile, right);
+      sh.right = right;
     }
-    flags[i] = static_cast<uint8_t>(boundary) | (static_cast<uint8_t>(sentinel) << 1);
-    if (boundary && first == INT_MAX) first = static_cast<int>(i);
   }
-  first = __reduce_min_sync(kFull, first);
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = first;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int m = INT_MAX;
-    for (int w = 0; w < kThreads / 32; ++w) m = min(m, warp_min[w]);
-    tile_first[blockIdx.x] = m;
-  }
-}
 
-// tile_next[t] = min(tile_first[t+1 ..]), or n when no later tile has a
-// boundary. One block walks the tiles right to left in chunks, carrying
-// the min of the chunks already done.
-__global__ void __launch_bounds__(kSuffixThreads)
-count_tile_suffix(const int* __restrict__ tile_first, int num_tiles, int n,
-                  int* __restrict__ tile_next) {
-  __shared__ int warp_buf[kSuffixThreads / 32];
-  __shared__ int chunk_min;
-  int carry = n;
-  for (int end = num_tiles; end > 0; end -= kSuffixThreads) {
-    const int t = end - kSuffixThreads + static_cast<int>(threadIdx.x);
-    const int v = t >= 0 ? tile_first[t] : INT_MAX;
-    const int later = block_suffix_min_excl<kSuffixThreads>(v, warp_buf);
-    if (t >= 0) tile_next[t] = min(later, carry);
-    if (threadIdx.x == 0) chunk_min = min(later, v);
-    __syncthreads();
-    carry = min(carry, chunk_min);
-    __syncthreads();
+  // The first boundary after this warp's slots.
+  unsigned carry = sh.right;
+  for (int w = kWarps - 1; w > warp; --w) {
+    const unsigned f = sh.warp_first[w];
+    if (f != kNoBoundary) carry = f;
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-count_finish(const uint8_t* __restrict__ flags,
-             const int* __restrict__ tile_next, int64_t n, int lower,
-             int upper, int* __restrict__ cnt, uint8_t* __restrict__ keep) {
-  __shared__ int warp_buf[kThreads / 32];
-  const int64_t base =
-      static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x * kItems;
-  const uchar4 f4 = *reinterpret_cast<const uchar4*>(flags + base);
-  const uint8_t f[kItems] = {f4.x, f4.y, f4.z, f4.w};
-  int mine = INT_MAX;  // my first boundary
-  for (int j = kItems - 1; j >= 0; --j) {
-    if (f[j] & 1) mine = static_cast<int>(base + j);
-  }
-  int next = min(block_suffix_min_excl<kThreads>(mine, warp_buf),
-                 tile_next[blockIdx.x]);
-  for (int j = kItems - 1; j >= 0; --j) {
-    const int64_t i = base + j;
-    if (i < n) {
-      const bool head = f[j] == 1;  // a boundary that is not a sentinel
-      const int c = head ? next - static_cast<int>(i) : 0;
-      cnt[i] = c;
-      keep[i] = head && c >= lower && c <= upper;
+#pragma unroll
+  for (int v = kVecs - 1; v >= 0; --v) {
+    const unsigned pos0 = pos_base + v * kVecSlots + 4 * lane;
+    unsigned next = next_lane[v] != kNoBoundary ? next_lane[v] : carry;
+    int c[4];
+    uint8_t k[4];
+#pragma unroll
+    for (int e = 3; e >= 0; --e) {
+      const bool is_boundary = (boundary >> (4 * v + e)) & 1u;
+      const bool head = is_boundary && !((sentinel >> (4 * v + e)) & 1u);
+      c[e] = head ? static_cast<int>(next - (pos0 + e)) : 0;
+      k[e] = head && c[e] >= lower && c[e] <= upper;
+      if (is_boundary) next = pos0 + e;
     }
-    if (f[j] & 1) next = static_cast<int>(i);
+    if (kFast) {
+      *reinterpret_cast<int4*>(cnt + pos0) = make_int4(c[0], c[1], c[2], c[3]);
+      *reinterpret_cast<uchar4*>(keep + pos0) = make_uchar4(k[0], k[1], k[2], k[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (static_cast<int64_t>(pos0) + e < n) {
+          cnt[pos0 + e] = c[e];
+          keep[pos0 + e] = k[e];
+        }
+      }
+    }
+    if (vec_first[v] != kNoBoundary) carry = vec_first[v];
   }
 }
+
+// aligned: every row, cnt and keep may be read and written 16 (keep: 4)
+// bytes at a time.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+count_kernel(const __grid_constant__ WordRows words, int64_t n, int num_tiles,
+             int aligned, int lower, int upper, int* __restrict__ cnt,
+             uint8_t* __restrict__ keep, unsigned* ticket, unsigned* desc) {
+  __shared__ CountShared sh;
+  if (threadIdx.x == 0) sh.tile = lookback::take_tile(ticket, num_tiles);
+  __syncthreads();
+  const int tile = sh.tile;
+  if (aligned && (static_cast<int64_t>(tile) + 1) * kTile <= n) {
+    count_tile<W, true>(words, n, tile, num_tiles, lower, upper, cnt, keep, desc, sh);
+  } else {
+    count_tile<W, false>(words, n, tile, num_tiles, lower, upper, cnt, keep, desc, sh);
+  }
+}
+
+template <int W>
+cudaError_t launch(const WordRows& rows, int64_t n, int num_tiles, int aligned,
+                   int lower, int upper, void* cnt, void* keep,
+                   const lookback::Scratch& sc, cudaStream_t s) {
+  count_kernel<W><<<num_tiles, kThreads, 0, s>>>(
+      rows, n, num_tiles, aligned, lower, upper, static_cast<int*>(cnt),
+      static_cast<uint8_t*>(keep), sc.ticket, sc.desc);
+  return cudaGetLastError();
+}
+
+inline int64_t tiles_of(int64_t n) { return (n + kTile - 1) / kTile; }
 
 }  // namespace
 
-// Scratch in bytes: flags padded to whole tiles, then tile_first and
-// tile_next (int32 each).
+// Scratch in bytes: the look-back's ticket and one descriptor per tile.
 extern "C" int64_t hk_fused_count_scratch(int64_t n) {
-  const int64_t num_tiles = (n + kTile - 1) / kTile;
-  return num_tiles * kTile + 2 * num_tiles * static_cast<int64_t>(sizeof(int));
+  return lookback::scratch_bytes(tiles_of(n));
 }
 
 // words: n_words device pointers to sorted (n,) uint32 rows; cnt (n,) int32
 // and keep (n,) bool out; scratch of hk_fused_count_scratch(n) bytes.
-// Returns cudaGetLastError() of the first failing launch, else 0.
+// Returns the first CUDA error of the reset or the launch, else 0.
 extern "C" int hk_fused_count(void* const* words, int n_words, int64_t n,
                               int lower, int upper, void* cnt, void* keep,
                               void* scratch, void* stream) {
@@ -164,24 +259,26 @@ extern "C" int hk_fused_count(void* const* words, int n_words, int64_t n,
       n_words > kMaxWords) {
     return cudaErrorInvalidValue;
   }
-  const int num_tiles = static_cast<int>((n + kTile - 1) / kTile);
-  auto* flags = static_cast<uint8_t*>(scratch);
-  int* tile_first = reinterpret_cast<int*>(flags + static_cast<int64_t>(num_tiles) * kTile);
-  int* tile_next = tile_first + num_tiles;
+  const int num_tiles = static_cast<int>(tiles_of(n));
   WordRows rows{};
+  uintptr_t low_bits = reinterpret_cast<uintptr_t>(cnt) |
+                       (reinterpret_cast<uintptr_t>(keep) << 2);
   for (int w = 0; w < n_words; ++w) {
     rows.row[w] = static_cast<const uint32_t*>(words[w]);
+    low_bits |= reinterpret_cast<uintptr_t>(words[w]);
   }
+  const int aligned = (low_bits & 15u) == 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  count_flags<<<num_tiles, kThreads, 0, s>>>(rows, n_words, n, flags, tile_first);
-  cudaError_t err = cudaGetLastError();
+  const lookback::Scratch sc = lookback::carve(scratch);
+  cudaError_t err = lookback::reset(scratch, num_tiles, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  count_tile_suffix<<<1, kSuffixThreads, 0, s>>>(tile_first, num_tiles,
-                                                 static_cast<int>(n), tile_next);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  count_finish<<<num_tiles, kThreads, 0, s>>>(flags, tile_next, n, lower, upper,
-                                              static_cast<int*>(cnt),
-                                              static_cast<uint8_t*>(keep));
-  return static_cast<int>(cudaGetLastError());
+  switch (n_words) {
+    case 1: err = launch<1>(rows, n, num_tiles, aligned, lower, upper, cnt, keep, sc, s); break;
+    case 2: err = launch<2>(rows, n, num_tiles, aligned, lower, upper, cnt, keep, sc, s); break;
+    case 3: err = launch<3>(rows, n, num_tiles, aligned, lower, upper, cnt, keep, sc, s); break;
+    case 4: err = launch<4>(rows, n, num_tiles, aligned, lower, upper, cnt, keep, sc, s); break;
+    case 5: err = launch<5>(rows, n, num_tiles, aligned, lower, upper, cnt, keep, sc, s); break;
+    case 6: err = launch<6>(rows, n, num_tiles, aligned, lower, upper, cnt, keep, sc, s); break;
+  }
+  return static_cast<int>(err);
 }

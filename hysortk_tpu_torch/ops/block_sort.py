@@ -2,10 +2,19 @@
 the block-sort-then-merge formulation of the sort.
 
 The port of hysortk_tpu/ops/pallas_sort.py block_bitonic_sort. On a CUDA
-tensor the wrapper launches the hand-written kernel csrc/block_sort.cu (one
-thread block per tile, a bitonic network over (key, source index) pairs in
-shared memory); on a CPU tensor it runs the plain version, a chain of stable
-torch.sort passes along each block, last word first.
+tensor the wrapper launches the hand-written kernel csrc/block_sort.cu; on a
+CPU tensor it runs the plain version, a chain of stable torch.sort passes
+along each block, last word first.
+
+The kernel runs a bitonic network over (key, source index) pairs. What
+bounds it on the card is the network's compare-exchange steps, not memory,
+so it takes them where the data is: 256 threads hold 2048 slots in
+registers, steps of small stride compare registers of one thread or take the
+partner's words by warp shuffle, and only the strides that cross warps go
+through shared memory, as a transposition (6 barriers at a block of 2048
+slots). Smaller blocks share a thread block; larger ones (up to max_block)
+keep their 2048-slot chunks in shared memory between the stages whose
+strides reach across chunks.
 
 Words are int32 tensors holding uint32 bit patterns and sort as unsigned.
 Both versions are stable, and a descending block is the reverse of its
@@ -32,7 +41,7 @@ from .kmer import widen
 MAX_KEY_WORDS = 6
 MAX_ROWS = 8  # key words + payload words
 # What a thread block may use of an H100's shared memory (227 KB); the
-# kernel keeps W + 1 words per slot of a tile there.
+# kernel keeps W + 1 words per slot of a block larger than 2048 slots there.
 SHARED_BYTES = 232_448
 DEFAULT_BLOCK = 2048
 

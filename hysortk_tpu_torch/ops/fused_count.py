@@ -1,10 +1,17 @@
 """Run-length count + [L, U] filter in one sweep: kernel 3 of the slice.
 
 The port of hysortk_tpu/ops/pallas_count.py run_length_count_filter. On a
-CUDA tensor the wrapper launches the hand-written kernels of
-csrc/fused_count.cu (boundary flags and per-tile first boundaries, a
-suffix-min over tiles, an in-tile reverse scan); on a CPU tensor it runs the
-plain version, ops/count.run_length_count + frequency_filter.
+CUDA tensor the wrapper launches the hand-written kernel of
+csrc/fused_count.cu; on a CPU tensor it runs the plain version,
+ops/count.run_length_count + frequency_filter.
+
+The TPU kernel carries "the first boundary to the right" in a scalar over a
+sequential grid. On the card all tiles run at once, so one kernel hands that
+carry from tile to tile by a decoupled look-back that runs right to left
+(csrc/lookback.cuh): the words are read once, 16 bytes a thread, the counts
+and the mask written once, and the only scratch is one descriptor word per
+4096-slot tile, zeroed per call. What bounds it is the card's memory rate:
+4W bytes in and 5 out per slot.
 
 Semantics, as in the TPU kernel: a run boundary is at slot 0 or wherever any
 word differs from the slot before; the first sentinel slot is a boundary and

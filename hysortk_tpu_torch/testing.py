@@ -213,3 +213,173 @@ def fused_sort_cases(tiles=None) -> list[tuple[str, str, int, int]]:
     cases += [(kind, 3 * tiles[-(-k // 16)] + 17, k)
               for k in (15, 55, 96) for kind in FUSED_SORT_KINDS]
     return [(f"{kind}-n{n}-k{k}", kind, n, k) for kind, n, k in cases]
+
+
+# --------------------------------------------------------------------------
+# The run-length count's hard inputs, by the kernel's tile: runs against tile
+# edges, tiles without a boundary (what the look-back has to step over),
+# sentinel tails on and beside a tile edge, ragged sizes.
+
+COUNT_TILE = 4096  # slots per tile of csrc/fused_count.cu
+COUNT_LOWER, COUNT_UPPER = 3, 7
+
+
+def _small_runs(rng, total: int) -> list[int]:
+    """Run lengths of 1..9 slots that add up to `total`."""
+    runs = rng.integers(1, 10, total).tolist() if total > 0 else []
+    out, left = [], total
+    for r in runs:
+        if left <= 0:
+            break
+        out.append(min(r, left))
+        left -= out[-1]
+    return out
+
+
+def count_cases(tile: int = COUNT_TILE) -> list[tuple[str, list[int], int, int, int, int]]:
+    """(name, run lengths, sentinel slots, n_words, lower, upper) of every
+    case; count_case_words turns the first three into sorted key words."""
+    rng = np.random.default_rng(tile)
+    lo, up = COUNT_LOWER, COUNT_UPPER
+    long_run = [5, 3 * tile + 7] + _small_runs(rng, tile // 2)
+    cases = [
+        ("run_spans_tiles", long_run, 37, 2, lo, up),
+        # tiles 1 .. 5 hold no boundary at all
+        ("tiles_without_boundary",
+         _small_runs(rng, tile - 3) + [5 * tile + 3] + _small_runs(rng, 40),
+         tile // 4, 2, lo, up),
+        # boundaries at 0, T-1, T, 2T-1, 2T, 3T, 4T-1 and the tail's at 4T
+        ("boundary_on_tile_edges",
+         [tile - 1, 1, tile - 1, 1, tile, tile - 1, 1], 5, 2, lo, up),
+        ("all_sentinel", [], tile + 5, 2, lo, up),
+        ("one_sentinel_slot", [], 1, 1, lo, up),
+        ("no_sentinel", _small_runs(rng, 2 * tile + 100), 0, 2, lo, up),
+        ("one_run", [2 * tile + 9], 0, 2, lo, up),
+        ("one_run_then_tail", [tile + 1], 2 * tile, 2, lo, up),
+        ("at_lower_and_upper",
+         [lo, up, lo - 1, up + 1] * (tile // 8) + [1, 2], 64, 2, lo, up),
+        # what the streaming scheduler asks for: every head kept
+        ("streaming_bounds", long_run, 37, 2, 1, 2**31 - 1),
+    ]
+    for d in (-1, 0, 1):
+        cases.append((f"tail_from_tile_edge{d:+d}",
+                      _small_runs(rng, 2 * tile + d), tile + 3, 2, lo, up))
+    for n in (1, tile - 1, tile, tile + 1, 3 * tile + 17):
+        tail = n // 8
+        cases.append((f"size{n}", _small_runs(rng, n - tail), tail, 2, lo, up))
+    for w in (1, 3, 4, 5, 6):
+        cases.append((f"width{w}",
+                      _small_runs(rng, tile - 2) + [tile + 5, 1, 2]
+                      + _small_runs(rng, tile), tile // 2 + 1, w, lo, up))
+    return cases
+
+
+def count_case_words(runs: Sequence[int], n_sentinel: int, n_words: int,
+                     seed: int) -> np.ndarray:
+    """(n_words, n) uint32: distinct ascending keys repeated by `runs` (many
+    with the top bit set; with several words, half of them differ in the last
+    word only), then n_sentinel all-ones slots."""
+    rng = np.random.default_rng(seed)
+    n_runs = len(runs)
+    keys = rng.integers(0, 2**32, (2 * n_runs + 8, n_words),
+                        dtype=np.uint64).astype(np.uint32)
+    keys[::2, :-1] = keys[0, :-1]
+    keys = np.unique(keys[~(keys == 0xFFFFFFFF).all(axis=1)], axis=0)
+    keys = keys[np.sort(rng.choice(keys.shape[0], n_runs, replace=False))]
+    body = np.repeat(keys, np.asarray(runs, dtype=np.int64), axis=0).T
+    tail = np.full((n_words, n_sentinel), 0xFFFFFFFF, dtype=np.uint32)
+    return np.ascontiguousarray(np.concatenate([body, tail], axis=1))
+
+
+# --------------------------------------------------------------------------
+# The block sort's hard inputs, by the slots a group of the kernel's threads
+# holds in registers: every block size on both sides of it.
+
+BLOCK_SORT_CHUNK = 2048  # csrc/block_sort.cu: 256 threads x 8 slots
+BLOCK_SORT_KINDS = ("random", "all_equal", "sorted", "reversed", "last_word",
+                    "sentinel_block")
+
+
+def block_sort_cases(chunk: int = BLOCK_SORT_CHUNK) -> list[tuple[str, str, int, int, int, int]]:
+    """(name, kind, n_words, n_payloads, block, n_blocks) of every case:
+    every power-of-two block from 2 to the largest the kernel holds at four
+    key widths, two of them without payload rows (below `chunk` enough blocks for two whole chunks and a
+    ragged third, else an odd count), the other kinds on both sides of
+    `chunk`, and every number of payload rows from none to eight rows in
+    all."""
+    from .ops.block_sort import MAX_ROWS, max_block
+
+    def n_blocks(block):
+        return 2 * chunk // block + 3 if block < chunk else 3
+
+    cases = []
+    for w, p in ((1, 0), (2, 0), (2, 2), (4, 1), (6, 2)):
+        block = 2
+        while block <= max_block(w):
+            cases.append(("random", w, p, block, n_blocks(block)))
+            block *= 2
+    for kind in BLOCK_SORT_KINDS[1:]:
+        for block in (max(chunk // 32, 2), chunk, 4 * chunk):
+            cases.append((kind, 2, 1, block, n_blocks(block)))
+    block = max(chunk // 8, 2)
+    cases += [("random", 2, p, block, n_blocks(block)) for p in range(MAX_ROWS - 1)]
+    cases += [("random", w, MAX_ROWS - w, chunk, 3) for w in (1, 6)]
+    return [(f"{kind}-w{w}-p{p}-b{block}x{count}", kind, w, p, block, count)
+            for kind, w, p, block, count in dict.fromkeys(cases)]
+
+
+def block_sort_case_rows(kind: str, n_words: int, n_payloads: int, block: int,
+                         n_blocks: int, seed: int) -> np.ndarray:
+    """(n_words + n_payloads, n) uint32 rows; payload row j is arange(n) + j,
+    so the sorted payloads show the order among equal keys.
+
+    random          full-range words, a pool of exact duplicates, word-0 ties
+                    that differ in the last word only, a sentinel tail
+    all_equal       one key in every slot: only stability orders the payloads
+    sorted          every block already ascending (word 0 decides)
+    reversed        every block descending
+    last_word       keys that differ in the last word only, with duplicates
+    sentinel_block  random, the second and the last block all ones
+    """
+    rng = np.random.default_rng(seed)
+    n = block * n_blocks
+    words = rng.integers(0, 2**32, (n_words, n), dtype=np.uint64).astype(np.uint32)
+    if kind == "random" or kind == "sentinel_block":
+        dup = rng.integers(0, n, n // 4)
+        words[:, dup] = words[:, rng.integers(0, min(n, 16), n // 4)]
+        tie = rng.integers(0, n, n // 4)
+        words[0, tie] = 0x80000007
+        words[-1, tie[: n // 8]] = 0xFFFFFFF0 + (tie[: n // 8] % 3).astype(np.uint32)
+        if kind == "random":
+            words[:, n - n // 10:] = 0xFFFFFFFF
+        else:
+            words[:, block:2 * block] = 0xFFFFFFFF
+            words[:, n - block:] = 0xFFFFFFFF
+    elif kind == "all_equal":
+        words[:] = words[:, :1]
+    elif kind == "sorted" or kind == "reversed":
+        ramp = (np.arange(n, dtype=np.uint64) * (2**32 // n)).astype(np.uint32)
+        words[0] = ramp if kind == "sorted" else ramp[::-1]
+    elif kind == "last_word":
+        words[:-1] = words[:-1, :1]
+        words[-1] = rng.integers(0, max(block // 4, 2), n).astype(np.uint32) << np.uint32(20)
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    pay = (np.arange(n, dtype=np.uint32)[None, :]
+           + np.arange(n_payloads, dtype=np.uint32)[:, None])
+    return np.concatenate([words, pay], axis=0)
+
+
+def stable_block_order(rows: np.ndarray, n_words: int, block: int,
+                       descending_odd: bool) -> np.ndarray:
+    """The rows with every block in stable ascending order of its key words
+    (numpy's lexsort), odd blocks reversed under descending_odd."""
+    rows = np.asarray(rows)
+    out = rows.copy()
+    for b in range(rows.shape[1] // block):
+        blk = rows[:, b * block:(b + 1) * block]
+        order = stable_order(blk[:n_words])
+        if descending_odd and b % 2:
+            order = order[::-1]
+        out[:, b * block:(b + 1) * block] = blk[:, order]
+    return out

@@ -4,7 +4,9 @@ against the JAX package's pallas_sort.block_bitonic_sort and
 pallas_sort.sort_words(formulation="roll") in interpret mode (16-row blocks,
 2048 slots). Key rows compare exactly; the JAX network is unstable, so (key,
 payload) pairs compare as per-block multisets. Within the port, kernel,
-plain version and the radix sort are all stable and compare exactly."""
+plain version and the radix sort are all stable and compare exactly. The hard
+cases of hysortk_tpu_torch.testing.block_sort_cases run here around a chunk
+of 64 slots and on the card around the CUDA kernel's chunk."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from hysortk_tpu.ops import pallas_sort
+from hysortk_tpu_torch import testing
 from hysortk_tpu_torch.ops import block_sort, radix_sort
 from hysortk_tpu_torch.ops import sort as sort_ops
 
@@ -56,19 +59,6 @@ def _u32(t):
     return t.cpu().numpy().view(np.uint32)
 
 
-def _expected_blocks(rows, n_words, block, descending_odd):
-    """Each block in stable ascending order by numpy, odd blocks reversed."""
-    rows = np.asarray(rows)
-    out = rows.copy()
-    for b in range(rows.shape[1] // block):
-        blk = rows[:, b * block:(b + 1) * block]
-        order = np.lexsort(tuple(blk[:n_words][::-1]))  # stable
-        if descending_odd and b % 2:
-            order = order[::-1]
-        out[:, b * block:(b + 1) * block] = blk[:, order]
-    return out
-
-
 @pytest.mark.parametrize("n_words,n_pay", [(1, 0), (2, 1), (4, 2)])
 def test_block_sort_matches_jax_kernel(n_words, n_pay):
     rng = np.random.default_rng(n_words)
@@ -83,7 +73,7 @@ def test_block_sort_matches_jax_kernel(n_words, n_pay):
     got = np.stack([_u32(g) for g in got])
     want = np.stack([np.asarray(w) for w in want])
     assert np.array_equal(got[:n_words], want[:n_words])
-    assert np.array_equal(got, _expected_blocks(rows, n_words, BLOCK, True))
+    assert np.array_equal(got, testing.stable_block_order(rows, n_words, BLOCK, True))
     for b in range(n // BLOCK):  # (key, payload) pairs, block by block
         cols = slice(b * BLOCK, (b + 1) * BLOCK)
         assert sorted(zip(*got[:, cols].tolist())) == \
@@ -102,8 +92,46 @@ def test_block_sort_plain_is_stable(n_words, n_pay, block, descending_odd):
     words[:, block - 5:block + 5] = 9  # duplicates that span a block edge
     rows = list(words) + [np.arange(n, dtype=np.uint32) + j for j in range(n_pay)]
     got = block_sort.block_bitonic_sort(_to_torch(rows), n_words, block, descending_odd)
-    want = _expected_blocks(rows, n_words, block, descending_odd)
+    want = testing.stable_block_order(rows, n_words, block, descending_odd)
     assert np.array_equal(np.stack([_u32(g) for g in got]), want)
+
+
+HARD_CASES = testing.block_sort_cases(64)
+
+
+@pytest.mark.parametrize("case", HARD_CASES, ids=[c[0] for c in HARD_CASES])
+def test_block_sort_hard_cases(case):
+    """Every block size from 2 to the kernel's largest, the other kinds of
+    keys, every number of payload rows: the wrapper against numpy's stable
+    order, both orientations."""
+    name, kind, n_words, n_pay, block, n_blocks = case
+    rows = testing.block_sort_case_rows(kind, n_words, n_pay, block, n_blocks, 13)
+    assert rows.shape == (n_words + n_pay, block * n_blocks)
+    for descending_odd in (True, False):
+        got = block_sort.block_bitonic_sort(_to_torch(rows), n_words, block,
+                                            descending_odd)
+        want = testing.stable_block_order(rows, n_words, block, descending_odd)
+        assert np.array_equal(np.stack([_u32(g) for g in got]), want)
+
+
+@pytest.mark.parametrize("kind", testing.BLOCK_SORT_KINDS)
+def test_block_sort_kinds_match_jax_kernel(kind):
+    """Each kind of keys through the JAX kernel too, at its smallest block
+    in interpret mode (8 rows of 128 lanes): key rows exactly, (key, payload)
+    pairs as per-block multisets."""
+    n_words, n_pay, block, n_blocks = 2, 1, 1024, 2
+    rows = testing.block_sort_case_rows(kind, n_words, n_pay, block, n_blocks, 13)
+    got = block_sort.block_bitonic_sort(_to_torch(rows), n_words, block)
+    want = pallas_sort.block_bitonic_sort(
+        [jnp.asarray(r) for r in rows], n_words, block // 128
+    )
+    got = np.stack([_u32(g) for g in got])
+    want = np.stack([np.asarray(w) for w in want])
+    assert np.array_equal(got[:n_words], want[:n_words])
+    for b in range(n_blocks):
+        cols = slice(b * block, (b + 1) * block)
+        assert sorted(zip(*got[:, cols].tolist())) == \
+            sorted(zip(*want[:, cols].tolist()))
 
 
 @pytest.mark.parametrize("n_words,n", [(1, 3 * BLOCK + 17), (2, BLOCK + 517), (4, 1500)])
@@ -178,6 +206,28 @@ def test_block_sort_kernel_matches_plain_on_cuda(cuda, n_words, n_pay, block,
     want = block_sort.block_bitonic_sort_plain(rows, n_words, block, descending_odd)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", testing.block_sort_cases(),
+                         ids=[c[0] for c in testing.block_sort_cases()])
+def test_block_sort_kernel_hard_cases_on_cuda(cuda, case, offset):
+    """The hard cases around the kernel's own chunk; offset 1 hands it rows
+    that are views one word into their buffers (4-byte alignment only)."""
+    name, kind, n_words, n_pay, block, n_blocks = case
+    rows = []
+    for r in _to_torch(testing.block_sort_case_rows(
+            kind, n_words, n_pay, block, n_blocks, 13)):
+        buf = torch.empty(r.shape[0] + offset, dtype=torch.int32, device=cuda)
+        buf[offset:] = r
+        rows.append(buf[offset:])
+    for descending_odd in (True, False):
+        got = block_sort.block_bitonic_sort(rows, n_words, block, descending_odd)
+        want = block_sort.block_bitonic_sort_plain(rows, n_words, block,
+                                                   descending_odd)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

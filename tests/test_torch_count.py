@@ -1,7 +1,10 @@
 """The port's fused run-length count + filter
 (hysortk_tpu_torch.ops.fused_count / ops.count) against the JAX package's
 Pallas kernel in interpret mode (block_rows=2, 256-slot blocks) and its XLA
-run_length_count. Exact equality."""
+run_length_count. Exact equality. The hard cases of
+hysortk_tpu_torch.testing.count_cases run here at a tile of 256 slots (the
+JAX kernel's block in interpret mode) and on the card at the CUDA kernel's
+tile."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +14,7 @@ import torch
 from hysortk_tpu.ops import count as jcount
 from hysortk_tpu.ops import pallas_count, pallas_sort
 from hysortk_tpu.ops import sort as jsort
+from hysortk_tpu_torch import testing
 from hysortk_tpu_torch.ops import count as count_ops
 from hysortk_tpu_torch.ops import fused_count
 from hysortk_tpu_torch.ops import sort as sort_ops
@@ -90,6 +94,34 @@ def test_count_matches_jax_kernel_and_xla(name, n_words):
         assert cnt.numpy()[0] == 1500
 
 
+CPU_TILE = 256  # block_rows=2 of the JAX kernel
+HARD_CASES = testing.count_cases(CPU_TILE)
+
+
+@pytest.mark.parametrize("case", HARD_CASES, ids=[c[0] for c in HARD_CASES])
+def test_count_hard_cases_match_jax_kernel(case):
+    """Runs against tile edges, tiles without a boundary, sentinel tails on
+    and beside a tile edge, ragged sizes: wrapper == JAX kernel == XLA."""
+    name, runs, n_sentinel, n_words, lower, upper = case
+    words = testing.count_case_words(runs, n_sentinel, n_words, 11)
+    n = words.shape[1]
+    assert n == sum(runs) + n_sentinel
+    cnt, keep = fused_count.run_length_count_filter(_to_torch(words), lower, upper)
+    jwords = [jnp.asarray(w) for w in words]
+    pcnt, pkeep = pallas_count.run_length_count_filter(
+        jwords, lower, upper, block_rows=CPU_TILE // 128
+    )
+    assert np.array_equal(cnt.numpy(), np.asarray(pcnt))
+    assert np.array_equal(keep.numpy(), np.asarray(pkeep))
+    # Independent of both: the heads are the runs' first slots, in order.
+    starts = np.cumsum([0] + list(runs[:-1])).astype(np.int64) if runs else []
+    assert np.array_equal(np.nonzero(cnt.numpy())[0], starts)
+    assert np.array_equal(cnt.numpy()[starts], np.asarray(runs, dtype=np.int32))
+    kept = [lower <= r <= upper for r in runs]
+    assert np.array_equal(keep.numpy()[starts], np.asarray(kept, dtype=bool))
+    assert int(keep.sum()) == sum(kept)
+
+
 def test_run_length_count_matches_jax_with_interior_invalid():
     """The plain run_length_count takes an explicit validity mask, as the
     JAX one does; heads and counts agree on validity-first sorted input."""
@@ -122,4 +154,22 @@ def test_count_kernel_matches_plain_on_cuda(cuda, name, n_words):
     got = fused_count.run_length_count_filter(words, LOWER, UPPER)
     assert _build.launches["fused_count"] == before + 1
     want = fused_count.run_length_count_filter_plain(words, LOWER, UPPER)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", testing.count_cases(),
+                         ids=[c[0] for c in testing.count_cases()])
+def test_count_kernel_hard_cases_on_cuda(cuda, case, offset):
+    """The hard cases at the kernel's own tile; offset 1 hands it rows that
+    are views one word into their buffers (4-byte alignment only)."""
+    name, runs, n_sentinel, n_words, lower, upper = case
+    words = []
+    for w in _to_torch(testing.count_case_words(runs, n_sentinel, n_words, 11)):
+        buf = torch.empty(w.shape[0] + offset, dtype=torch.int32, device=cuda)
+        buf[offset:] = w
+        words.append(buf[offset:])
+    got = fused_count.run_length_count_filter(words, lower, upper)
+    want = fused_count.run_length_count_filter_plain(words, lower, upper)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
