@@ -16,7 +16,11 @@ build/kernels/ at first use. Phases, each printing its findings:
      inputs, one to six key words, up to eight rows with arange payloads),
      the count's and the block sort's hard cases there (runs and sentinel
      tails against tile edges, tiles without a boundary, every block size
-     from 2 to the largest, rows that are not 16-byte aligned), then the
+     from 2 to the largest, rows that are not 16-byte aligned), the run
+     merge's and the key build's hard cases there (run counts of one pass
+     and more, runs of one slot to two tiles, equal keys across tile edges,
+     every key width, ragged sizes, inputs shorter than the halo, views at
+     odd offsets), then the
      inputs the main paths give each kernel at the size of phases
      2 and 4, with each kernel's bound (the least time the card could take)
      and, where one PyTorch call computes the same function, that call's
@@ -321,6 +325,7 @@ def phase1_synthetic(gen):
 
     phase1_sort_cases(errs)
     phase1_count_block_sort_cases(errs)
+    phase1_merge_keybuild_cases(errs)
 
     # count and weighted sum: sorted keys whose runs include poly-A lengths
     # (10^5, 10^6), runs at exactly L and U, top-bit keys, then a sentinel
@@ -382,7 +387,8 @@ def phase1_synthetic(gen):
         require_equal(f"merge_runs W={w_count} S={n_runs} L={run_len}", e)
         ms = cuda_ms(lambda: merge.merge_sorted_runs(rows, w_count, run_len), 5)
         pms = cuda_ms(lambda: merge.merge_sorted_runs_plain(rows, w_count, run_len), 3)
-        log(f"phase1 merge_runs W={w_count}+1 S={n_runs} L={run_len}: equal, "
+        log(f"phase1 merge_runs W={w_count}+1 S={n_runs} L={run_len} "
+            f"({merge_passes(n_runs, run_len)} pass(es)): equal, "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
         errs["merge_runs"] = max(errs["merge_runs"], e)
         del rows, got, want
@@ -423,6 +429,59 @@ def phase1_sort_cases(errs) -> None:
         errs["fused_sort"] = max(errs["fused_sort"], e)
     log(f"phase1 fused_sort hard cases at tiles {testing.FUSED_SORT_TILES[2]} "
         f"(W <= 2) and {testing.FUSED_SORT_TILES[3]}: {len(fused_cases)} equal")
+
+
+def phase1_merge_keybuild_cases(errs) -> None:
+    """The run merge's and the key build's hard cases
+    (hysortk_tpu_torch.testing) at the kernels' own tiles and fan-in, on
+    aligned rows and on views at odd offsets, each kernel exactly equal to
+    its plain version."""
+    import torch
+
+    from hysortk_tpu_torch import testing
+    from hysortk_tpu_torch.ops import keybuild, merge
+
+    cases = testing.merge_cases()
+    for name, kind, n_words, n_pay, n_runs, run_len in cases:
+        rows_np = testing.merge_case_rows(kind, n_words, n_pay, n_runs, run_len, SEED)
+        for offset in (0, 1):
+            rows = rows_on_card(rows_np, offset)
+            got = merge.merge_sorted_runs(rows, n_words, run_len)
+            want = merge.merge_sorted_runs_plain(rows, n_words, run_len)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            require_equal(f"merge_runs case {name} offset {offset}", e)
+            errs["merge_runs"] = max(errs["merge_runs"], e)
+    passes = sorted({merge_passes(c[4], c[5]) for c in cases})
+    log(f"phase1 merge_runs hard cases at tile {testing.MERGE_TILE}, fan-in "
+        f"{testing.MERGE_FAN_IN}: {len(cases)} "
+        f"equal, aligned and one word off, {passes[0]}-{passes[-1]} passes")
+    cases = testing.keybuild_cases()
+    for name, kind, n, k, offset in cases:
+        codes_np, valid_np = testing.keybuild_case_codes(kind, n, k, SEED)
+        codes, valid = (
+            torch.zeros(n + offset, dtype=torch.from_numpy(a).dtype, device="cuda")
+            for a in (codes_np, valid_np))
+        codes[offset:] = torch.from_numpy(codes_np).cuda()
+        valid[offset:] = torch.from_numpy(valid_np).cuda()
+        codes, valid = codes[offset:], valid[offset:]
+        got = keybuild.canonical_keys_fused(codes, valid, k)
+        want = keybuild.canonical_keys_plain(codes, valid, k)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        require_equal(f"keybuild case {name}", e)
+        errs["keybuild"] = max(errs["keybuild"], e)
+    log(f"phase1 keybuild hard cases at tile {testing.KEYBUILD_TILE}: {len(cases)} "
+        f"equal (K = {', '.join(map(str, testing.KEYBUILD_KS))}; codes and flags "
+        f"at odd offsets in {sum(c[4] > 0 for c in cases)})")
+
+
+def merge_passes(n_runs: int, run_len: int) -> int:
+    """How many passes merge_sorted_runs makes over n_runs runs."""
+    from hysortk_tpu_torch.ops import merge
+
+    return len(merge.merge_plan(np.arange(n_runs + 1) * run_len,
+                                merge.TILE, merge.FAN_IN))
 
 
 def block_sort_regime(block: int) -> str:
@@ -718,6 +777,8 @@ def log_kernel(what: str, t: dict) -> None:
 def phase1_streaming_path(merge_inputs, sum_inputs, errs, what: str):
     """The two streaming kernels against their plain versions on the very
     inputs a run's final merge gave them. Returns their measurements."""
+    import torch
+
     from hysortk_tpu_torch.ops import merge, run_length_sum
 
     rows, n_words, run_len = merge_inputs
@@ -731,11 +792,25 @@ def phase1_streaming_path(merge_inputs, sum_inputs, errs, what: str):
     # of up to W word compares.
     mr_bound = bound(8 * len(rows) * n, n_words * n * np.log2(n_runs))
     mr = dict(
-        ms=cuda_ms(lambda: merge.merge_sorted_runs(rows, n_words, run_len), 5),
+        ms=cuda_ms(lambda: merge.merge_sorted_runs(rows, n_words, run_len), 10),
         plain_ms=cuda_ms(
             lambda: merge.merge_sorted_runs_plain(rows, n_words, run_len), 3),
         bound_ms=mr_bound[0], bound_by=mr_bound[1], library_ms=None,
     )
+    if n_words <= 2:
+        # A stable merge of runs is a stable sort of their concatenation: one
+        # torch.sort(stable=True) of the packed key, then the payload rows
+        # gathered by its order (the packing is not timed).
+        packed = packed_int64(rows[:n_words])
+
+        def library():
+            order = torch.sort(packed, stable=True).indices
+            return [r.index_select(0, order) for r in rows[n_words:]]
+
+        if not all(torch.equal(a, b) for a, b in zip(library(), got[n_words:])):
+            raise AssertionError("the stable torch.sort's payload rows differ")
+        mr["library_ms"] = cuda_ms(library, 5)
+        del packed
     del got
 
     words, weights = sum_inputs
@@ -754,7 +829,8 @@ def phase1_streaming_path(merge_inputs, sum_inputs, errs, what: str):
         bound_ms=rl_bound[0], bound_by=rl_bound[1], library_ms=None,
     )
     log_kernel(f"phase1 merge_runs {what} W={n_words}+{len(rows) - n_words} "
-               f"S={n_runs} L={run_len} ({int(np.log2(n_runs))} passes)", mr)
+               f"S={n_runs} L={run_len} ({merge_passes(n_runs, run_len)} "
+               f"pass(es), library call: torch.sort(stable=True) + gather)", mr)
     log_kernel(f"phase1 run_length_sum {what} W={w} n={n}", rl)
     return {"merge_runs": mr, "run_length_sum": rl}
 

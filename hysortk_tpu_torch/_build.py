@@ -160,9 +160,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_run_length_sum_scratch.restype = i64
     lib.hk_run_length_sum.argtypes = [ptrs, i32, ptr, i64, ptr, ptr, ptr, ptr]
     lib.hk_run_length_sum.restype = i32
-    lib.hk_merge_pass_scratch.argtypes = [i64, i64]
-    lib.hk_merge_pass_scratch.restype = i64
-    lib.hk_merge_pass.argtypes = [ptrs, ptrs, i32, i32, i64, i64, ptr, ptr]
+    lib.hk_merge_pass.argtypes = [ptrs, ptrs, i32, i32, ptr, i32, ptr, i32,
+                                  i32, i32, i32, ptr, ptr]
     lib.hk_merge_pass.restype = i32
     lib.hk_error_string.argtypes = [i32]
     lib.hk_error_string.restype = ctypes.c_char_p

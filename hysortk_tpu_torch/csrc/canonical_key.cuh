@@ -2,8 +2,9 @@
 //
 // The one definition of the key shared by the key-build kernel (keybuild.cu)
 // and by the key build fused into the radix sort (fused_sort.cu), so that
-// every kernel that derives a key derives the same bits: from codes held one
-// to a byte (canonical_key) or 16 to a word (canonical_key_packed). Semantics of
+// every kernel that derives a key derives the same bits, from codes staged
+// 16 to a word in shared memory by stage_codes (canonical_key_packed,
+// canonical_key_words). Semantics of
 // hysortk_tpu/ops/keybuild.py derive_canonical: the W big-endian words of
 // min(forward k-mer, reverse complement), word 0 most significant, the last
 // word cut to the k-mer's remaining bases and zero below them.
@@ -62,25 +63,6 @@ __device__ __forceinline__ void canonical_from_forward(uint32_t (&fwd)[W], int k
   for (int w = 0; w < W; ++w) key[w] = less ? twn[w] : fwd[w];
 }
 
-// s[0 .. 16W): the slot's base codes in 0..3, one per element (any unsigned
-// integer type), those past the end of the input given as 0. key[0 .. W)
-// receives the canonical key of the k-mer that starts at s[0].
-template <int W, typename Code>
-__device__ __forceinline__ void canonical_key(const Code* s, int k,
-                                              uint32_t (&key)[W]) {
-  uint32_t fwd[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      word = (word << 2) | static_cast<uint32_t>(s[16 * w + j]);
-    }
-    fwd[w] = word;
-  }
-  canonical_from_forward<W>(fwd, k, key);
-}
-
 // Four base codes, one per byte of v (the first in the lowest byte), as
 // eight bits, the first base in the top crumb. Bits above a code's low two
 // are dropped.
@@ -89,25 +71,64 @@ __device__ __forceinline__ uint32_t pack_four_codes(uint32_t v) {
   return ((t << 6) | (t >> 4) | (t >> 14) | (t >> 24)) & 0xFFu;
 }
 
+// q[0 .. W]: packed base codes 16 to a word (the first in the top crumb),
+// the k-mer's first base at crumb `at` (0..15) of q[0]. Each forward word is
+// one funnel shift of two neighbouring words.
+template <int W>
+__device__ __forceinline__ void canonical_key_words(const uint32_t (&q)[W + 1],
+                                                    int at, int k,
+                                                    uint32_t (&key)[W]) {
+  const unsigned shift = 2u * static_cast<unsigned>(at);
+  uint32_t fwd[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) fwd[w] = __funnelshift_l(q[w + 1], q[w], shift);
+  canonical_from_forward<W>(fwd, k, key);
+}
+
 // packed: base codes 16 to a word, the first in the top crumb, those past
 // the end of the input given as 0. The k-mer starts at base `at` of packed;
-// words packed[at / 16 .. at / 16 + W] are read. Each forward word is one
-// funnel shift of two neighbouring words.
+// words packed[at / 16 .. at / 16 + W] are read.
 template <int W>
 __device__ __forceinline__ void canonical_key_packed(const uint32_t* packed,
                                                      int at, int k,
                                                      uint32_t (&key)[W]) {
-  const uint32_t* q = packed + (at >> 4);
-  const unsigned shift = 2u * (static_cast<unsigned>(at) & 15u);
-  uint32_t fwd[W];
-  uint32_t hi = q[0];
+  const uint32_t* p = packed + (at >> 4);
+  uint32_t q[W + 1];
 #pragma unroll
-  for (int w = 0; w < W; ++w) {
-    const uint32_t lo = q[w + 1];
-    fwd[w] = __funnelshift_l(lo, hi, shift);
-    hi = lo;
+  for (int w = 0; w <= W; ++w) q[w] = p[w];
+  canonical_key_words<W>(q, at & 15, k, key);
+}
+
+// Stage codes[tile_base ..] for a tile of `tile` slots (a multiple of 16)
+// and its (16W - 1)-base halo in shared memory, packed 16 bases to a word
+// (the first in the top crumb), bases past n as 0: tile / 16 + W + 1 words,
+// the last one read by the funnel shift and discarded. 16-byte loads where
+// the codes are 16-byte aligned, single bytes where they are not. Begins
+// and ends with a barrier, so a block can stage one tile after another.
+template <int W>
+__device__ __forceinline__ void stage_codes(const int8_t* __restrict__ codes,
+                                            int64_t n, int64_t tile_base,
+                                            int tile, uint32_t* room) {
+  __syncthreads();  // the tile before has been read
+  const bool aligned = (reinterpret_cast<uintptr_t>(codes) & 15u) == 0;
+  for (int m = threadIdx.x; m < tile / 16 + W + 1; m += blockDim.x) {
+    const int64_t p = tile_base + 16 * static_cast<int64_t>(m);
+    uint32_t word = 0;
+    if (aligned && p + 16 <= n) {
+      const uint4 v = *reinterpret_cast<const uint4*>(codes + p);
+      word = (pack_four_codes(v.x) << 24) | (pack_four_codes(v.y) << 16) |
+             (pack_four_codes(v.z) << 8) | pack_four_codes(v.w);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t c =
+            p + j < n ? static_cast<uint8_t>(codes[p + j]) & 3u : 0u;
+        word = (word << 2) | c;
+      }
+    }
+    room[m] = word;
   }
-  canonical_from_forward<W>(fwd, k, key);
+  __syncthreads();
 }
 
 }  // namespace hk

@@ -59,34 +59,6 @@ struct StagedWords {
   static constexpr int value = kTile / 16 + W + 1;
 };
 
-// Stage a tile's codes and halo, packed 16 bases to a word (the first in the
-// top crumb), bases past n as 0. Word m holds codes[tile_base + 16m ..].
-template <int W>
-__device__ __forceinline__ void stage_codes(const int8_t* __restrict__ codes,
-                                            int64_t n, int64_t tile_base,
-                                            int tile, uint32_t* room) {
-  __syncthreads();  // the tile before has been read
-  const bool aligned = (reinterpret_cast<uintptr_t>(codes) & 15u) == 0;
-  for (int m = threadIdx.x; m < tile / 16 + W + 1; m += blockDim.x) {
-    const int64_t p = tile_base + 16 * static_cast<int64_t>(m);
-    uint32_t word = 0;
-    if (aligned && p + 16 <= n) {
-      const uint4 v = *reinterpret_cast<const uint4*>(codes + p);
-      word = (hk::pack_four_codes(v.x) << 24) | (hk::pack_four_codes(v.y) << 16) |
-             (hk::pack_four_codes(v.z) << 8) | hk::pack_four_codes(v.w);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const uint32_t c =
-            p + j < n ? static_cast<uint8_t>(codes[p + j]) & 3u : 0u;
-        word = (word << 2) | c;
-      }
-    }
-    room[m] = word;
-  }
-  __syncthreads();
-}
-
 // A slot's key from the staged codes, all ones where the slot is invalid.
 template <int W>
 __device__ __forceinline__ void slot_key(const uint32_t* staged,
@@ -108,7 +80,7 @@ struct CodeKeys {
   int k;
   uint32_t* staged;
   __device__ __forceinline__ void stage(int64_t tile_base, int64_t n) const {
-    stage_codes<W>(codes, n, tile_base, kHistTile, staged);
+    hk::stage_codes<W>(codes, n, tile_base, kHistTile, staged);
   }
   __device__ __forceinline__ void get(int64_t i, int local,
                                       uint32_t (&key)[W]) const {
@@ -141,7 +113,7 @@ struct CodeSource {
   __device__ __forceinline__ void stage(int64_t tile_base, int64_t n,
                                         unsigned char* room) {
     uint32_t* words = reinterpret_cast<uint32_t*>(room);
-    stage_codes<W>(codes, n, tile_base, kPassThreads * kItems, words);
+    hk::stage_codes<W>(codes, n, tile_base, kPassThreads * kItems, words);
     staged = words;
   }
   __device__ __forceinline__ void load(int j, int64_t i, int local) {

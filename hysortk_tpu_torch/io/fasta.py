@@ -1,8 +1,10 @@
 """Host-side FASTA input: index, partition, parse, 2-bit pack, flatten.
 
 The jax-free host code of hysortk_tpu/io/fasta.py, carried over unchanged for
-the single-device slice (the multi-host read-id helpers and the
-extension-mode flattener are not part of it).
+one process: the single-device flattener and the extension-mode one
+(`flatten_for_device_ext`, with each slot's read id and position). The
+multi-host read-id helpers (`read_displacements`, `getreadowner`) are not
+part of it yet.
 
 TPU-native redesign of the reference's FastaIndex + DnaBuffer input stage
 (reference: src/fastaindex.cpp, src/dnabuffer.cpp, src/dnaseq.cpp):

@@ -1,9 +1,10 @@
 """Canonical k-mer key construction in one pass: kernel 1 of the slice.
 
 The port of hysortk_tpu/ops/keybuild.py canonical_keys_fused. On a CUDA
-tensor the wrapper launches the hand-written kernel csrc/keybuild.cu (one
-thread per position, the code tile plus its (16W - 1)-base halo staged in
-shared memory); on a CPU tensor it runs the plain version,
+tensor the wrapper launches the hand-written kernel csrc/keybuild.cu (a
+2048-slot tile's codes plus their 16W-base halo packed 16 to a word in
+shared memory, four slots a thread group, one 16-byte store a key row); on
+a CPU tensor it runs the plain version,
 ops/kmer.canonical_words + ops/sort.apply_sentinel, which defines the
 semantics (reference Kmer<NLONGS> construction, include/kmer.hpp:107-345).
 """
@@ -53,13 +54,14 @@ def _canonical_keys_cuda(
     codes: torch.Tensor, valid: torch.Tensor, k: int
 ) -> list[torch.Tensor]:
     n = codes.shape[0]
+    # Rows a multiple of four words apart: each starts 16-byte aligned.
     out = torch.empty(
-        (words_per_kmer(k), n), dtype=torch.int32, device=codes.device
+        (words_per_kmer(k), -(-n // 4) * 4), dtype=torch.int32, device=codes.device
     )
+    rows = [r[:n] for r in out.unbind(0)]
     if n == 0:
-        return list(out.unbind(0))
+        return rows
     lib = _build.lib()
-    rows = list(out.unbind(0))
     with torch.cuda.device(codes.device):
         status = lib.hk_keybuild(
             codes.data_ptr(), valid.data_ptr(), n, k,

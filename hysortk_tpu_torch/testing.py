@@ -19,6 +19,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .ops.merge import FAN_IN as MERGE_FAN_IN
+from .ops.merge import TILE as MERGE_TILE
+
 _COMP = str.maketrans("ACGT", "TGCA")
 
 
@@ -383,3 +386,143 @@ def stable_block_order(rows: np.ndarray, n_words: int, block: int,
             order = order[::-1]
         out[:, b * block:(b + 1) * block] = blk[:, order]
     return out
+
+
+# --------------------------------------------------------------------------
+# The run merge's hard inputs, by the kernel's output tile and fan-in: run
+# counts that take one pass and more (a last pass of smaller fan-in), runs of
+# one slot, shorter than a tile and across tile edges, equal keys across
+# every tile boundary, runs wholly before or after their neighbours,
+# sentinel tails and all-sentinel runs.
+
+MERGE_KINDS = ("random", "all_equal", "ascending", "descending", "top_bit",
+               "sentinel")
+
+
+def merge_cases(tile: int = MERGE_TILE, fan_in: int = MERGE_FAN_IN
+                ) -> list[tuple[str, str, int, int, int, int]]:
+    """(name, kind, n_words, n_payloads, n_runs, run_len) of every case, by
+    the kernel's output tile and fan-in. Run counts and lengths are powers
+    of two, as merge_sorted_runs asks."""
+    cases = [("random", 2, 1, s, tile // 2) for s in (2, 4, 8, 16, 32)]
+    cases += [("random", 2, 1, 4 * fan_in, 16),  # last pass of fan-in 4
+              ("random", 1, 1, 2 * fan_in, 1),  # last pass of fan-in 2
+              ("random", 2, 1, 16, 1), ("random", 2, 1, 8, tile // 8),
+              ("random", 2, 1, 4, 2 * tile), ("random", 2, 6, 4, tile // 4)]
+    cases += [("random", w, p, 8, tile // 4) for w in (1, 2, 4, 6) for p in (0, 2)]
+    cases += [("all_equal", 2, 1, 8, tile), ("all_equal", 1, 1, 32, tile // 8),
+              ("all_equal", 4, 2, 4, tile),
+              ("ascending", 2, 1, 8, tile // 2), ("descending", 2, 1, 8, tile // 2),
+              ("descending", 1, 0, 2 * fan_in, tile // 16),
+              ("top_bit", 2, 1, 8, tile // 2), ("top_bit", 4, 1, 4, tile),
+              ("sentinel", 2, 1, 16, tile // 4), ("sentinel", 1, 0, 8, 2 * tile),
+              ("sentinel", 6, 2, 4, tile)]
+    return [(f"{kind}-w{w}-p{p}-s{s}x{l}", kind, w, p, s, l)
+            for kind, w, p, s, l in dict.fromkeys(cases)]
+
+
+def merge_case_rows(kind: str, n_words: int, n_payloads: int, n_runs: int,
+                    run_len: int, seed: int) -> np.ndarray:
+    """(n_words + n_payloads, n_runs * run_len) uint32: n_runs ascending runs
+    of run_len slots, then payload rows arange(n) + j, so the merged payloads
+    show the order among equal keys.
+
+    random      keys from a pool of run_len / 2 (duplicates within and
+                across runs, half with the top bit set), sentinel tails of
+                different lengths, the last run all sentinel when n_runs > 2
+    all_equal   one key in every slot
+    ascending   every run wholly after the one before it
+    descending  every run wholly before the one before it
+    top_bit     every key with the top bit set, word-0 ties that differ in
+                the last word only
+    sentinel    random, every other run all sentinel, the rest with tails
+    """
+    rng = np.random.default_rng(seed)
+    n = n_runs * run_len
+    words = np.full((n_words, n_runs, run_len), 0xFFFFFFFF, dtype=np.uint32)
+    pool = rng.integers(0, 2**32, (max(run_len // 2, 1), n_words),
+                        dtype=np.uint64).astype(np.uint32)
+    if kind == "top_bit":
+        pool |= np.uint32(0x80000000)
+        pool[:, 0] = pool[0, 0]
+    for r in range(n_runs):
+        if kind in ("all_equal", "ascending", "descending"):
+            filled = run_len
+        else:
+            filled = run_len - (r * run_len) // (2 * n_runs)
+            if (kind == "random" and n_runs > 2 and r == n_runs - 1) or (
+                    kind == "sentinel" and r % 2):
+                filled = 0
+        if kind == "all_equal":
+            keys = np.repeat(pool[:1], filled, axis=0)
+        elif kind in ("ascending", "descending"):
+            band = r if kind == "ascending" else n_runs - 1 - r
+            keys = rng.integers(0, 2**32, (filled, n_words),
+                                dtype=np.uint64).astype(np.uint32)
+            # word 0 in band `band` of n_runs equal slices below the sentinel
+            width = (2**32 - 1) // n_runs
+            keys[:, 0] = (band * width + keys[:, 0].astype(np.uint64) % width
+                          ).astype(np.uint32)
+        else:
+            keys = pool[rng.integers(0, pool.shape[0], filled)]
+        keys = keys[stable_order(keys.T)]
+        words[:, r, :filled] = keys.T
+    pay = (np.arange(n, dtype=np.uint32)[None, :]
+           + np.arange(n_payloads, dtype=np.uint32)[:, None])
+    return np.concatenate([words.reshape(n_words, n), pay], axis=0)
+
+
+# --------------------------------------------------------------------------
+# The key build's hard inputs, by the kernel's tile and the four slots a
+# thread group takes: every key width and the shift-free widths, sizes that
+# are not whole tiles or groups, inputs shorter than the halo, invalid slots
+# on both sides of a tile edge, codes and flags at odd offsets.
+
+KEYBUILD_TILE = 2048  # slots per tile of csrc/keybuild.cu: 256 threads x 2 x 4
+KEYBUILD_GROUP = 4  # consecutive slots a thread keys and stores at once
+KEYBUILD_KS = (3, 15, 16, 17, 31, 32, 33, 55, 64, 96)
+KEYBUILD_KINDS = ("random", "tile_edge", "poly_a")
+
+
+def keybuild_cases(tile: int = KEYBUILD_TILE) -> list[tuple[str, str, int, int, int]]:
+    """(name, kind, n, k, offset) of every case: offset is where the codes
+    and flags start in their buffers (1 and 3: no alignment at all)."""
+    ragged = 3 * tile + 5  # neither whole tiles nor whole groups
+    cases = [("random", ragged, k, 0) for k in KEYBUILD_KS]
+    cases += [("random", n, k, 0) for n, k in ((1, 31), (30, 17), (40, 33), (90, 96))]
+    cases += [("tile_edge", 2 * tile + 7, k, 0) for k in (15, 31, 55, 96)]
+    cases += [("poly_a", tile + 3, k, 0) for k in (31, 64)]
+    cases += [("random", ragged, k, off) for k in (15, 31, 55) for off in (1, 3)]
+    cases += [("tile_edge", 2 * tile + 7, 33, 1)]
+    return [(f"{kind}-n{n}-k{k}-o{off}", kind, n, k, off)
+            for kind, n, k, off in cases]
+
+
+def keybuild_case_codes(kind: str, n: int, k: int, seed: int,
+                        tile: int = KEYBUILD_TILE):
+    """(codes (n,) int8, valid (n,) bool).
+
+    random     random codes, invalid runs and lone invalid slots
+    tile_edge  random codes, every slot valid but two either side of each
+               tile edge (and the last k - 1)
+    poly_a     one base everywhere, every slot with k bases after it valid
+    The last k - 1 slots are always invalid (no k-mer starts there).
+    """
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=n).astype(np.int8)
+    if kind == "random":
+        valid = rng.random(n) < 0.9
+        for start in rng.integers(0, max(n, 1), 3):
+            valid[start:start + 40] = False
+    elif kind == "tile_edge":
+        valid = np.ones(n, dtype=bool)
+        edge = np.arange(n) % tile
+        valid[(edge < 2) | (edge >= tile - 2)] = False
+        valid[:2] = True  # slot 0 is no edge
+    elif kind == "poly_a":
+        codes[:] = 0
+        valid = np.ones(n, dtype=bool)
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    valid[max(n - (k - 1), 0):] = False
+    return codes, valid

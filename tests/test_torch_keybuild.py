@@ -1,6 +1,8 @@
 """The port's key build (hysortk_tpu_torch.ops.keybuild / ops.kmer) against
 the JAX package: the Pallas kernel in interpret mode and the XLA
-formulation. Integer work, so every comparison is exact."""
+formulation. Integer work, so every comparison is exact. The hard cases of
+hysortk_tpu_torch.testing.keybuild_cases run here at a tile of 256 slots (the
+JAX kernel's block in interpret mode) and on the card at the kernel's tile."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ from hysortk_tpu.ops import keybuild as jkeybuild
 from hysortk_tpu.ops import kmer as jkmer
 from hysortk_tpu.ops import pallas_sort
 from hysortk_tpu.ops import sort as jsort
+from hysortk_tpu_torch import testing
 from hysortk_tpu_torch.ops import keybuild, kmer
 
 KS = [15, 16, 17, 31, 32, 55, 96]  # W = 1, 1, 2, 2, 2, 4, 6; shift == 0 at 16, 32, 96
@@ -74,6 +77,40 @@ def test_keybuild_matches_jax_xla(k):
         assert np.array_equal(g, np.asarray(x))
     # Invalid slots hold the sentinel.
     assert np.all(g[~valid] == 0xFFFFFFFF)
+
+
+CPU_TILE = 256  # block_rows=2 of the JAX kernel
+HARD_CASES = testing.keybuild_cases(CPU_TILE)
+
+
+def _case_tensors(case, tile, device="cpu"):
+    """The case's codes and flags as views `offset` elements into their
+    buffers on `device`."""
+    name, kind, n, k, offset = case
+    codes, valid = testing.keybuild_case_codes(kind, n, k, 17, tile)
+    out = []
+    for a in (codes, valid):
+        buf = torch.zeros(n + offset, dtype=torch.from_numpy(a).dtype, device=device)
+        buf[offset:] = torch.from_numpy(a).to(device)
+        out.append(buf[offset:])
+    return out
+
+
+@pytest.mark.parametrize("case", HARD_CASES, ids=[c[0] for c in HARD_CASES])
+def test_keybuild_hard_cases_match_jax_kernel(case):
+    """Every key width, sizes that are not whole tiles or groups, inputs
+    shorter than the halo, invalid slots either side of a tile edge, views at
+    odd offsets: wrapper == JAX kernel, exactly."""
+    name, kind, n, k, offset = case
+    codes, valid = _case_tensors(case, CPU_TILE)
+    got = keybuild.canonical_keys_fused(codes, valid, k)
+    want = jkeybuild.canonical_keys_fused(
+        jnp.asarray(codes.numpy()), jnp.asarray(valid.numpy()), k, block_rows=2
+    )
+    assert len(got) == len(want) == (k + 15) // 16
+    for w, (g, x) in enumerate(zip(_as_u32(got), want)):
+        assert np.array_equal(g, np.asarray(x)), f"word {w}"
+    assert np.all(_as_u32(got)[0][~valid.numpy()] == 0xFFFFFFFF)
 
 
 @pytest.mark.parametrize("k", [16, 31, 55])
@@ -144,5 +181,18 @@ def test_keybuild_kernel_matches_plain_on_cuda(cuda, k):
     got = keybuild.canonical_keys_fused(codes_d, valid_d, k)
     assert _build.launches["keybuild"] == before + 1
     want = keybuild.canonical_keys_plain(codes_d, valid_d, k)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", testing.keybuild_cases(),
+                         ids=[c[0] for c in testing.keybuild_cases()])
+def test_keybuild_kernel_hard_cases_on_cuda(cuda, case):
+    """The hard cases at the kernel's own tile, odd offsets included."""
+    codes, valid = _case_tensors(case, testing.KEYBUILD_TILE, cuda)
+    k = case[3]
+    got = keybuild.canonical_keys_fused(codes, valid, k)
+    want = keybuild.canonical_keys_plain(codes, valid, k)
     for g, x in zip(got, want):
         assert torch.equal(g, x)

@@ -3,7 +3,9 @@ against the JAX package's bitonic merge network (ops/merge._merge_network_xla)
 and its Pallas merge_runs in interpret mode. Key rows compare exactly; the
 JAX merges are unstable, so payloads compare as per-key sums. Against a
 stable numpy sort of the concatenation the port compares exactly, payloads
-included. Integer work: no tolerance."""
+included. The hard cases of hysortk_tpu_torch.testing.merge_cases run here
+at a tile of 64 slots and on the card at the kernel's tiles. Integer work:
+no tolerance."""
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,7 @@ import torch
 
 from hysortk_tpu.ops import merge as jmerge
 from hysortk_tpu.ops import pallas_sort
+from hysortk_tpu_torch import testing
 from hysortk_tpu_torch.ops import merge as merge_ops
 
 FULL = np.uint32(0xFFFFFFFF)
@@ -65,10 +68,12 @@ def _stable_sort(rows, n_words):
 
 
 def _key_sums(rows, n_words):
-    """{key tuple: sum of the payload row} of merged rows."""
+    """{key tuple: sums of the payload rows} of merged rows."""
     sums = {}
-    for *key, pay in zip(*[r.tolist() for r in rows[: n_words + 1]]):
-        sums[tuple(key)] = sums.get(tuple(key), 0) + pay
+    for col in zip(*[r.tolist() for r in rows]):
+        key, pays = col[:n_words], col[n_words:]
+        old = sums.get(key, (0,) * len(pays))
+        sums[key] = tuple(a + b for a, b in zip(old, pays))
     return sums
 
 
@@ -126,6 +131,70 @@ def test_merge_is_stable_across_runs():
     got = _merged_np(np.stack([key, pay]), 1, 4)
     assert got[0].tolist() == [5, 5, 5, 7, 7, 7, FULL, FULL]
     assert got[1].tolist() == [0, 1, 4, 2, 5, 6, 3, 7]
+
+
+CPU_TILE = 64
+HARD_CASES = testing.merge_cases(CPU_TILE)
+
+
+@pytest.mark.parametrize("case", HARD_CASES, ids=[c[0] for c in HARD_CASES])
+def test_merge_hard_cases_match_jax_network(case):
+    """Run counts of one pass and more, runs of one slot to two tiles, equal
+    keys across tile edges, disjoint runs, top-bit keys, sentinel runs: the
+    port equals a numpy stable sort exactly and the JAX network in its keys
+    and per-key payload sums."""
+    name, kind, n_words, n_pay, s, run_len = case
+    rows = testing.merge_case_rows(kind, n_words, n_pay, s, run_len, 13)
+    got = _merged_np(rows, n_words, run_len)
+    assert np.array_equal(got, rows[:, testing.stable_order(rows[:n_words])])
+    want = jmerge._merge_network_xla([jnp.asarray(r) for r in rows], n_words, run_len)
+    want = np.stack([np.asarray(w) for w in want])
+    assert np.array_equal(got[:n_words], want[:n_words])
+    if n_pay:
+        assert _key_sums(got, n_words) == _key_sums(want, n_words)
+
+
+@pytest.mark.parametrize("s,fan_in,passes", [
+    (2, 16, 1), (16, 16, 1), (17, 16, 2), (32, 16, 2), (64, 16, 2),
+    (2**15, 16, 4), (2**15, 32, 3), (1, 16, 0),
+])
+def test_merge_plan_passes_and_tiles(s, fan_in, passes):
+    """ceil(log_fan_in(S)) passes; each pass's groups and tiles cover every
+    slot once; runs of unequal length (and empty ones) are planned alike."""
+    rng = np.random.default_rng(s + fan_in)
+    for lens in (np.full(s, 64), rng.integers(0, 700, s)):
+        bounds = np.concatenate([[0], np.cumsum(lens)])
+        plan = merge_ops.merge_plan(bounds, 256, fan_in)
+        assert len(plan) == passes
+        n_runs = s
+        for p in plan:
+            assert p.n_runs == n_runs and p.n_groups == -(-n_runs // fan_in)
+            first = np.arange(0, n_runs, fan_in)
+            sizes = p.bounds[np.minimum(first + fan_in, n_runs)] - p.bounds[first]
+            assert np.array_equal(np.diff(p.group_tiles), -(-sizes // 256))
+            assert p.bounds[0] == 0 and p.bounds[-1] == bounds[-1]
+            n_runs = p.n_groups
+        assert n_runs == 1
+    with pytest.raises(ValueError):
+        merge_ops.merge_plan([0, 5, 3], 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", testing.merge_cases(),
+                         ids=[c[0] for c in testing.merge_cases()])
+def test_merge_kernel_hard_cases_on_cuda(cuda, case, offset):
+    """The hard cases at the kernel's own tiles and fan-in; offset 1 hands
+    it rows that are views one word into their buffers."""
+    name, kind, n_words, n_pay, s, run_len = case
+    rows = []
+    for r in _to_torch(testing.merge_case_rows(kind, n_words, n_pay, s, run_len, 13)):
+        buf = torch.empty(r.shape[0] + offset, dtype=torch.int32, device=cuda)
+        buf[offset:] = r
+        rows.append(buf[offset:])
+    got = merge_ops.merge_sorted_runs(rows, n_words, run_len)
+    want = merge_ops.merge_sorted_runs_plain(rows, n_words, run_len)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
