@@ -325,6 +325,7 @@ def phase1_synthetic(gen):
 
     phase1_sort_cases(errs)
     phase1_count_block_sort_cases(errs)
+    phase1_sum_cases(errs)
     phase1_merge_keybuild_cases(errs)
 
     # count and weighted sum: sorted keys whose runs include poly-A lengths
@@ -540,6 +541,32 @@ def phase1_count_block_sort_cases(errs) -> None:
         f"{len(cases)} equal in both orientations, aligned and one word off; "
         f"B = {sizes[0]} .. {sizes[-1]} ({block_sort_regime(sizes[0])} .. "
         f"{block_sort_regime(sizes[-1])})")
+
+
+def phase1_sum_cases(errs) -> None:
+    """The weighted sum's hard cases (hysortk_tpu_torch.testing.sum_cases)
+    at the kernel's tile, on aligned rows and on rows that are views one word
+    into their buffers, each exactly equal to the plain version."""
+    import torch
+
+    from hysortk_tpu_torch import testing
+    from hysortk_tpu_torch.ops import run_length_sum
+
+    cases = testing.sum_cases(testing.SUM_TILE)
+    for name, runs, n_sentinel, n_words, kind in cases:
+        rows = list(testing.count_case_words(runs, n_sentinel, n_words, SEED))
+        rows.append(testing.sum_case_weights(kind, runs, n_sentinel, SEED))
+        for offset in (0, 1):
+            t = rows_on_card(rows, offset)
+            got = run_length_sum.run_length_sum_fused(t[:-1], t[-1])
+            want = run_length_sum.run_length_sum_fused_plain(t[:-1], t[-1])
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            require_equal(f"run_length_sum case {name} offset {offset}", e)
+            errs["run_length_sum"] = max(errs["run_length_sum"], e)
+    log(f"phase1 run_length_sum hard cases at tile {testing.SUM_TILE}: {len(cases)} "
+        f"equal, on 16-byte aligned rows and on rows one word off (walks over 41 "
+        f"tiles, int32 totals that wrap across tiles, signed weights)")
 
 
 def synthetic_sorted_words(gen, size: int, n_words: int):

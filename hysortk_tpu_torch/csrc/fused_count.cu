@@ -15,11 +15,9 @@
 // carry at all.
 //
 // One tile is 256 threads x 16 slots:
-//   1. every word row is read once, 16 bytes a thread (uint4), a warp's 32
-//      threads on 512 consecutive bytes, four such loads per row in flight;
-//      slot i-1 comes from the neighbouring register, the neighbouring lane
-//      (__shfl_up_sync) or, for a warp's first slot only, one extra 4-byte
-//      load per row. Boundary and sentinel bits stay in registers, 16 each;
+//   1. every word row is read once, 16 bytes a thread, into 16 boundary and
+//      16 sentinel bits in registers (run_bits.cuh, shared with
+//      run_length_sum.cu);
 //   2. a warp finds, per vector of 128 slots, every lane's next boundary in
 //      a later lane by one ballot and one shuffle, and the vector's first
 //      boundary; the warps' first boundaries meet in shared memory (one
@@ -43,41 +41,17 @@
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
+#include "run_bits.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kVecs = 4;                    // uint4 loads per thread and row
-constexpr int kVecSlots = 32 * 4;           // slots a warp covers per load
-constexpr int kWarpSlots = kVecs * kVecSlots;
-constexpr int kTile = kWarps * kWarpSlots;  // 4096
-constexpr int kMaxWords = 6;
-constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr unsigned kNoBoundary = 0xFFFFFFFFu;  // above every position
-
-struct WordRows {
-  const uint32_t* row[kMaxWords];
-};
 
 struct CountShared {
   unsigned warp_first[kWarps];  // each warp's first boundary
   unsigned right;               // the first boundary right of the tile
   int tile;
 };
-
-// Four consecutive slots of a row from slot i (a multiple of 4).
-template <bool kFast>
-__device__ __forceinline__ void load4(const uint32_t* __restrict__ row, int64_t i,
-                                      int64_t n, uint32_t (&x)[4]) {
-  if (kFast) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row + i);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[e] = i + e < n ? row[i + e] : kFull;
-  }
-}
 
 // One tile. Positions are unsigned 32-bit: n < 2^31, and a ragged last
 // tile's slots past n stay below 2^31 + kTile.
@@ -90,49 +64,10 @@ __device__ __forceinline__ void count_tile(const WordRows& words, int64_t n,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t warp_base =
       static_cast<int64_t>(tile) * kTile + warp * kWarpSlots;
-  // Bit 4v + e of each mask: slot warp_base + 128 v + 4 lane + e.
-  unsigned boundary = 0, sentinel = (1u << (4 * kVecs)) - 1u;
-  // One row at a time, the loop kept a loop: unrolled over the rows, nvcc
-  // 12.9 at -O3 puts the second row's bits of vector 0 sixteen places up
-  // (seen at W = 2 in the guarded body: a boundary that only the last word
-  // shows was lost; the hard cases of testing.count_cases catch it).
-#pragma unroll 1
-  for (int w = 0; w < W; ++w) {
-    const uint32_t* __restrict__ row = words.row[w];
-    uint32_t x[kVecs][4];
-#pragma unroll
-    for (int v = 0; v < kVecs; ++v) {
-      load4<kFast>(row, warp_base + v * kVecSlots + 4 * lane, n, x[v]);
-    }
-    // The slot before the warp's first: the one value no lane holds.
-    uint32_t edge = 0;
-    if (lane == 0 && warp_base > 0 && (kFast || warp_base - 1 < n)) {
-      edge = row[warp_base - 1];
-    }
-#pragma unroll
-    for (int v = 0; v < kVecs; ++v) {
-      uint32_t left = __shfl_up_sync(kFull, x[v][3], 1);
-      const uint32_t wrap =
-          v > 0 ? __shfl_sync(kFull, x[v > 0 ? v - 1 : 0][3], 31) : edge;
-      if (lane == 0) left = wrap;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t before = e > 0 ? x[v][e > 0 ? e - 1 : 0] : left;
-        boundary |= static_cast<unsigned>(x[v][e] != before) << (4 * v + e);
-        sentinel &= ~(static_cast<unsigned>(x[v][e] != kFull) << (4 * v + e));
-      }
-    }
-  }
-  if (warp_base == 0 && lane == 0) boundary |= 1u;  // slot 0
-  if (!kFast) {
-    // No boundary past n: the carry of the last tile is n itself.
-#pragma unroll
-    for (int v = 0; v < kVecs; ++v) {
-      const int64_t left_in = n - (warp_base + v * kVecSlots + 4 * lane);
-      const unsigned in = left_in >= 4 ? 15u : left_in <= 0 ? 0u : (1u << left_in) - 1u;
-      boundary &= ~((15u & ~in) << (4 * v));
-    }
-  }
+  // Bit 4v + e of each mask: slot warp_base + 128 v + 4 lane + e. No
+  // boundary past n: the carry of the last tile is n itself.
+  unsigned boundary, sentinel;
+  boundary_bits<W, kFast>(words, n, warp_base, boundary, sentinel);
 
   // Within each vector: my next boundary in a later lane, and the vector's
   // first boundary.
@@ -233,20 +168,18 @@ count_kernel(const __grid_constant__ WordRows words, int64_t n, int num_tiles,
 template <int W>
 cudaError_t launch(const WordRows& rows, int64_t n, int num_tiles, int aligned,
                    int lower, int upper, void* cnt, void* keep,
-                   const lookback::Scratch& sc, cudaStream_t s) {
+                   const lookback::Scratch<unsigned>& sc, cudaStream_t s) {
   count_kernel<W><<<num_tiles, kThreads, 0, s>>>(
       rows, n, num_tiles, aligned, lower, upper, static_cast<int*>(cnt),
       static_cast<uint8_t*>(keep), sc.ticket, sc.desc);
   return cudaGetLastError();
 }
 
-inline int64_t tiles_of(int64_t n) { return (n + kTile - 1) / kTile; }
-
 }  // namespace
 
 // Scratch in bytes: the look-back's ticket and one descriptor per tile.
 extern "C" int64_t hk_fused_count_scratch(int64_t n) {
-  return lookback::scratch_bytes(tiles_of(n));
+  return lookback::scratch_bytes<unsigned>(tiles_of(n));
 }
 
 // words: n_words device pointers to sorted (n,) uint32 rows; cnt (n,) int32
@@ -261,16 +194,15 @@ extern "C" int hk_fused_count(void* const* words, int n_words, int64_t n,
   }
   const int num_tiles = static_cast<int>(tiles_of(n));
   WordRows rows{};
-  uintptr_t low_bits = reinterpret_cast<uintptr_t>(cnt) |
-                       (reinterpret_cast<uintptr_t>(keep) << 2);
   for (int w = 0; w < n_words; ++w) {
     rows.row[w] = static_cast<const uint32_t*>(words[w]);
-    low_bits |= reinterpret_cast<uintptr_t>(words[w]);
   }
-  const int aligned = (low_bits & 15u) == 0;
+  const int aligned = rows_aligned(rows, n_words,
+                                   reinterpret_cast<uintptr_t>(cnt) |
+                                       (reinterpret_cast<uintptr_t>(keep) << 2));
   const auto s = static_cast<cudaStream_t>(stream);
-  const lookback::Scratch sc = lookback::carve(scratch);
-  cudaError_t err = lookback::reset(scratch, num_tiles, s);
+  const auto sc = lookback::carve<unsigned>(scratch);
+  cudaError_t err = lookback::reset<unsigned>(scratch, num_tiles, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (n_words) {
     case 1: err = launch<1>(rows, n, num_tiles, aligned, lower, upper, cnt, keep, sc, s); break;

@@ -1,29 +1,42 @@
 // A carry across the tiles of one kernel, right to left, by decoupled
 // look-back: what a TPU kernel carries in a scalar over its sequential grid
-// ("the first run boundary to the right of this block") is handed from tile
-// to tile through one descriptor word per tile while all tiles run at once.
-//
-// The carry is "the value of the nearest tile to the right that has one".
-// A tile that has a value of its own publishes it at once as its inclusive
-// value and waits for nobody. A tile that has none publishes "none", walks
-// right over its neighbours' descriptors, a warp's worth at a time, until it
-// meets an inclusive value, and republishes that as its own, so that walks
-// from further left end there.
+// ("the first run boundary to the right of this block", "the weight of the
+// run that continues into this block") is handed from tile to tile through
+// one descriptor per tile while all tiles run at once.
 //
 // Forward progress: a tile's index is a ticket from an atomic counter, taken
 // from the right end, so every tile a walk can wait on drew its ticket
 // earlier and is running or done, whatever order the card schedules blocks
-// in.
+// in. A tile publishes a first descriptor before it waits on anyone.
 //
-// A descriptor is one aligned 32-bit word, written in one store and read
-// volatile, so status and value arrive together and no fence is needed:
+// A descriptor is one aligned word, written in one store and read volatile,
+// so status and value arrive together and no fence is needed. Two kinds:
+//
+// 32 bits, the count's carry "the value of the nearest tile to the right
+// that has one" (walk_right). A tile that has a value of its own publishes
+// it at once as its inclusive value and waits for nobody. A tile that has
+// none publishes "none", walks right over its neighbours' descriptors, a
+// warp's worth at a time, until it meets an inclusive value, and
+// republishes that as its own, so that walks from further left end there:
 //   0      not published yet
 //   1      the tile has no value of its own: keep walking
 //   v + 2  the inclusive value v
 // Values are below 2^31 (slot positions, n included), so v + 2 fits.
 //
-// Scratch: one ticket and one descriptor per tile, zeroed per call on the
-// caller's stream (reset).
+// 64 bits, the weighted sum's carry: a segmented sum that accumulates over
+// tiles that hold no run boundary (walk_right_sum). Status in the high half,
+// a uint32 sum (wrapping) in the low half:
+//   status 0  not published yet
+//   status 1  aggregate: the tile has no boundary, v is the sum of its
+//             weights; keep walking and add v
+//   status 2  inclusive: v is the weight from the tile's first slot up to
+//             the first boundary at or right of it
+// A tile with a boundary publishes its weight before that boundary as
+// inclusive at once. A tile without one publishes its aggregate, walks, and
+// republishes aggregate + what it found as inclusive.
+//
+// Scratch: a ticket, then from byte 8 on one descriptor per tile (aligned
+// for 64 bits), zeroed per call on the caller's stream (reset).
 
 #pragma once
 
@@ -35,25 +48,34 @@ namespace lookback {
 constexpr unsigned kNotReady = 0u;
 constexpr unsigned kNone = 1u;
 constexpr unsigned kValueBase = 2u;
+constexpr uint64_t kSumAggregate = uint64_t{1} << 32;
+constexpr uint64_t kSumInclusive = uint64_t{2} << 32;
 constexpr unsigned kAllLanes = 0xFFFFFFFFu;
+constexpr int64_t kDescOffset = 8;
 
+template <typename Desc>
 struct Scratch {
   unsigned* ticket;
-  unsigned* desc;  // [tile]
+  Desc* desc;  // [tile]
 };
 
+template <typename Desc>
 inline int64_t scratch_bytes(int64_t num_tiles) {
-  return (num_tiles + 1) * static_cast<int64_t>(sizeof(unsigned));
+  return kDescOffset + num_tiles * static_cast<int64_t>(sizeof(Desc));
 }
 
-inline Scratch carve(void* scratch) {
-  unsigned* base = static_cast<unsigned*>(scratch);
-  return Scratch{base, base + 1};
+template <typename Desc>
+inline Scratch<Desc> carve(void* scratch) {
+  char* base = static_cast<char*>(scratch);
+  return Scratch<Desc>{reinterpret_cast<unsigned*>(base),
+                       reinterpret_cast<Desc*>(base + kDescOffset)};
 }
 
 // Zero the ticket and the descriptors: once per call, before the kernel.
+template <typename Desc>
 inline cudaError_t reset(void* scratch, int64_t num_tiles, cudaStream_t s) {
-  return cudaMemsetAsync(scratch, 0, static_cast<size_t>(scratch_bytes(num_tiles)), s);
+  return cudaMemsetAsync(scratch, 0,
+                         static_cast<size_t>(scratch_bytes<Desc>(num_tiles)), s);
 }
 
 // The next tile, from the right end. One thread of the block calls it.
@@ -95,6 +117,44 @@ __device__ __forceinline__ unsigned walk_right(const unsigned* desc, int tile,
     const int source = with_value ? __ffs(with_value) - 1 : 0;
     const unsigned found = __shfl_sync(kAllLanes, v, source);
     if (with_value) return found - kValueBase;
+  }
+}
+
+// status is kSumAggregate or kSumInclusive.
+__device__ __forceinline__ void publish_sum(uint64_t* desc, int tile,
+                                            uint64_t status, unsigned v) {
+  *reinterpret_cast<volatile uint64_t*>(desc + tile) = status | v;
+}
+
+// The weight from the first slot right of `tile` up to the first boundary
+// at or after it (0 past the last tile): the aggregates of the tiles up to
+// the nearest inclusive one, and that one's value, added modulo 2^32. All
+// 32 lanes of one warp call it together; every lane returns the sum. A
+// window of 32 descriptors is read again while a tile nearer than its first
+// inclusive one has not published.
+__device__ __forceinline__ unsigned walk_right_sum(const uint64_t* desc, int tile,
+                                                   int num_tiles) {
+  const int lane = threadIdx.x & 31;
+  unsigned sum = 0;
+  for (int first = tile + 1;; first += 32) {
+    const int t = first + lane;
+    uint64_t d;
+    unsigned inclusive, pending;
+    do {
+      d = t < num_tiles ? *reinterpret_cast<const volatile uint64_t*>(desc + t)
+                        : kSumInclusive;
+      inclusive = __ballot_sync(kAllLanes, d >= kSumInclusive);
+      pending = __ballot_sync(kAllLanes, d < kSumAggregate);
+      const unsigned nearer = inclusive ? (inclusive & (0u - inclusive)) - 1u
+                                        : kAllLanes;
+      pending &= nearer;
+    } while (pending != 0);
+    // The lanes up to and with the first inclusive one (all when none is).
+    const unsigned lowest = inclusive & (0u - inclusive);
+    const unsigned taken = inclusive ? lowest | (lowest - 1u) : kAllLanes;
+    const unsigned mine = (taken >> lane) & 1u ? static_cast<unsigned>(d) : 0u;
+    sum += __reduce_add_sync(kAllLanes, mine);
+    if (inclusive) return sum;
   }
 }
 

@@ -1,10 +1,18 @@
 """Weighted run-length sum in one sweep: the kernel of the streaming merge.
 
 The port of hysortk_tpu/ops/pallas_count.py run_length_sum_fused. On a CUDA
-tensor the wrapper launches the hand-written kernels of
-csrc/run_length_sum.cu (boundary flags and per-tile aggregates, a reverse
-segmented scan over tiles, an in-tile reverse segmented scan); on a CPU
-tensor it runs the plain version, ops/count.run_length_sum.
+tensor the wrapper launches the hand-written kernel of
+csrc/run_length_sum.cu; on a CPU tensor it runs the plain version,
+ops/count.run_length_sum.
+
+The TPU kernel carries the open run's partial sum in a scalar over a
+sequential grid. On the card all tiles run at once, so one kernel does a
+reverse segmented scan within each 4096-slot tile and hands the carry from
+tile to tile by a decoupled look-back that runs right to left
+(csrc/lookback.cuh, one 64-bit (status, sum) descriptor per tile, zeroed
+per call): the words and the weights are read once, 16 bytes a thread, the
+totals and the heads written once. What bounds it is the card's memory
+rate: 4W + 4 bytes in and 5 out per slot.
 
 Semantics, as in the TPU kernel: a run boundary is at slot 0 or wherever any
 word differs from the slot before; all-ones (sentinel) slots weigh 0; the

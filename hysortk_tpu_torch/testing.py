@@ -295,6 +295,110 @@ def count_case_words(runs: Sequence[int], n_sentinel: int, n_words: int,
 
 
 # --------------------------------------------------------------------------
+# The weighted run-length sum's hard inputs, by the kernel's tile: the
+# count's (runs against tile edges, tiles without a boundary, sentinel tails
+# on and beside a tile edge, ragged sizes, every width), a walk over more
+# than one window of 32 descriptors, int32 totals that wrap while their run
+# spans tiles, zero and negative weights, and weights on sentinel slots.
+
+SUM_TILE = 4096  # slots per tile of csrc/run_length_sum.cu
+SUM_WEIGHT_KINDS = ("counts", "wrap", "signed")
+
+
+def sum_cases(tile: int = SUM_TILE) -> list[tuple[str, list[int], int, int, str]]:
+    """(name, run lengths, sentinel slots, n_words, weight kind) of every
+    case; count_case_words turns the first three into sorted key words,
+    sum_case_weights the runs and the kind into weights."""
+    rng = np.random.default_rng(tile + 1)
+    cases = [
+        ("run_spans_tiles", [5, 3 * tile + 7] + _small_runs(rng, tile // 2), 37, 2,
+         "counts"),
+        # tiles 1 .. 5 hold no boundary at all
+        ("tiles_without_boundary",
+         _small_runs(rng, tile - 3) + [5 * tile + 3] + _small_runs(rng, 40),
+         tile // 4, 2, "counts"),
+        # tiles 1 .. 41 hold no boundary: a walk over two windows
+        ("long_walk",
+         _small_runs(rng, tile // 2) + [42 * tile + 9] + _small_runs(rng, tile),
+         17, 2, "counts"),
+        # boundaries at 0, T-1, T, 2T-1, 2T, 3T, 4T-1 and the tail's at 4T
+        ("boundary_on_tile_edges",
+         [tile - 1, 1, tile - 1, 1, tile, tile - 1, 1], 5, 2, "counts"),
+        ("all_sentinel", [], tile + 5, 2, "counts"),
+        ("one_sentinel_slot", [], 1, 1, "counts"),
+        ("no_sentinel", _small_runs(rng, 2 * tile + 100), 0, 2, "counts"),
+        ("one_run", [2 * tile + 9], 0, 2, "counts"),
+        ("wrap_across_tiles",
+         [2 * tile + 9] + _small_runs(rng, tile) + [3 * tile + 5]
+         + _small_runs(rng, tile // 2), 29, 2, "wrap"),
+        ("signed_weights",
+         [tile + 3] + _small_runs(rng, 2 * tile) + [2 * tile + 1]
+         + _small_runs(rng, tile // 2), tile // 3, 2, "signed"),
+    ]
+    for d in (-1, 0, 1):
+        cases.append((f"tail_from_tile_edge{d:+d}",
+                      _small_runs(rng, 2 * tile + d), tile + 3, 2, "counts"))
+    for n in (1, tile - 1, tile, tile + 1, 3 * tile + 17):
+        tail = n // 8
+        cases.append((f"size{n}", _small_runs(rng, n - tail), tail, 2, "counts"))
+    for w in (1, 3, 4, 5, 6):
+        cases.append((f"width{w}",
+                      _small_runs(rng, tile - 2) + [tile + 5, 1, 2]
+                      + _small_runs(rng, tile), tile // 2 + 1, w, "counts"))
+    return cases
+
+
+def sum_case_weights(kind: str, runs: Sequence[int], n_sentinel: int,
+                     seed: int) -> np.ndarray:
+    """(n,) int32 weights on every slot, the sentinel tail included (there
+    they must count 0).
+
+    counts  1 .. 65535, as the streaming merge's counts
+    wrap    counts, but a run of 64 slots or more weighs 2^29 .. 2^31 - 1 a
+            slot, so its int32 total wraps many times: the first run's comes
+            to -(2^30 + 12345), a later one's to below 2^16
+    signed  -65535 .. 65535, a quarter of them 0; the first run's total is
+            negative, every later run's >= 0
+
+    After the first run every run's int32 total is >= 0 and the int32
+    running sum does not overflow, so the running sum at run ends does not
+    fall: the precondition of the JAX package's XLA run_length_sum (a cumsum
+    and a reverse cummin over it), which the tests hold the kernels to as
+    well. The kernels and the plain versions need no such precondition."""
+    rng = np.random.default_rng(seed)
+    n = sum(runs) + n_sentinel
+    if kind == "signed":
+        w = rng.integers(-65535, 65536, n)
+        w[rng.random(n) < 0.25] = 0
+    elif kind in ("counts", "wrap"):
+        w = rng.integers(1, 65536, n)
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    starts = np.cumsum([0] + list(runs))
+    for r, (a, b) in enumerate(zip(starts[:-1], starts[1:])):
+        if kind == "wrap" and b - a >= 64:
+            w[a:b] = rng.integers(2**29, 2**31, b - a)
+            target = -(2**30 + 12345) if r == 0 else int(rng.integers(0, 2**16))
+            last = w[b - 1] + (target - int(w[a:b].sum())) % 2**32
+            w[b - 1] = (last + 2**31) % 2**32 - 2**31
+        elif kind == "signed":
+            total = int(w[a:b].sum())
+            if (r == 0 and total > 0) or (r > 0 and total < 0):
+                w[a:b] = -w[a:b]
+    return w.astype(np.int32)
+
+
+def run_sums(runs: Sequence[int], weights: np.ndarray) -> np.ndarray:
+    """Each run's weights summed and cut to int32 (wrapping): the totals at
+    the runs' heads, independent of any kernel."""
+    if not runs:
+        return np.zeros(0, dtype=np.int32)
+    starts = np.cumsum([0] + list(runs[:-1]))
+    sums = np.add.reduceat(weights[:sum(runs)].astype(np.int64), starts)
+    return ((sums + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+# --------------------------------------------------------------------------
 # The block sort's hard inputs, by the slots a group of the kernel's threads
 # holds in registers: every block size on both sides of it.
 

@@ -115,16 +115,17 @@ def check_block_sort_cases() -> int:
     return len(cases)
 
 
-def sorted_words(gen, n: int, n_words: int, long_runs: bool):
+def sorted_words(gen, n: int, n_words: int, long_runs: bool, max_run: int = 59):
     """Sorted sentinel-marked int32 words on the card: distinct ascending
-    keys in runs of 1..59 slots (with long_runs one of 10^5 and one of 10^6
-    slots too), then an all-ones tail of n/8 slots."""
+    keys in runs of 1..max_run slots (with long_runs one of 10^5 and one of
+    10^6 slots too), then an all-ones tail of n/8 slots."""
     import torch
 
     from hysortk_tpu_torch.ops.kmer import narrow
 
     tail = n // 8
-    runs = torch.randint(1, 60, (n // 20,), device=DEVICE, generator=gen)
+    runs = torch.randint(1, max_run + 1, (3 * n // (max_run + 1),), device=DEVICE,
+                         generator=gen)
     if long_runs:
         runs[5] = 100_000
         runs[7] = 1_000_000
