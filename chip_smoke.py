@@ -20,8 +20,9 @@ build/kernels/ at first use. Phases, each printing its findings:
      merge's and the key build's hard cases there (run counts of one pass
      and more, runs of one slot to two tiles, equal keys across tile edges,
      every key width, ragged sizes, inputs shorter than the halo, views at
-     odd offsets), then the
-     inputs the main paths give each kernel at the size of phases
+     odd offsets), the key mix's hard cases (every key width, sentinel rows,
+     top-bit and near-sentinel words, rows at odd offsets, ragged sizes), then
+     the inputs the main paths give each kernel at the size of phases
      2 and 4, with each kernel's bound (the least time the card could take)
      and, where one PyTorch call computes the same function, that call's
      time
@@ -55,9 +56,19 @@ build/kernels/ at first use. Phases, each printing its findings:
      one-shot extension result on the same reads; phase 3's FASTA through
      the facade and the CLI (--extension, one-shot and streamed) against an
      oracle of kmer -> (count, {(rid, pos)})
+  9  the sharded range exchange (parallel/pipeline.count_reads_sharded:
+     key build, mix, sort, pack, all_to_all, run merge of the received runs,
+     count) on phase 2's reads: (a) one rank with NCCL in this process, best
+     of three calls; (b) four spawned ranks sharing the card, over gloo with
+     pinned host staging (NCCL refuses two ranks on one GPU); (c) the
+     combiner forced on two spawned ranks, on the first 2^24 bases; each
+     result equal to the one-shot result on the same reads after sorting by
+     key, histogram included; per rank the walls, the peak device memory,
+     the bytes sent, the time in the exchange and the kernels' launches
 
-Any failure raises (exit code 1). Without a CUDA device the script exits 1
-before printing any result. The last two lines of standard output are the
+Any failure raises (exit code 1); a rank's failure fails its spawn. Without
+a CUDA device the script exits 1 before printing any result. The last three
+lines of standard output are the card's name and power limit, the
 per-kernel JSON record and {"ok": true, "device": {...}}.
 """
 
@@ -210,7 +221,7 @@ def phase1_synthetic(gen):
     import torch
 
     from hysortk_tpu_torch.ops import (
-        block_sort, fused_count, fused_sort, keybuild, merge, radix_sort,
+        block_sort, fused_count, fused_sort, keybuild, merge, mixkey, radix_sort,
         run_length_sum, wire,
     )
 
@@ -327,6 +338,27 @@ def phase1_synthetic(gen):
     phase1_count_block_sort_cases(errs)
     phase1_sum_cases(errs)
     phase1_merge_keybuild_cases(errs)
+    phase1_mix_cases(errs)
+
+    # mix: full-range words (half with the top bit set), a sentinel tail of
+    # 1/8 that must stay sentinel, at 2^26 x W=2.
+    size = 1 << 26
+    words = [torch.randint(-2**31, 2**31, (size,), dtype=torch.int32, device=dev,
+                           generator=gen) for _ in range(2)]
+    for w in words:
+        w[-size // 8:] = -1
+    got = mixkey.mix_keys(words)
+    want = mixkey.mix_keys_plain(words)
+    torch.cuda.synchronize()
+    e = max_abs_err(got, want)
+    require_equal("mix_keys W=2", e)
+    if not all(bool((g[-size // 8:] == -1).all()) for g in got):
+        raise AssertionError("the mix moved the sentinel")
+    ms = cuda_ms(lambda: mixkey.mix_keys(words), 10)
+    pms = cuda_ms(lambda: mixkey.mix_keys_plain(words), 3)
+    log(f"phase1 mix_keys W=2 n={size}: equal, kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    errs["mix_keys"] = max(errs["mix_keys"], e)
+    del words, got, want
 
     # count and weighted sum: sorted keys whose runs include poly-A lengths
     # (10^5, 10^6), runs at exactly L and U, top-bit keys, then a sentinel
@@ -457,6 +489,20 @@ def phase1_merge_keybuild_cases(errs) -> None:
     log(f"phase1 merge_runs hard cases at tile {testing.MERGE_TILE}, fan-in "
         f"{testing.MERGE_FAN_IN}: {len(cases)} "
         f"equal, aligned and one word off, {passes[0]}-{passes[-1]} passes")
+    # By bounds (merge_runs_at), as the sharded receive side calls it: run
+    # counts and lengths that are not powers of two.
+    shapes = ((3, 123457), (4, 70001), (8, 3001), (9, 2048))
+    for n_runs, run_len in shapes:
+        rows = rows_on_card(
+            testing.merge_case_rows("random", 2, 1, n_runs, run_len, SEED))
+        got = merge.merge_runs_at(rows, 2, range(0, (n_runs + 1) * run_len, run_len))
+        want = merge.merge_sorted_runs_plain(rows, 2, run_len)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        require_equal(f"merge_runs_at S={n_runs} L={run_len}", e)
+        errs["merge_runs"] = max(errs["merge_runs"], e)
+    log(f"phase1 merge_runs by bounds (merge_runs_at), S x L = "
+        f"{', '.join(f'{s} x {l}' for s, l in shapes)}: equal")
     cases = testing.keybuild_cases()
     for name, kind, n, k, offset in cases:
         codes_np, valid_np = testing.keybuild_case_codes(kind, n, k, SEED)
@@ -475,6 +521,32 @@ def phase1_merge_keybuild_cases(errs) -> None:
     log(f"phase1 keybuild hard cases at tile {testing.KEYBUILD_TILE}: {len(cases)} "
         f"equal (K = {', '.join(map(str, testing.KEYBUILD_KS))}; codes and flags "
         f"at odd offsets in {sum(c[4] > 0 for c in cases)})")
+
+
+def phase1_mix_cases(errs) -> None:
+    """The key mix's hard cases (hysortk_tpu_torch.testing) at the kernel's
+    block, each exactly equal to its plain version and to the numpy mix."""
+    import torch
+
+    from hysortk_tpu_torch import testing
+    from hysortk_tpu_torch.ops import mixkey
+
+    cases = testing.mix_cases()
+    for name, kind, n_words, n, offset in cases:
+        words = testing.mix_case_words(kind, n_words, n, SEED)
+        rows = rows_on_card(words, offset)
+        got = mixkey.mix_keys(rows)
+        want = mixkey.mix_keys_plain(rows)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        require_equal(f"mix_keys case {name}", e)
+        host = np.stack([g.cpu().numpy().view(np.uint32) for g in got])
+        if not np.array_equal(host, mixkey.mix_keys_np(words.T.copy()).T):
+            raise AssertionError(f"mix_keys case {name}: differs from the numpy mix")
+        errs["mix_keys"] = max(errs["mix_keys"], e)
+    log(f"phase1 mix_keys hard cases at block {testing.MIX_BLOCK}: {len(cases)} equal "
+        f"(W = 1..6, sentinel rows, top-bit and near-sentinel words, rows at odd "
+        f"offsets in {sum(c[4] > 0 for c in cases)})")
 
 
 def merge_passes(n_runs: int, run_len: int) -> int:
@@ -646,7 +718,7 @@ def phase1_main_path(codes_np, lengths_np, errs):
 
     from hysortk_tpu_torch import pipeline
     from hysortk_tpu_torch.ops import (
-        block_sort, fused_count, fused_sort, keybuild, radix_sort,
+        block_sort, fused_count, fused_sort, keybuild, mixkey, radix_sort,
     )
 
     codes, valid = pipeline.device_batch(codes_np, lengths_np, slice_config(), "cuda")
@@ -664,6 +736,21 @@ def phase1_main_path(codes_np, lengths_np, errs):
         ms=cuda_ms(lambda: keybuild.canonical_keys_fused(codes, valid, K), 10),
         plain_ms=cuda_ms(lambda: keybuild.canonical_keys_plain(codes, valid, K), 3),
         bound_ms=kb_bound[0], bound_by=kb_bound[1], library_ms=None,
+    )
+
+    # The sharded path's mix, on the same key words (phase 9 mixes these).
+    mixed = mixkey.mix_keys(marked)
+    e = max_abs_err(mixed, mixkey.mix_keys_plain(marked))
+    require_equal("mix_keys main path", e)
+    errs["mix_keys"] = max(errs["mix_keys"], e)
+    del mixed
+    # In and out: W words each. Per word and round one fmix32 (three
+    # xor-shifts, two multiplies) and two adds; one XOR per word at the end.
+    mx_bound = bound(8 * w * n, (2 * 10 + 1) * w * n)
+    mx = dict(
+        ms=cuda_ms(lambda: mixkey.mix_keys(marked), 10),
+        plain_ms=cuda_ms(lambda: mixkey.mix_keys_plain(marked), 3),
+        bound_ms=mx_bound[0], bound_by=mx_bound[1], library_ms=None,
     )
 
     sorted_words, _ = radix_sort.sort_words(marked)
@@ -789,7 +876,7 @@ def phase1_main_path(codes_np, lengths_np, errs):
     del one_run, long_runs
 
     times = {"keybuild": kb, "radix_sort": rs, "fused_count": fc,
-             "fused_sort": fs, "block_sort": bs}
+             "fused_sort": fs, "block_sort": bs, "mix_keys": mx}
     for name, t in times.items():
         log_kernel(f"phase1 {name} main-path n={n} K={K}", t)
     return times
@@ -883,9 +970,14 @@ KERNELS = {
                    "hysortk_tpu/ops/pallas_msort.py:355"),
     "block_sort": ("hysortk_tpu_torch/csrc/block_sort.cu",
                    "hysortk_tpu/ops/pallas_sort.py:179"),
+    # The JAX package mixes in XLA: a kernel the port added for the sharded
+    # path, not the port of a Pallas kernel.
+    "mix_keys": ("hysortk_tpu_torch/csrc/mixkey.cu",
+                 "hysortk_tpu/ops/mixkey.py:128 (XLA, no pallas_call)"),
 }
 # Which path's run gives each kernel its launch count in the record:
-# phase 2, phase 4(a), and for fused_sort phase 6, for block_sort phase 7.
+# phase 2, phase 4(a), and for fused_sort phase 6, for block_sort phase 7,
+# for mix_keys phase 9(a).
 ONE_SHOT_KERNELS = ("keybuild", "radix_sort", "fused_count")
 STREAMING_KERNELS = ("run_length_sum", "merge_runs")
 
@@ -1566,6 +1658,208 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
             f"to the oracle")
 
 
+# --------------------------------------------------------------------------
+# Phase 9
+
+
+def sorted_by_key(kl):
+    """(keys, counts) of a KmerList in lexicographic key order: the sharded
+    list is in rank order, then mixed-key order."""
+    order = np.lexsort(kl.keys.T[::-1])
+    return kl.keys[order], kl.counts[order]
+
+
+def require_same_result(what: str, got, want) -> None:
+    """A sharded (KmerList, histogram) against a one-shot one, after
+    sorting by key."""
+    (gk, gc), (wk, wc) = sorted_by_key(got[0]), sorted_by_key(want[0])
+    if not (np.array_equal(gk, wk) and np.array_equal(gc, wc)
+            and np.array_equal(got[1], want[1])):
+        raise AssertionError(f"{what} differs from the one-shot result")
+
+
+def sharded_run_stats(run, repeats: int) -> dict:
+    """Run `run` `repeats` times under fresh counters; the counters and the
+    peak device memory of the last run, every run's wall time."""
+    import torch
+
+    from hysortk_tpu_torch import _build
+    from hysortk_tpu_torch.parallel import exchange
+
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        exchange.reset_traffic()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return dict(result=result, walls=walls, peak=torch.cuda.max_memory_allocated(),
+                launches={k: v for k, v in _build.launches.items() if v},
+                traffic=dict(exchange.traffic))
+
+
+def phase9_rank(rank: int, inputs: str, fields: dict, out_dir: str,
+                repeats: int) -> None:
+    """One rank of phase 9 (b) or (c), in a process of its own: the sharded
+    count on the reads of `inputs`; rank 0 writes the result, every rank its
+    measurements."""
+    import torch.distributed as dist
+
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch.parallel import pipeline as sharded
+
+    data = np.load(inputs)
+    cfg = ht.KmerConfig(**fields)
+    stats = sharded_run_stats(lambda: sharded.count_reads_sharded(
+        data["codes"], data["lengths"], cfg), repeats)
+    kl, hist = stats.pop("result")
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "result.npz"), keys=kl.keys,
+                 counts=kl.counts, hist=hist)
+    stats["backend"] = dist.get_backend()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(stats, f)
+
+
+def log_sharded(tag: str, ranks: list[dict], n_kept: int) -> None:
+    for r, st in enumerate(ranks):
+        t = st["traffic"]
+        log(f"phase9{tag} rank {r} ({st['backend']}): walls "
+            f"{', '.join(f'{w:.4f}' for w in st['walls'])} s; peak device memory "
+            f"{st['peak'] / 2**30:.3f} GiB; sent {t['bytes_sent']} B in "
+            f"{t['calls']} exchange(s), {t['seconds'] * 1e3:.1f} ms in the exchange; "
+            f"launches {json.dumps(st['launches'])}")
+    log(f"phase9{tag} {n_kept} k-mers, keys, counts and histogram equal to the "
+        f"one-shot result after sorting by key")
+
+
+def phase9_stages(codes, lengths, cfg) -> None:
+    """One rank's sharded call stage by stage, a synchronize after each
+    (inside phase 9(a)'s group: the exchange is one rank's)."""
+    import torch
+
+    from hysortk_tpu_torch.ops import keybuild, mixkey, radix_sort, wire
+    from hysortk_tpu_torch.parallel import exchange
+    from hysortk_tpu_torch.parallel import pipeline as sharded
+
+    stages = []
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages.append(f"{name} {(time.perf_counter() - t0) * 1e3:.1f}")
+        return out
+
+    for _ in range(2):
+        stages.clear()
+        exchange.reset_traffic()
+
+        def host_pack():
+            shards = sharded._shard_reads(codes, lengths, 1)
+            block_len, lmax = sharded._wire_dims(shards, cfg)
+            return sharded._pack_shard(shards[0][0], shards[0][1], block_len,
+                                       lmax), block_len
+
+        (packed, lens), block_len = timed("host partition + pack", host_pack)
+        codes_d, valid_d = timed("H2D + decode", lambda: wire.decode_block(
+            torch.from_numpy(packed.view(np.int32)).cuda(),
+            torch.from_numpy(lens).cuda(), cfg.k, block_len))
+        marked = timed("keybuild", lambda: keybuild.canonical_keys_fused(
+            codes_d, valid_d, cfg.k))
+        mixed = timed("mix", lambda: mixkey.mix_keys(marked))
+        del marked
+        mixed_s = timed("radix sort", lambda: radix_sort.sort_words(mixed)[0])
+        del mixed
+        capacity = sharded.range_capacity(block_len, 1, cfg)
+        merged, _, _, _ = timed(
+            "offsets + all_reduce + pack + exchange + mask + merge",
+            lambda: sharded._range_exchange_merge(
+                mixed_s, [], valid_d.sum(), cfg, 1, capacity))
+        del mixed_s
+        cnt, keep = timed("fused count", lambda: sharded._count_merged(merged, cfg))
+        timed("compact + D2H + unmix + all_gather + histogram",
+              lambda: sharded._gather_result(merged, cnt, keep, cfg, None))
+        del codes_d, valid_d, merged, cnt, keep
+    log(f"phase9a stages of one sharded call, second of two, ms: {'; '.join(stages)} "
+        f"(the exchange itself {exchange.traffic['seconds'] * 1e3:.1f})")
+
+
+def phase9_sharded(workdir, codes, lengths, one_shot):
+    """The sharded range exchange on phase 2's reads: (a) one rank with
+    NCCL in this process, (b) 4 spawned ranks sharing the card over gloo
+    (host staging), (c) the combiner forced on 2 spawned ranks on the first
+    2^24 bases. Returns (a)'s launch counts (one call)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch.parallel import group
+    from hysortk_tpu_torch.parallel import pipeline as sharded
+    from hysortk_tpu_torch.parallel.spawn import spawn_ranks
+
+    cfg = slice_config()
+    group.init("file://" + os.path.join(workdir, "rendezvous-a"), 0, 1, "cuda")
+    try:
+        backend = dist.get_backend()
+        a = sharded_run_stats(lambda: sharded.count_reads_sharded(
+            codes, lengths, cfg), 3)
+        phase9_stages(codes, lengths, cfg)
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl":
+        raise AssertionError(f"one rank with its own card took {backend}")
+    require_same_result("phase 9(a)", a.pop("result"), one_shot)
+    a["backend"] = backend
+    for name in ("keybuild", "mix_keys", "radix_sort", "fused_count"):
+        if not a["launches"].get(name):
+            raise AssertionError(f"phase 9(a) did not launch {name}")
+    log(f"phase9a 1 rank, best wall {min(a['walls']):.4f} s")
+    log_sharded("a", [a], len(one_shot[0]))
+
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    runs = (("b", 4, codes, lengths, fields, one_shot),)
+    n_reads = int(np.searchsorted(np.cumsum(lengths), 1 << 24, side="right"))
+    sub_codes = codes[: int(lengths[:n_reads].sum())]
+    sub_lengths = lengths[:n_reads]
+    sub_one_shot = ht.kmer_count(sub_codes, sub_lengths, cfg, device="cuda")
+    runs += (("c", 2, sub_codes, sub_lengths, dict(fields, combiner=True),
+              sub_one_shot),)
+    for tag, ranks, c, l, f, want in runs:
+        out_dir = os.path.join(workdir, f"phase9{tag}")
+        os.makedirs(out_dir)
+        inputs = os.path.join(out_dir, "reads.npz")
+        np.savez(inputs, codes=c, lengths=l)
+        t0 = time.perf_counter()
+        spawn_ranks(phase9_rank, ranks, (inputs, f, out_dir, 2), workdir=out_dir,
+                    device="cuda", timeout=400)
+        log(f"phase9{tag} {ranks} ranks on one card, {int(c.size)} bases: "
+            f"{time.perf_counter() - t0:.1f} s with process start and a warm-up call")
+        res = np.load(os.path.join(out_dir, "result.npz"))
+        got = (ht.KmerList(res["keys"], res["counts"], K), res["hist"])
+        require_same_result(f"phase 9({tag})", got, want)
+        stats = []
+        for r in range(ranks):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                stats.append(json.load(fh))
+        needed = ["keybuild", "mix_keys", "radix_sort", "merge_runs", "fused_count"]
+        if f["combiner"]:
+            needed.append("run_length_sum")
+        for r, st in enumerate(stats):
+            if st["backend"] != "gloo":
+                raise AssertionError(f"rank {r} of ranks sharing a card took "
+                                     f"{st['backend']}")
+            for name in needed:
+                if not st["launches"].get(name):
+                    raise AssertionError(f"phase 9({tag}) rank {r} did not launch {name}")
+        log_sharded(tag, stats, len(want[0]))
+    return a["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1576,7 +1870,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import hysortk_tpu_torch  # noqa: F401  (fails outside the repository)
 
-    phase0_device()
+    smi = phase0_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     errs = phase1_synthetic(gen)
@@ -1599,6 +1893,8 @@ def main() -> int:
         roll_launches = phase7_roll(codes, lengths, one_shot)
         torch.cuda.empty_cache()
         phase8_extension(workdir, codes, lengths, one_shot, peak, fasta, reads, errs)
+        torch.cuda.empty_cache()
+        sharded_launches = phase9_sharded(workdir, codes, lengths, one_shot)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     times.update(stream_times)
@@ -1606,6 +1902,7 @@ def main() -> int:
         launches[name] = stream_launches[name]
     launches["fused_sort"] = fused_launches["fused_sort"]
     launches["block_sort"] = roll_launches["block_sort"]
+    launches["mix_keys"] = sharded_launches["mix_keys"]
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -1613,6 +1910,7 @@ def main() -> int:
          "max_abs_err": errs[name], **times[name]}
         for name in KERNELS
     ]}
+    log(smi)  # again beside the record: the card every number above ran on
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,10 @@ the reference library API (reference: include/hysortk.hpp:10-16):
 This package covers single-device counting, one-shot and in bounded device
 memory (runtime/scheduler.count_reads_streaming), with and without
 extension mode ((ReadId, PosInRead) occurrence payloads: count_reads_ext,
-count_reads_streaming_ext). It imports neither jax nor hysortk_tpu.
+count_reads_streaming_ext), and counting across the ranks of a
+torch.distributed process group, one device a rank, by the range exchange
+(parallel/pipeline.count_reads_sharded). It imports neither jax nor
+hysortk_tpu.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch.distributed as _dist
 
 from .config import KmerConfig, from_jax_fields
 from .io import fasta as _fasta
@@ -79,9 +83,8 @@ def kmer_count(
     config: Optional[KmerConfig] = None,
     device="cuda",
 ) -> tuple[KmerList | KmerListExt, np.ndarray]:
-    """Count canonical k-mers on one device. Facade analogue of
-    hysortk::kmer_count (src/hysortk.cpp:36-95). Returns (filtered KmerList,
-    histogram array).
+    """Count canonical k-mers. Facade analogue of hysortk::kmer_count
+    (src/hysortk.cpp:36-95). Returns (filtered KmerList, histogram array).
 
     `device` is a torch device ("cuda", "cuda:1", "cpu"); "cpu" runs the
     plain PyTorch versions of the kernels. Streams in bounded device memory
@@ -92,24 +95,56 @@ def kmer_count(
     KmerListExt with every k-mer's (read id, position) occurrences, counted
     one-shot (count_reads_ext; as in the JAX package the facade does not
     stream extension mode by itself, count_reads_streaming_ext does when
-    called). More than one device is not ported yet and raises
-    NotImplementedError."""
+    called).
+
+    Inside a torch.distributed process group of more than one rank, every
+    rank calls this with the same reads and counts its share on its own
+    device ("cuda": the card of its local rank) by the range exchange
+    (parallel/pipeline.count_reads_sharded), as the JAX facade does when it
+    sees more than one device; each rank returns the whole result. There,
+    extension mode and a working set over the headroom (sharded streaming)
+    raise NotImplementedError: they are not ported yet. One process drives
+    one device, so a list of devices raises NotImplementedError."""
     cfg = config or KmerConfig()
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
             raise NotImplementedError(
-                "counting across more than one device is not ported yet"
+                "one process counts on one device; across devices, run one "
+                "rank per device in a torch.distributed process group"
             )
         device = device[0]
+    if _dist.is_available() and _dist.is_initialized() and _dist.get_world_size() > 1:
+        return _kmer_count_sharded(codes, lengths, cfg, device)
     dev = resolve_device(device)
     if cfg.extension:
         return count_reads_ext(codes, lengths, cfg, device=dev)
-    headroom = _memcheck.hbm_headroom_bytes(dev)
-    need = int(codes.size) * (4 + 2 * cfg.words * 4 + 8) * 2
-    if headroom is not None and 0 < headroom < need:
+    if _over_headroom(int(codes.size), cfg, dev):
         batch = suggest_batch_bases(cfg, dev)
         return count_reads_streaming(codes, lengths, cfg, batch, device=dev)
     return count_reads(codes, lengths, cfg, device=dev)
+
+
+def _over_headroom(n_bases: int, cfg: KmerConfig, dev) -> bool:
+    """Whether one-shot counting of n_bases would exceed the device's
+    memory headroom (never on the CPU, which reports none)."""
+    headroom = _memcheck.hbm_headroom_bytes(dev)
+    need = n_bases * (4 + 2 * cfg.words * 4 + 8) * 2
+    return headroom is not None and 0 < headroom < need
+
+
+def _kmer_count_sharded(codes, lengths, cfg: KmerConfig, device):
+    from .parallel import group as _group
+    from .parallel import pipeline as _sharded
+
+    if cfg.extension:
+        raise NotImplementedError(
+            f"extension mode across ranks {_sharded.UNPORTED}")
+    dev = _group.rank_device(device)
+    if _over_headroom(-(-int(codes.size) // _dist.get_world_size()), cfg, dev):
+        raise NotImplementedError(
+            f"streaming across ranks (the rank's share exceeds its device "
+            f"memory headroom) {_sharded.UNPORTED}")
+    return _sharded.count_reads_sharded(codes, lengths, cfg, device=dev)
 
 
 def print_kmer_histogram(hist: np.ndarray) -> str:

@@ -39,7 +39,7 @@ _LIB_NAME = "libhysortk_kernels.so"
 launches = {
     "keybuild": 0, "radix_sort": 0, "fused_count": 0,
     "run_length_sum": 0, "merge_runs": 0,
-    "fused_sort": 0, "block_sort": 0,
+    "fused_sort": 0, "block_sort": 0, "mix_keys": 0,
 }
 
 _lock = threading.Lock()
@@ -163,6 +163,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_merge_pass.argtypes = [ptrs, ptrs, i32, i32, ptr, i32, ptr, i32,
                                   i32, i32, i32, ptr, ptr]
     lib.hk_merge_pass.restype = i32
+    u32s = ctypes.POINTER(ctypes.c_uint32)
+    lib.hk_mix_keys.argtypes = [ptrs, ptrs, i32, i64, u32s, i32, u32s, ptr]
+    lib.hk_mix_keys.restype = i32
     lib.hk_error_string.argtypes = [i32]
     lib.hk_error_string.restype = ctypes.c_char_p
     return lib

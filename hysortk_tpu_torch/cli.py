@@ -2,9 +2,14 @@
 
 The port of hysortk_tpu/cli.py. Mirrors the reference standalone binary
 (reference: standalone/main.cpp:9-72): prints the parameter block, runs
-read -> count -> histogram -> output files, on one device. Flags of paths
-that are not ported yet (the sharded and multi-process paths, supermer
-routing) are accepted and end the run with an error.
+read -> count -> histogram -> output files, on one device, or under
+torchrun (WORLD_SIZE > 1) across its ranks, one device a rank, by the range
+exchange (rank 0 prints the histogram and writes the one output file, as the
+JAX CLI's multi-device run writes one). Flags of paths that are not ported
+yet (other routings and dispatchers, the JAX multi-process flags) are
+accepted and end the run with an error.
+
+    torchrun --nproc-per-node 2 -m hysortk_tpu_torch.cli reads.fa out/ --device cpu
 """
 
 from __future__ import annotations
@@ -60,9 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
              "host oracle (runtime sanitizer; inputs up to ~4 Mb)")
     p.add_argument("--extension", action="store_true",
                    help="EXT mode: track (ReadId, PosInRead) per occurrence")
-    # Paths that are not ported yet: accepted, then refused.
     p.add_argument("--combiner", action="store_true",
-                   help="sharded pre-aggregation (not ported yet)")
+                   help="across ranks, pre-aggregate local duplicates "
+                        "before the exchange (no effect on one rank)")
     p.add_argument("--routing",
                    choices=("range", "kmer_hash", "minimizer", "supermer"),
                    default="range",
@@ -70,13 +75,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "accepted; the sharded paths are not ported yet)")
     p.add_argument("--classifier", choices=("heavy_hitter", "plain"),
                    default="heavy_hitter",
-                   help="sharded exchange sizing (not ported yet)")
+                   help="across ranks, heavy_hitter re-runs a skewed input "
+                        "through the combiner; plain does not (no effect on "
+                        "one rank)")
     p.add_argument("--dispatcher", choices=("balanced", "round_robin"),
                    default="balanced",
                    help="bucket placement under minimizer routing (not "
                         "ported yet)")
+    # Paths that are not ported yet: accepted, then refused.
     p.add_argument("--coordinator", default=None,
-                   help="multi-process coordinator address (not ported yet)")
+                   help="multi-process coordinator address (not ported yet; "
+                        "run under torchrun instead)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p
@@ -85,9 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags of `args` that ask for a path this package does not have."""
     asked = {
-        "--combiner": args.combiner,
         "--routing": args.routing != "range",
-        "--classifier": args.classifier != "heavy_hitter",
         "--dispatcher": args.dispatcher != "balanced",
         "--coordinator": args.coordinator is not None,
         "--num-processes": args.num_processes is not None,
@@ -114,27 +121,53 @@ def main(argv=None) -> int:
             format="%(asctime)s %(name)s %(message)s",
         )
 
+    import torch.distributed as dist
+
+    from .config import KmerConfig
+
+    cfg = KmerConfig(
+        k=args.k, m=args.m, lower=args.lower, upper=args.upper,
+        device_compact=args.device_compact, extension=args.extension,
+        combiner=args.combiner, classifier=args.classifier,
+    )
+    sharded = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if sharded and (args.extension or args.stream_batch_bases):
+        print("hysortk_tpu_torch: --extension and --stream-batch-bases across "
+              "ranks: not ported yet", file=sys.stderr)
+        return 2
+    owns_group = sharded and not dist.is_initialized()
+    try:
+        return _run(args, p, cfg, sharded)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, p, cfg, sharded: bool) -> int:
     import torch
+    import torch.distributed as dist
 
     from . import kmer_count, print_kmer_histogram, read_dna_buffer, write_output_file
-    from .config import KmerConfig
     from .pipeline import resolve_device
     from .runtime import memcheck
     from .runtime.logger import Logger
     from .runtime.scheduler import count_reads_streaming, count_reads_streaming_ext
     from .runtime.timer import Timer
 
-    cfg = KmerConfig(
-        k=args.k, m=args.m, lower=args.lower, upper=args.upper,
-        device_compact=args.device_compact, extension=args.extension,
-    )
-    dev = resolve_device(args.device)
+    if sharded:
+        from .parallel import group
 
-    log = Logger()
+        dev = group.init_from_env(args.device)
+        rank, ranks = dist.get_rank(), dist.get_world_size()
+    else:
+        dev = resolve_device(args.device)
+        rank, ranks = 0, 1
+
+    log = Logger(rank=rank)
     log.root(f"hysortk_tpu_torch | k={cfg.k} m={cfg.m} L={cfg.lower} "
              f"U={cfg.upper}")
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    log.root(f"device: {dev} ({kind})")
+    log.root(f"device: {dev} ({kind})" + (f", {ranks} ranks" if sharded else ""))
     log.root(f"input: {args.fasta}")
 
     timer = Timer(synchronized=dev.type == "cuda")
@@ -208,10 +241,10 @@ def main(argv=None) -> int:
             return 1
         log.root(f"validate OK ({len(got)} kmers vs host oracle)")
 
-    if not args.no_histogram:
+    if not args.no_histogram and rank == 0:
         print_kmer_histogram(hist)
 
-    if args.output_dir:
+    if args.output_dir and rank == 0:
         with timer.span("write_output"):
             path = write_output_file(kmerlist, args.output_dir)
         log.root(f"wrote {path}")

@@ -1,7 +1,8 @@
 """Host side of the 2-bit packed read wire.
 
-Only `pack_codes_2bit` of hysortk_tpu/io/supermer.py is part of the
-single-device slice; supermer encoding and routing are later work.
+Only `pack_codes_2bit` of hysortk_tpu/io/supermer.py is ported (the wire
+of the single-device and the sharded paths); supermer encoding and routing
+are later work.
 """
 
 from __future__ import annotations

@@ -16,10 +16,11 @@ network and unstable: against it, key rows compare exactly and payloads as
 per-key sums. The network's run orientation (`flip_odd_runs`) has no
 counterpart here.
 
-Requirements, as in the JAX package: run length L and run count S are powers
-of two; runs are ascending with the all-ones sentinel (ops/sort.py) in their
-tail slots. The kernel itself takes run boundaries (merge_plan), so runs of
-unequal length need no other kernel.
+Requirements of merge_sorted_runs, as in the JAX package: run length L and
+run count S are powers of two; runs are ascending with the all-ones
+sentinel (ops/sort.py) in their tail slots. The kernel itself takes run
+boundaries (merge_plan), so `merge_runs_at` merges runs of any length and
+count (the receive side of the sharded exchange) with the same kernel.
 """
 
 from __future__ import annotations
@@ -88,6 +89,20 @@ def merge_sorted_runs_plain(
     return words + payloads
 
 
+def _check_rows(arrays: list[torch.Tensor], n_words: int) -> None:
+    if not 1 <= n_words <= MAX_KEY_WORDS or not n_words <= len(arrays) <= MAX_ROWS:
+        raise ValueError(f"need 1..{MAX_KEY_WORDS} key words and at most "
+                         f"{MAX_ROWS} rows, got {n_words} of {len(arrays)}")
+    n = arrays[0].shape[0]
+    for a in arrays:
+        if a.dtype != torch.int32 or a.dim() != 1 or a.shape[0] != n:
+            raise ValueError("every row must be a 1-D int32 tensor of one length")
+        if a.device != arrays[0].device:
+            raise ValueError("every row must lie on one device")
+    if arrays[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {arrays[0].device}")
+
+
 def merge_sorted_runs(
     arrays: Sequence[torch.Tensor], n_words: int, run_len: int
 ) -> list[torch.Tensor]:
@@ -100,39 +115,53 @@ def merge_sorted_runs(
     call) gives their memory back as soon as that pass has been queued.
     """
     arrays = list(arrays)
-    if not 1 <= n_words <= MAX_KEY_WORDS or not n_words <= len(arrays) <= MAX_ROWS:
-        raise ValueError(f"need 1..{MAX_KEY_WORDS} key words and at most "
-                         f"{MAX_ROWS} rows, got {n_words} of {len(arrays)}")
+    _check_rows(arrays, n_words)
     n = arrays[0].shape[0]
-    for a in arrays:
-        if a.dtype != torch.int32 or a.dim() != 1 or a.shape[0] != n:
-            raise ValueError("every row must be a 1-D int32 tensor of one length")
-        if a.device != arrays[0].device:
-            raise ValueError("every row must lie on one device")
     assert n % run_len == 0, (n, run_len)
     s = n // run_len
     assert run_len & (run_len - 1) == 0, run_len
     assert s & (s - 1) == 0, s
-    if s == 1:
+    return _merge(arrays, n_words, tuple(range(0, n + 1, run_len)))
+
+
+def merge_runs_at(
+    arrays: Sequence[torch.Tensor], n_words: int, bounds: Sequence[int]
+) -> list[torch.Tensor]:
+    """merge_sorted_runs for runs of any length: the S runs lie between the
+    S + 1 ascending slot offsets `bounds` (from 0 to N; empty runs too), and
+    neither their length nor their count need be a power of two. Used by
+    the receive side of the sharded exchange (S received rows of `capacity`
+    slots each), which pads nothing. The same kernel, plan and plain
+    version as merge_sorted_runs."""
+    arrays = list(arrays)
+    _check_rows(arrays, n_words)
+    bounds = tuple(int(b) for b in bounds)
+    if len(bounds) < 2 or bounds[0] != 0 or bounds[-1] != arrays[0].shape[0]:
+        raise ValueError("bounds must run from 0 to the rows' length")
+    return _merge(arrays, n_words, bounds)
+
+
+def _merge(arrays: list[torch.Tensor], n_words: int,
+           bounds: tuple[int, ...]) -> list[torch.Tensor]:
+    if len(bounds) == 2:
         return arrays
     if arrays[0].device.type == "cpu":
-        return merge_sorted_runs_plain(arrays, n_words, run_len)
-    if arrays[0].device.type != "cuda":
-        raise ValueError(f"unsupported device {arrays[0].device}")
-    if n >= 2**31:
-        raise ValueError(f"merge takes n < 2^31, got {n}")
-    del a  # the loop's reference to the last row
-    return _merge_cuda(arrays, n_words, run_len)
+        words, payloads = radix_sort.sort_words_plain(
+            arrays[:n_words], arrays[n_words:])
+        return words + payloads
+    if bounds[-1] >= 2**31:
+        raise ValueError(f"merge takes n < 2^31, got {bounds[-1]}")
+    return _merge_cuda(arrays, n_words, bounds)
 
 
 @functools.lru_cache(maxsize=16)
 def _plan_on_device(
-    dev: torch.device, n: int, run_len: int, tile: int, fan_in: int
+    dev: torch.device, bounds: tuple[int, ...], tile: int, fan_in: int
 ) -> tuple[list[MergePass], torch.Tensor, list[int]]:
-    """The passes over n / run_len runs, and every pass's bounds and
-    group_tiles in one device tensor with each array's offset in it. Kept
-    per shape: a call of a shape met before uploads nothing."""
-    passes = merge_plan(np.arange(0, n + 1, run_len), tile, fan_in)
+    """The passes over the runs between `bounds`, and every pass's bounds
+    and group_tiles in one device tensor with each array's offset in it.
+    Kept per shape: a call of a shape met before uploads nothing."""
+    passes = merge_plan(bounds, tile, fan_in)
     parts = [a for p in passes for a in (p.bounds, p.group_tiles)]
     table = torch.from_numpy(np.concatenate(parts).astype(np.int32)).to(dev)
     offsets = np.cumsum([0] + [a.shape[0] for a in parts]).tolist()
@@ -140,7 +169,7 @@ def _plan_on_device(
 
 
 def _merge_cuda(
-    arrays: list[torch.Tensor], n_words: int, run_len: int
+    arrays: list[torch.Tensor], n_words: int, bounds: tuple[int, ...]
 ) -> list[torch.Tensor]:
     """Takes `arrays` over: the list is emptied, so that this frame's `rows`
     is the port's last reference to the first pass's input."""
@@ -149,7 +178,7 @@ def _merge_cuda(
     dev = rows[0].device
     n = rows[0].shape[0]
     n_rows = len(rows)
-    passes, table, offsets = _plan_on_device(dev, n, run_len, TILE, FAN_IN)
+    passes, table, offsets = _plan_on_device(dev, bounds, TILE, FAN_IN)
     lib = _build.lib()
     # Each tile boundary's split: one int32 per run of its group.
     part = torch.empty(

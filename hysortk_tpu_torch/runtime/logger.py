@@ -2,8 +2,8 @@
 
 The port of hysortk_tpu/runtime/logger.py (reference Logger,
 include/logger.hpp:12-30, src/logger.cpp:109-160), which buffers per-rank
-messages and gathers them to the root. This package runs one process, so
-the gather is the local buffer; runs across processes are not ported yet.
+messages and gathers them to the root. The gather across ranks is not ported
+yet: `flush` prints the local buffer, and `root` prints on rank 0 only.
 """
 
 from __future__ import annotations
@@ -15,9 +15,10 @@ import sys
 class Logger:
     """Buffered logger with a labelled flush."""
 
-    def __init__(self, stream=None):
+    def __init__(self, stream=None, rank: int = 0):
         self._buf = io.StringIO()
         self._stream = stream or sys.stdout
+        self._rank = rank
 
     def log(self, msg: str) -> None:
         """Buffer a message for the next flush (reference Logger::operator())."""
@@ -25,8 +26,9 @@ class Logger:
         self._buf.write("\n")
 
     def root(self, msg: str) -> None:
-        """Print immediately (reference flush_root)."""
-        print(msg, file=self._stream)
+        """Print immediately on rank 0 (reference flush_root)."""
+        if self._rank == 0:
+            print(msg, file=self._stream)
 
     def flush(self, label: str = "") -> None:
         """Print the buffered messages, labelled by process (reference
@@ -36,4 +38,4 @@ class Logger:
         if label:
             print(f"## {label}", file=self._stream)
         if mine:
-            print(f"[proc 0] {mine}", end="", file=self._stream)
+            print(f"[proc {self._rank}] {mine}", end="", file=self._stream)

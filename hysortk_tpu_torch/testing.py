@@ -630,3 +630,158 @@ def keybuild_case_codes(kind: str, n: int, k: int, seed: int,
         raise ValueError(f"unknown kind {kind!r}")
     valid[max(n - (k - 1), 0):] = False
     return codes, valid
+
+
+# --------------------------------------------------------------------------
+# The key mix's hard inputs, by the kernel's block (csrc/mixkey.cu: 256
+# threads x 4 slots): every key width, sentinel rows (which must stay
+# sentinels), words with the top bit set, first words all ones in keys that
+# are not the sentinel, sizes that are not whole blocks, rows at odd offsets.
+
+MIX_BLOCK = 1024  # slots per block of csrc/mixkey.cu
+MIX_KINDS = ("random", "sentinel", "top_bit", "near_sentinel")
+
+
+def mix_cases(block: int = MIX_BLOCK) -> list[tuple[str, str, int, int, int]]:
+    """(name, kind, n_words, n, offset) of every case: offset is where each
+    row starts in its buffer (1 and 3: no 16-byte alignment)."""
+    ragged = 3 * block + 5
+    cases = [(kind, w, ragged, 0) for kind in MIX_KINDS for w in range(1, 7)]
+    cases += [("random", w, n, 0) for w in (1, 2, 6)
+              for n in (1, block - 1, block + 1)]
+    cases += [("sentinel", w, ragged, off) for w in (1, 2, 5) for off in (1, 3)]
+    cases += [("top_bit", 2, 2 * block, 1), ("near_sentinel", 4, ragged, 3)]
+    return [(f"{kind}-w{w}-n{n}-o{off}", kind, w, n, off)
+            for kind, w, n, off in cases]
+
+
+def mix_case_words(kind: str, n_words: int, n: int, seed: int) -> np.ndarray:
+    """(n_words, n) uint32 key words.
+
+    random         full-range words
+    sentinel       random, runs and lone slots of the all-ones sentinel
+    top_bit        every word with the top bit set
+    near_sentinel  keys one bit or one word away from the sentinel: first
+                   word all ones, all but the last word all ones, all ones
+                   but one bit; a few sentinels among them
+    """
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, (n_words, n), dtype=np.uint64).astype(np.uint32)
+    full = np.uint32(0xFFFFFFFF)
+    if kind == "sentinel":
+        words[:, rng.random(n) < 0.05] = full
+        start = int(rng.integers(0, max(n, 1)))
+        words[:, start:start + 300] = full
+        words[:, -min(n, 17):] = full
+    elif kind == "top_bit":
+        words |= np.uint32(0x80000000)
+    elif kind == "near_sentinel":
+        pick = rng.integers(0, 4, n)
+        words[0, pick == 0] = full
+        words[:-1, pick == 1] = full
+        bit = np.uint32(1) << rng.integers(0, 32, n).astype(np.uint32)
+        row = rng.integers(0, n_words, n)
+        near = pick == 2
+        words[:, near] = full
+        words[row[near], np.flatnonzero(near)] ^= bit[near]
+        words[:, pick == 3] = full
+    elif kind != "random":
+        raise ValueError(f"unknown kind {kind!r}")
+    return words
+
+
+# --------------------------------------------------------------------------
+# Jobs for ranks spawned by parallel/spawn.spawn_ranks: each job reads its
+# inputs from an .npz file and writes this rank's outputs to
+# <out_dir>/<name>.<rank>.npz, so that a test compares them in its own
+# process (which may hold JAX; the ranks import neither JAX nor the JAX
+# package).
+
+
+def _pass_counters(stack, pipeline_mod) -> dict:
+    """Count the passes of both range bodies (the overflow retry and the
+    combiner re-run show in them)."""
+    from unittest import mock
+
+    calls = {"_shard_body_range": 0, "_shard_body_range_combiner": 0}
+    for name in calls:
+        real = getattr(pipeline_mod, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        stack.enter_context(mock.patch.object(pipeline_mod, name, counted))
+    return calls
+
+
+def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
+    """Run `jobs` in order on this rank. A job is a dict with `name`,
+    `kind` and `inputs` (an .npz path), and per kind:
+
+      count_reads_sharded  cfg (KmerConfig fields), device, optional
+                           capacity (every pass starts from it)
+      count_flat_sharded   cfg, device
+      kmer_count           cfg, device (the facade)
+      exchange             (inputs: send_<rank>, counts_<rank>)
+      cli                  argv (run under WORLD_SIZE / RANK / LOCAL_RANK of
+                           the spawned group, output to <name>.<rank>.txt)
+    """
+    import contextlib
+    import io
+    import os
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from .config import KmerConfig
+    from .parallel import exchange
+    from .parallel import pipeline as sharded
+
+    for job in jobs:
+        data = np.load(job["inputs"])
+        out = {}
+        path = os.path.join(out_dir, f"{job['name']}.{rank}")
+        kind = job["kind"]
+        if kind == "exchange":
+            send = torch.from_numpy(data[f"send_{rank}"])
+            recv, recv_counts, recv_valid = exchange.all_to_all_exchange(
+                send, data[f"counts_{rank}"].tolist())
+            out = dict(recv=recv.numpy(), recv_counts=recv_counts.numpy(),
+                       recv_valid=recv_valid.numpy())
+        elif kind == "cli":
+            from . import cli
+
+            os.environ.update(WORLD_SIZE=str(dist.get_world_size()),
+                              RANK=str(rank), LOCAL_RANK=str(rank))
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                out["rc"] = np.int32(cli.main(list(job["argv"])))
+            with open(path + ".txt", "w") as f:
+                f.write(text.getvalue())
+        else:
+            cfg = KmerConfig(**job["cfg"])
+            with contextlib.ExitStack() as stack:
+                passes = _pass_counters(stack, sharded)
+                if job.get("capacity"):  # every route starts from it
+                    stack.enter_context(mock.patch.object(
+                        sharded, "range_capacity",
+                        lambda n_local, num_shards, cfg, c=job["capacity"]: c))
+                if kind == "count_reads_sharded":
+                    kl, hist = sharded.count_reads_sharded(
+                        data["codes"], data["lengths"], cfg, device=job["device"])
+                elif kind == "count_flat_sharded":
+                    kl, hist = sharded.count_flat_sharded(
+                        data["codes"], data["valid"], cfg, device=job["device"])
+                elif kind == "kmer_count":
+                    from . import kmer_count
+
+                    kl, hist = kmer_count(data["codes"], data["lengths"], cfg,
+                                          device=job["device"])
+                else:
+                    raise ValueError(f"unknown job kind {kind!r}")
+            out = dict(keys=kl.keys, counts=kl.counts, hist=hist,
+                       passes=np.int64(passes["_shard_body_range"]),
+                       combiner_passes=np.int64(passes["_shard_body_range_combiner"]))
+        np.savez(path + ".npz", **out)
+

@@ -1,8 +1,10 @@
 """The port's command line (python -m hysortk_tpu_torch.cli) against the
 JAX package's (hysortk_tpu.cli, --single-device) on the CPU: the same output
-lines and the same histogram text, one-shot and streaming. (The JAX
-one-shot facade takes its sharded path under the tests' 8 virtual devices
-and writes its lines in another order, so the lines compare sorted.)"""
+lines and the same histogram text, one-shot and streaming; and across 2
+gloo ranks (as under torchrun) against the JAX CLI's multi-device run. (The
+JAX one-shot facade takes its sharded path under the tests' 8 virtual
+devices and writes its lines in another order, so the lines compare
+sorted.)"""
 
 import os
 import subprocess
@@ -14,7 +16,9 @@ import pytest
 from hysortk_tpu import cli as jcli
 from hysortk_tpu import testing as oracle
 from hysortk_tpu_torch import cli
+from hysortk_tpu_torch import testing
 from hysortk_tpu_torch.io import writer
+from hysortk_tpu_torch.parallel.spawn import spawn_ranks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOUNDS = ["-l", "2", "-u", "50"]
@@ -78,9 +82,23 @@ def test_cli_matches_jax_cli(fasta, tmp_path, capsys, k, stream):
 ])
 def test_unported_paths_exit_nonzero(fasta, tmp_path, capsys, monkeypatch, flags):
     """Flags of paths that are not ported end the run with an error.
-    --extension is ported: one-shot it goes through count_reads_ext,
-    with --stream-batch-bases through count_reads_streaming_ext, and the
-    output and the validated counts are those of the run without it."""
+    --combiner and --classifier are ported (they steer the sharded path):
+    on one device they change nothing, and the output file and histogram
+    are those of the run without them. --extension is ported: one-shot it
+    goes through count_reads_ext, with --stream-batch-bases through
+    count_reads_streaming_ext, and the output and the validated counts are
+    those of the run without it."""
+    if flags[0] in ("--combiner", "--classifier"):
+        outs = []
+        for extra in ([], flags):
+            out_dir = tmp_path / ("with" if extra else "without")
+            assert cli.main([fasta[0], str(out_dir), *BOUNDS, "--device", "cpu",
+                             "--validate", *extra]) == 0
+            text = capsys.readouterr()
+            assert "not ported yet" not in text.err and "validate OK" in text.out
+            outs.append((_read(out_dir / "0.out"), _histogram(text.out)))
+        assert outs[0] == outs[1] and outs[0][0]
+        return
     if flags[0] != "--extension":
         assert cli.main([fasta[0], "--device", "cpu", *flags]) != 0
         err = capsys.readouterr().err
@@ -162,3 +180,45 @@ def test_cuda_device_is_the_default_and_raises_without_a_card(fasta):
         pytest.skip("a CUDA device is present; this checks the CPU-only case")
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main([fasta[0], *BOUNDS])
+
+
+@pytest.mark.parametrize("flags", [[], ["--combiner"]], ids=["default", "combiner"])
+def test_cli_across_two_ranks_matches_jax_cli(fasta, tmp_path, capsys, flags):
+    """The port's CLI on 2 gloo ranks (WORLD_SIZE=2, as torchrun sets it)
+    against the JAX CLI's multi-device run over the 8 virtual devices: rank
+    0 writes the one output file, whose lines equal the JAX file's sorted,
+    and prints the histogram, equal to the JAX CLI's; rank 1 prints neither.
+    """
+    path, reads = fasta
+    args = [path, "-k", "31", "-m", "17", *BOUNDS]
+    out_dir = tmp_path / "port"
+    inputs = str(tmp_path / "none.npz")
+    np.savez(inputs)
+    job = dict(name="cli", kind="cli", inputs=inputs,
+               argv=args[:1] + [str(out_dir)] + args[1:] + ["--device", "cpu", *flags])
+    spawn_ranks(testing.run_rank_jobs, 2, ([job], str(tmp_path)),
+                workdir=str(tmp_path), device="cpu", timeout=240)
+    for r in range(2):
+        assert int(np.load(tmp_path / f"cli.{r}.npz")["rc"]) == 0
+    with open(tmp_path / "cli.0.txt") as f:
+        ours = f.read()
+    with open(tmp_path / "cli.1.txt") as f:
+        assert "#count" not in f.read()
+    assert "2 ranks" in ours
+    assert sorted(os.listdir(out_dir)) == ["0.out"]
+    assert jcli.main(args[:1] + [str(tmp_path / "jax")] + args[1:]) == 0
+    theirs = capsys.readouterr().out
+    lines = sorted(_read(out_dir / "0.out").splitlines())
+    assert lines and lines == sorted(_read(tmp_path / "jax" / "0.out").splitlines())
+    assert _histogram(ours) == _histogram(theirs)
+    got = {km.decode(): c for km, c in writer.parse_output_files(str(out_dir)).items()}
+    assert got == oracle.oracle_filtered(reads, 31, 2, 50)
+
+
+def test_cli_across_ranks_refuses_unported_modes(tmp_path, fasta, monkeypatch, capsys):
+    """Streaming and extension mode across ranks are not ported: the CLI
+    under WORLD_SIZE > 1 exits 2 before it joins a group."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    for flags in (["--extension"], ["--stream-batch-bases", "700"]):
+        assert cli.main([fasta[0], "--device", "cpu", *flags]) == 2
+        assert "not ported yet" in capsys.readouterr().err
