@@ -65,6 +65,21 @@ build/kernels/ at first use. Phases, each printing its findings:
      result equal to the one-shot result on the same reads after sorting by
      key, histogram included; per rank the walls, the peak device memory,
      the bytes sent, the time in the exchange and the kernels' launches
+ 10  the rest of the sharded pipeline on phase 2's reads and configuration:
+     (a) count_reads_sharded_streaming, one rank with NCCL, in batches of
+     2^24 bases (the final merge timed); (b) the same on two spawned ranks
+     sharing the card over gloo; (c) count_reads_sharded_ext, one rank at
+     2^26 bases against phase 8(a), then on two ranks on phase 8(c)'s 2^24
+     bases one-shot and count_reads_sharded_ext_streaming in batches of
+     2^22, both against phase 8(c)'s one-shot result; (d) minimizer routing
+     with the balanced dispatcher, one rank (with a stage line: scan, bucket
+     sizes and plan, pack, exchange, receive sort, count, result) and four
+     spawned ranks; (e) on two ranks at 2^24 bases: minimizer with
+     round_robin and the combiner, kmer_hash, kmer_hash with extension
+     mode. Each result exactly equal to its reference after sorting by key
+     (extension mode: every occurrence as sorted (key, rid, pos) rows); per
+     rank the wall, the peak device memory, the step passes, the bytes sent
+     and the kernels' launches
 
 Any failure raises (exit code 1); a rank's failure fails its spawn. Without
 a CUDA device the script exits 1 before printing any result. The last three
@@ -92,6 +107,7 @@ GENOME_BASES = 1 << 22
 READ_LEN = 150
 EXT_STREAM_BASES = 1 << 24  # host numpy merges every occurrence: cut to size
 EXT_STREAM_BATCH = 1 << 22
+EXT_RID0 = 1_000_000  # phase 8(c)'s read id offset, phase 10's too
 N_READS = (1 << 26) // READ_LEN  # 2^26 bases of reads, ~16x coverage
 
 
@@ -1014,6 +1030,13 @@ def write_reads_fasta(path: str, rng) -> None:
         f.write(rows.tobytes())
 
 
+def ext_stream_reads(codes, lengths):
+    """The first EXT_STREAM_BASES bases of the reads (whole reads): phase
+    8(c)'s input, and phase 9(c)'s and 10's smaller runs'."""
+    n_reads = EXT_STREAM_BASES // READ_LEN
+    return codes[: n_reads * READ_LEN], lengths[:n_reads]
+
+
 def slice_config():
     """The production configuration of the single-device path (bench.py's:
     fused keybuild, fused count, auto sort; these three select nothing in
@@ -1497,7 +1520,9 @@ def sample_ext(kl, step: int):
 def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
                      reads, errs):
     """Path C: extension mode one-shot at full width, streamed, and on the
-    small FASTA through the facade and the CLI."""
+    small FASTA through the facade and the CLI. Returns the references of
+    phase 10: (a)'s list and histogram, and (c)'s one-shot ones on the
+    first EXT_STREAM_BASES bases with read ids from EXT_RID0."""
     import dataclasses
 
     import torch
@@ -1545,6 +1570,7 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
         f"k-mers equal to phase 2's, {n_occ} occurrences; wall {wall:.4f} s; peak "
         f"device memory {peak / 2**30:.3f} GiB (phase 2: {one_shot_peak / 2**30:.3f}); "
         f"D2H {d2h} B (phase 2: {plain_d2h} B); launches {json.dumps(launches)}")
+    ext_one_shot = (kl, hist)
     del kl, sizes
 
     # (b) the device outputs against the plain composition, same tensors.
@@ -1593,9 +1619,8 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
     torch.cuda.empty_cache()
 
     # (c) streamed against one-shot on the first EXT_STREAM_BASES bases.
-    n_reads = EXT_STREAM_BASES // READ_LEN
-    sub_codes, sub_lengths = codes[: n_reads * READ_LEN], lengths[:n_reads]
-    rid0 = 1_000_000
+    sub_codes, sub_lengths = ext_stream_reads(codes, lengths)
+    rid0 = EXT_RID0
     t0 = time.perf_counter()
     want, want_hist = ht.count_reads_ext(sub_codes, sub_lengths, cfg, rid0,
                                          device="cuda")
@@ -1623,7 +1648,8 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
         f"and histogram equal to count_reads_ext, occurrences of every {step}th "
         f"k-mer equal as sets; wall {wall:.4f} s (one-shot {one_wall:.4f} s); peak "
         f"device memory {peak / 2**30:.3f} GiB; launches {json.dumps(_build.launches)}")
-    del got, want
+    ext_sub_one_shot = (want, want_hist)
+    del got
 
     # (d) the small FASTA: facade and CLI against the oracle.
     want = oracle_ext(reads, K, 2, 10)
@@ -1656,6 +1682,7 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
                                  f"{len(counts)}")
         log(f"phase8d cli --extension {' '.join(extra)}: {len(got)} k-mers equal "
             f"to the oracle")
+    return ext_one_shot, ext_sub_one_shot
 
 
 # --------------------------------------------------------------------------
@@ -1782,7 +1809,7 @@ def phase9_stages(codes, lengths, cfg) -> None:
         del mixed_s
         cnt, keep = timed("fused count", lambda: sharded._count_merged(merged, cfg))
         timed("compact + D2H + unmix + all_gather + histogram",
-              lambda: sharded._gather_result(merged, cnt, keep, cfg, None))
+              lambda: sharded._gather_result(merged, cnt, keep, cfg, None, True))
         del codes_d, valid_d, merged, cnt, keep
     log(f"phase9a stages of one sharded call, second of two, ms: {'; '.join(stages)} "
         f"(the exchange itself {exchange.traffic['seconds'] * 1e3:.1f})")
@@ -1792,7 +1819,8 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
     """The sharded range exchange on phase 2's reads: (a) one rank with
     NCCL in this process, (b) 4 spawned ranks sharing the card over gloo
     (host staging), (c) the combiner forced on 2 spawned ranks on the first
-    2^24 bases. Returns (a)'s launch counts (one call)."""
+    2^24 bases. Returns (a)'s launch counts (one call) and the one-shot
+    result on the first 2^24 bases."""
     import dataclasses
 
     import torch.distributed as dist
@@ -1823,9 +1851,7 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
 
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     runs = (("b", 4, codes, lengths, fields, one_shot),)
-    n_reads = int(np.searchsorted(np.cumsum(lengths), 1 << 24, side="right"))
-    sub_codes = codes[: int(lengths[:n_reads].sum())]
-    sub_lengths = lengths[:n_reads]
+    sub_codes, sub_lengths = ext_stream_reads(codes, lengths)
     sub_one_shot = ht.kmer_count(sub_codes, sub_lengths, cfg, device="cuda")
     runs += (("c", 2, sub_codes, sub_lengths, dict(fields, combiner=True),
               sub_one_shot),)
@@ -1857,7 +1883,323 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
                 if not st["launches"].get(name):
                     raise AssertionError(f"phase 9({tag}) rank {r} did not launch {name}")
         log_sharded(tag, stats, len(want[0]))
-    return a["launches"]
+    return a["launches"], sub_one_shot
+
+
+# --------------------------------------------------------------------------
+# Phase 10
+
+STREAM_BATCH = 1 << 24  # phase 4(a)'s batches: four of phase 2's reads
+# The kernels every phase-10 run launches, and those of some of them.
+CORE_KERNELS = ("keybuild", "radix_sort", "fused_count")
+
+
+def flat_occurrences(kl) -> tuple[np.ndarray, np.ndarray]:
+    """An extension-mode list's (rid, pos) occurrences end to end, in list
+    order: flat arrays where the list carries them (`flat_rid`, `flat_pos`,
+    set by load_phase10_result), else its per-k-mer arrays concatenated."""
+    if hasattr(kl, "flat_rid"):
+        return kl.flat_rid, kl.flat_pos
+    return (np.concatenate([np.zeros(0, np.int32), *kl.rid]),
+            np.concatenate([np.zeros(0, np.uint32), *kl.pos]))
+
+
+def ext_occurrence_rows(kl):
+    """Every occurrence of an extension-mode list as (key words, rid, pos)
+    columns on the card, sorted (the plain sort, which no launch count
+    sees): two lists are equal when these columns are."""
+    import torch
+
+    from hysortk_tpu_torch.ops import radix_sort
+
+    counts = torch.from_numpy(kl.counts.astype(np.int64)).cuda()
+    keys = torch.from_numpy(np.ascontiguousarray(kl.keys).view(np.int32)).cuda()
+    keys = torch.repeat_interleave(keys, counts, dim=0)
+    rid, pos = flat_occurrences(kl)
+    cols = [keys[:, i].contiguous() for i in range(keys.shape[1])]
+    cols += [torch.from_numpy(rid).cuda(), torch.from_numpy(pos.view(np.int32)).cuda()]
+    return radix_sort.sort_words_plain(cols)[0]
+
+
+def require_same_ext(what: str, got, want, want_rows=None) -> None:
+    """A sharded extension-mode (list, histogram) against a one-shot one:
+    keys, counts and histogram after sorting by key, then every occurrence
+    as sorted (key, rid, pos) rows (`want_rows`: the reference's, where the
+    caller holds them already)."""
+    import torch
+
+    require_same_result(what, got, want)
+    a = ext_occurrence_rows(got[0])
+    b = ext_occurrence_rows(want[0]) if want_rows is None else want_rows
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: the occurrences differ from the one-shot result")
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def phase10_call(entry: str, codes, lengths, fields: dict, args: tuple = (),
+                 kwargs: dict | None = None) -> dict:
+    """One call of a sharded entry under fresh counters (sharded_run_stats)
+    with its step passes counted and the streaming final merge timed."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch import testing
+    from hysortk_tpu_torch.parallel import pipeline as sharded
+
+    cfg = ht.KmerConfig(**fields)
+    merge_ms = []
+    real_merge = sharded._merge_partials
+
+    def timed_merge(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_merge(*a, **k)
+        torch.cuda.synchronize()
+        merge_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with contextlib.ExitStack() as stack:
+        calls = testing.call_counters(stack, sharded)
+        stack.enter_context(mock.patch.object(sharded, "_merge_partials", timed_merge))
+        stats = sharded_run_stats(lambda: getattr(sharded, entry)(
+            codes, lengths, cfg, *args, **(kwargs or {})), 1)
+    stats["passes"] = sum(n for name, n in calls.items() if "_shard_body" in name)
+    stats["merge_ms"] = merge_ms
+    return stats
+
+
+def phase10_rank(rank: int, jobs: list, out_dir: str) -> None:
+    """One rank of phase 10's spawned runs, in a process of its own: each
+    job (entry, inputs, config fields, args, kwargs) in turn; rank 0 writes
+    each result, every rank its measurements."""
+    import torch.distributed as dist
+
+    import hysortk_tpu_torch as ht
+
+    for job in jobs:
+        data = np.load(job["inputs"])
+        stats = phase10_call(job["entry"], data["codes"], data["lengths"],
+                             job["cfg"], tuple(job["args"]), job["kwargs"])
+        kl, hist = stats.pop("result")
+        if rank == 0:
+            out = dict(keys=kl.keys, counts=kl.counts, hist=hist)
+            if isinstance(kl, ht.KmerListExt):
+                out.update(rid=np.concatenate([np.zeros(0, np.int32), *kl.rid]),
+                           pos=np.concatenate([np.zeros(0, np.uint32), *kl.pos]))
+            np.savez(os.path.join(out_dir, f"{job['tag']}.npz"), **out)
+        del kl, hist
+        stats["backend"] = dist.get_backend()
+        with open(os.path.join(out_dir, f"{job['tag']}.rank{rank}.json"), "w") as f:
+            json.dump(stats, f)
+
+
+def load_phase10_result(path: str):
+    import hysortk_tpu_torch as ht
+
+    # Each item of an npz file is read anew when it is indexed: read once.
+    res = dict(np.load(path))
+    if "rid" not in res:
+        return ht.KmerList(res["keys"], res["counts"], K), res["hist"]
+    # The occurrences stay flat (flat_occurrences reads them so): the
+    # comparison needs no per-k-mer arrays.
+    kl = ht.KmerListExt(res["keys"], res["counts"], K)
+    kl.flat_rid, kl.flat_pos = res["rid"], res["pos"]
+    return kl, res["hist"]
+
+
+def log_phase10(tag: str, what: str, ranks: list[dict], n_kept: int,
+                needed: tuple) -> None:
+    """Check that every rank launched `needed`, and print each rank's line."""
+    for r, st in enumerate(ranks):
+        for name in needed:
+            if not st["launches"].get(name):
+                raise AssertionError(f"phase 10({tag}) rank {r} did not launch {name}")
+        t = st["traffic"]
+        merge = (f"; final merge {st['merge_ms'][0]:.1f} ms" if st["merge_ms"] else "")
+        log(f"phase10{tag} {what} rank {r}/{len(ranks)} ({st['backend']}): wall "
+            f"{st['walls'][0]:.4f} s; peak device memory {st['peak'] / 2**30:.3f} GiB; "
+            f"{st['passes']} step passes; sent {t['bytes_sent']} B in {t['calls']} "
+            f"exchange(s), {t['seconds'] * 1e3:.1f} ms in the exchange{merge}; "
+            f"launches {json.dumps(st['launches'])}")
+    log(f"phase10{tag} {what}: {n_kept} k-mers equal to the reference")
+
+
+def phase10_minimizer_stages(codes, lengths, cfg) -> None:
+    """One rank's minimizer call stage by stage, a synchronize after each
+    (inside phase 10's one-rank group)."""
+    import torch
+
+    from hysortk_tpu_torch.ops import keybuild, minimizer, radix_sort, wire
+    from hysortk_tpu_torch.parallel import exchange
+    from hysortk_tpu_torch.parallel import pipeline as sharded
+
+    stages = []
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages.append(f"{name} {(time.perf_counter() - t0) * 1e3:.1f}")
+        return out
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for _ in range(2):
+        stages.clear()
+        packed, lens, block_len, _ = timed(
+            "host partition + pack + H2D",
+            lambda: sharded._rank_wire(codes, lengths, cfg, None, dev))
+        codes_d, valid_d = timed("decode", lambda: wire.decode_block(
+            packed, lens, cfg.k, block_len))
+        bucket = timed("minimizer scan", lambda: minimizer.kmer_destinations(
+            codes_d, cfg.k, cfg.m, sharded._num_buckets(cfg, 1)))
+        _, assign, capacity, _ = timed(
+            "bucket sizes + plan (a second scan inside)",
+            lambda: sharded.plan_sharded_step(codes_d, valid_d, cfg, 1, block_len))
+        words = timed("keybuild", lambda: keybuild.canonical_keys_fused(
+            codes_d, valid_d, cfg.k))
+        send, counts, overflow = timed(
+            "pack by destination", lambda: exchange.pack_by_destination(
+                valid_d, assign[bucket.to(torch.int64)], words, [], 1, capacity))
+
+        def all_reduce_exchange_mask():  # sharded._bucketed_exchange after its pack
+            sharded._global_stats(counts, overflow, dev, None)
+            recv, _, recv_valid = exchange.all_to_all_exchange(send, counts, None)
+            return [w.reshape(-1) for w in exchange.mask_invalid_slots(
+                [recv[:, r] for r in range(cfg.words)], recv_valid)]
+
+        rows = timed("all_reduce + exchange + mask", all_reduce_exchange_mask)
+        del send, words, bucket
+        words_s, _ = timed("receive sort", lambda: radix_sort.sort_words(rows))
+        del rows
+        cnt, keep = timed("fused count", lambda: sharded._count_merged(words_s, cfg))
+        timed("compact + D2H + all_gather + histogram",
+              lambda: sharded._gather_result(words_s, cnt, keep, cfg, None, False))
+        del codes_d, valid_d, words_s, cnt, keep, packed, lens
+    log(f"phase10d stages of one minimizer call, second of two, ms: {'; '.join(stages)}")
+
+
+def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
+                    sub_one_shot, ext_sub_one_shot) -> None:
+    """The rest of the sharded pipeline on phase 2's reads (configuration
+    of phase 2): (a) sharded streaming, one rank, NCCL; (b) the same on two
+    ranks sharing the card over gloo; (c) extension mode, one rank at 2^26
+    bases, and on two ranks on the first 2^24 bases one-shot and streamed
+    in batches of 2^22; (d) minimizer routing with the balanced dispatcher,
+    one rank (with its stages) and four ranks; (e) on two ranks at 2^24
+    bases: minimizer with round_robin and the combiner, kmer_hash, kmer_hash
+    with extension mode. Every result exactly equal to the one-shot result
+    it is held against, after sorting by key (extension mode: every
+    occurrence as sorted (key, rid, pos) rows)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from hysortk_tpu_torch.parallel import group
+    from hysortk_tpu_torch.parallel.spawn import spawn_ranks
+
+    cfg = slice_config()
+    base = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    ext = dict(base, extension=True)
+    mini = dict(base, routing="minimizer")
+    stream_needed = CORE_KERNELS + ("mix_keys", "merge_runs", "run_length_sum")
+
+    t_phase = time.perf_counter()
+    group.init("file://" + os.path.join(workdir, "rendezvous-10"), 0, 1, "cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"one rank with its own card took {dist.get_backend()}")
+        a = phase10_call("count_reads_sharded_streaming", codes, lengths, base,
+                         (STREAM_BATCH,))
+        require_same_result("phase 10(a)", a.pop("result"), one_shot)
+        a["backend"] = "nccl"
+        log_phase10("a", f"count_reads_sharded_streaming, {int(codes.size)} bases in "
+                    f"batches of {STREAM_BATCH}", [a], len(one_shot[0]), stream_needed)
+        torch.cuda.empty_cache()
+        c = phase10_call("count_reads_sharded_ext", codes, lengths, ext)
+        got = c.pop("result")
+        t0 = time.perf_counter()
+        require_same_ext("phase 10(c) one rank", got, ext_one_shot)
+        del got
+        c["backend"] = "nccl"
+        log_phase10("c", f"count_reads_sharded_ext, {int(codes.size)} bases (held against "
+                    f"phase 8(a) in {time.perf_counter() - t0:.1f} s)", [c],
+                    len(ext_one_shot[0]), CORE_KERNELS + ("mix_keys",))
+        torch.cuda.empty_cache()
+        d = phase10_call("count_reads_sharded", codes, lengths, mini)
+        require_same_result("phase 10(d) one rank", d.pop("result"), one_shot)
+        d["backend"] = "nccl"
+        log_phase10("d", f"minimizer (balanced), {int(codes.size)} bases", [d],
+                    len(one_shot[0]), CORE_KERNELS)
+        phase10_minimizer_stages(codes, lengths, dataclasses.replace(
+            cfg, routing="minimizer"))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    sub_codes, sub_lengths = ext_stream_reads(codes, lengths)
+    inputs = {}
+    for name, (c_, l_) in (("all", (codes, lengths)), ("sub", (sub_codes, sub_lengths))):
+        inputs[name] = os.path.join(workdir, f"phase10-{name}.npz")
+        np.savez(inputs[name], codes=c_, lengths=l_)
+    rid0 = dict(read_id_offset=EXT_RID0)
+    spawns = {
+        2: [  # (tag, what, entry, inputs, cfg, args, kwargs, reference, kernels)
+            ("b", "count_reads_sharded_streaming, 2^26 bases in batches of 2^24",
+             "count_reads_sharded_streaming", "all", base, (STREAM_BATCH,), {},
+             one_shot, stream_needed),
+            ("c", "count_reads_sharded_ext, 2^24 bases", "count_reads_sharded_ext",
+             "sub", ext, (), rid0, ext_sub_one_shot, CORE_KERNELS + ("mix_keys",)),
+            ("c", "count_reads_sharded_ext_streaming, 2^24 bases in batches of 2^22",
+             "count_reads_sharded_ext_streaming", "sub", ext, (EXT_STREAM_BATCH,), rid0,
+             ext_sub_one_shot, CORE_KERNELS + ("mix_keys",)),
+            ("e", "minimizer, round_robin + combiner, 2^24 bases", "count_reads_sharded",
+             "sub", dict(mini, dispatcher="round_robin", combiner=True), (), {},
+             sub_one_shot, CORE_KERNELS + ("run_length_sum",)),
+            ("e", "kmer_hash, 2^24 bases", "count_reads_sharded", "sub",
+             dict(base, routing="kmer_hash"), (), {}, sub_one_shot, CORE_KERNELS),
+            ("e", "kmer_hash + extension, 2^24 bases", "count_reads_sharded_ext", "sub",
+             dict(ext, routing="kmer_hash"), (), rid0, ext_sub_one_shot, CORE_KERNELS),
+        ],
+        4: [
+            ("d", "minimizer (balanced), 2^26 bases", "count_reads_sharded", "all", mini,
+             (), {}, one_shot, CORE_KERNELS),
+        ],
+    }
+    # The reference of three runs: its sorted occurrence rows once.
+    sub_rows = ext_occurrence_rows(ext_sub_one_shot[0])
+    for ranks, runs in spawns.items():
+        out_dir = os.path.join(workdir, f"phase10-{ranks}")
+        os.makedirs(out_dir)
+        jobs = [dict(tag=f"{tag}{i}", entry=entry, inputs=inputs[which], cfg=fields,
+                     args=list(args), kwargs=kwargs)
+                for i, (tag, _, entry, which, fields, args, kwargs, _, _) in enumerate(runs)]
+        t0 = time.perf_counter()
+        spawn_ranks(phase10_rank, ranks, (jobs, out_dir), workdir=out_dir,
+                    device="cuda", timeout=600)
+        log(f"phase10 {ranks} ranks on one card, {len(jobs)} run(s): "
+            f"{time.perf_counter() - t0:.1f} s with process start")
+        for job, (tag, what, entry, _, fields, _, _, want, needed) in zip(jobs, runs):
+            got = load_phase10_result(os.path.join(out_dir, f"{job['tag']}.npz"))
+            if fields.get("extension"):
+                require_same_ext(f"phase 10({tag}) {what}", got, want,
+                                 sub_rows if want is ext_sub_one_shot else None)
+            else:
+                require_same_result(f"phase 10({tag}) {what}", got, want)
+            del got
+            stats = []
+            for r in range(ranks):
+                with open(os.path.join(out_dir, f"{job['tag']}.rank{r}.json")) as fh:
+                    stats.append(json.load(fh))
+            if any(st["backend"] != "gloo" for st in stats):
+                raise AssertionError("ranks sharing a card took another backend than gloo")
+            log_phase10(tag, what, stats, len(want[0]), needed)
+    del sub_rows
+    log(f"phase10 {time.perf_counter() - t_phase:.1f} s in all")
 
 
 def main() -> int:
@@ -1870,6 +2212,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import hysortk_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    t_start = time.perf_counter()
     smi = phase0_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
@@ -1892,9 +2235,14 @@ def main() -> int:
         log(f"phase6 best wall {fused_wall:.4f} s beside phase 2's {best_wall:.4f} s")
         roll_launches = phase7_roll(codes, lengths, one_shot)
         torch.cuda.empty_cache()
-        phase8_extension(workdir, codes, lengths, one_shot, peak, fasta, reads, errs)
+        ext_one_shot, ext_sub_one_shot = phase8_extension(
+            workdir, codes, lengths, one_shot, peak, fasta, reads, errs)
         torch.cuda.empty_cache()
-        sharded_launches = phase9_sharded(workdir, codes, lengths, one_shot)
+        sharded_launches, sub_one_shot = phase9_sharded(workdir, codes, lengths,
+                                                        one_shot)
+        torch.cuda.empty_cache()
+        phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot, sub_one_shot,
+                        ext_sub_one_shot)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     times.update(stream_times)
@@ -1910,6 +2258,7 @@ def main() -> int:
          "max_abs_err": errs[name], **times[name]}
         for name in KERNELS
     ]}
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)  # again beside the record: the card every number above ran on
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,11 @@ This package covers single-device counting, one-shot and in bounded device
 memory (runtime/scheduler.count_reads_streaming), with and without
 extension mode ((ReadId, PosInRead) occurrence payloads: count_reads_ext,
 count_reads_streaming_ext), and counting across the ranks of a
-torch.distributed process group, one device a rank, by the range exchange
-(parallel/pipeline.count_reads_sharded). It imports neither jax nor
-hysortk_tpu.
+torch.distributed process group, one device a rank
+(parallel/pipeline.count_reads_sharded: the range exchange by default, the
+minimizer and kmer_hash routings; count_reads_sharded_streaming,
+count_reads_sharded_ext, count_reads_sharded_ext_streaming). It imports
+neither jax nor hysortk_tpu.
 """
 
 from __future__ import annotations
@@ -45,6 +47,13 @@ from .runtime.scheduler import (
 
 __version__ = "0.1.0"
 
+_SHARDED_ENTRIES = (
+    "count_reads_sharded",
+    "count_reads_sharded_ext",
+    "count_reads_sharded_streaming",
+    "count_reads_sharded_ext_streaming",
+)
+
 __all__ = [
     "KmerConfig",
     "KmerList",
@@ -60,7 +69,17 @@ __all__ = [
     "count_flat_ext",
     "count_reads_ext",
     "count_reads_streaming_ext",
+    *_SHARDED_ENTRIES,
 ]
+
+
+def __getattr__(name):
+    # The sharded entry points load with their module, on first use.
+    if name in _SHARDED_ENTRIES:
+        from .parallel import pipeline as _pp
+
+        return getattr(_pp, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def read_dna_buffer(
@@ -99,12 +118,13 @@ def kmer_count(
 
     Inside a torch.distributed process group of more than one rank, every
     rank calls this with the same reads and counts its share on its own
-    device ("cuda": the card of its local rank) by the range exchange
-    (parallel/pipeline.count_reads_sharded), as the JAX facade does when it
-    sees more than one device; each rank returns the whole result. There,
-    extension mode and a working set over the headroom (sharded streaming)
-    raise NotImplementedError: they are not ported yet. One process drives
-    one device, so a list of devices raises NotImplementedError."""
+    device ("cuda": the card of its local rank), as the JAX facade does when
+    it sees more than one device: extension mode by
+    parallel/pipeline.count_reads_sharded_ext, a rank's share over the
+    device's headroom by count_reads_sharded_streaming (in batches of
+    suggest_batch_bases x the rank count), else count_reads_sharded; each
+    rank returns the whole result. One process drives one device, so a list
+    of devices raises NotImplementedError."""
     cfg = config or KmerConfig()
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
@@ -136,14 +156,14 @@ def _kmer_count_sharded(codes, lengths, cfg: KmerConfig, device):
     from .parallel import group as _group
     from .parallel import pipeline as _sharded
 
-    if cfg.extension:
-        raise NotImplementedError(
-            f"extension mode across ranks {_sharded.UNPORTED}")
     dev = _group.rank_device(device)
-    if _over_headroom(-(-int(codes.size) // _dist.get_world_size()), cfg, dev):
-        raise NotImplementedError(
-            f"streaming across ranks (the rank's share exceeds its device "
-            f"memory headroom) {_sharded.UNPORTED}")
+    if cfg.extension:
+        return _sharded.count_reads_sharded_ext(codes, lengths, cfg, device=dev)
+    ranks = _dist.get_world_size()
+    if _over_headroom(-(-int(codes.size) // ranks), cfg, dev):
+        batch = suggest_batch_bases(cfg, dev) * ranks
+        return _sharded.count_reads_sharded_streaming(codes, lengths, cfg, batch,
+                                                      device=dev)
     return _sharded.count_reads_sharded(codes, lengths, cfg, device=dev)
 
 

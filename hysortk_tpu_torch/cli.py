@@ -3,11 +3,12 @@
 The port of hysortk_tpu/cli.py. Mirrors the reference standalone binary
 (reference: standalone/main.cpp:9-72): prints the parameter block, runs
 read -> count -> histogram -> output files, on one device, or under
-torchrun (WORLD_SIZE > 1) across its ranks, one device a rank, by the range
-exchange (rank 0 prints the histogram and writes the one output file, as the
-JAX CLI's multi-device run writes one). Flags of paths that are not ported
-yet (other routings and dispatchers, the JAX multi-process flags) are
-accepted and end the run with an error.
+torchrun (WORLD_SIZE > 1) across its ranks, one device a rank (rank 0
+prints the histogram and writes the one output file, as the JAX CLI's
+multi-device run writes one): one-shot, streamed (--stream-batch-bases),
+in extension mode, by any routing but supermer. Flags of paths that are not
+ported yet (--routing supermer, the JAX multi-process flags) are accepted
+and end the run with an error.
 
     torchrun --nproc-per-node 2 -m hysortk_tpu_torch.cli reads.fa out/ --device cpu
 """
@@ -71,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--routing",
                    choices=("range", "kmer_hash", "minimizer", "supermer"),
                    default="range",
-                   help="multi-device destination rule (only the default is "
-                        "accepted; the sharded paths are not ported yet)")
+                   help="multi-device destination rule (supermer is not "
+                        "ported yet; no effect on one rank)")
     p.add_argument("--classifier", choices=("heavy_hitter", "plain"),
                    default="heavy_hitter",
                    help="across ranks, heavy_hitter re-runs a skewed input "
@@ -80,8 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "one rank)")
     p.add_argument("--dispatcher", choices=("balanced", "round_robin"),
                    default="balanced",
-                   help="bucket placement under minimizer routing (not "
-                        "ported yet)")
+                   help="bucket placement under minimizer routing (no "
+                        "effect on one rank)")
     # Paths that are not ported yet: accepted, then refused.
     p.add_argument("--coordinator", default=None,
                    help="multi-process coordinator address (not ported yet; "
@@ -94,8 +95,7 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags of `args` that ask for a path this package does not have."""
     asked = {
-        "--routing": args.routing != "range",
-        "--dispatcher": args.dispatcher != "balanced",
+        "--routing": args.routing == "supermer",
         "--coordinator": args.coordinator is not None,
         "--num-processes": args.num_processes is not None,
         "--process-id": args.process_id is not None,
@@ -129,12 +129,9 @@ def main(argv=None) -> int:
         k=args.k, m=args.m, lower=args.lower, upper=args.upper,
         device_compact=args.device_compact, extension=args.extension,
         combiner=args.combiner, classifier=args.classifier,
+        routing=args.routing, dispatcher=args.dispatcher,
     )
     sharded = int(os.environ.get("WORLD_SIZE", "1")) > 1
-    if sharded and (args.extension or args.stream_batch_bases):
-        print("hysortk_tpu_torch: --extension and --stream-batch-bases across "
-              "ranks: not ported yet", file=sys.stderr)
-        return 2
     owns_group = sharded and not dist.is_initialized()
     try:
         return _run(args, p, cfg, sharded)
@@ -148,6 +145,7 @@ def _run(args, p, cfg, sharded: bool) -> int:
     import torch.distributed as dist
 
     from . import kmer_count, print_kmer_histogram, read_dna_buffer, write_output_file
+    from .parallel import pipeline as sharded_pipeline
     from .pipeline import resolve_device
     from .runtime import memcheck
     from .runtime.logger import Logger
@@ -184,16 +182,21 @@ def _run(args, p, cfg, sharded: bool) -> int:
         profile_cm = contextlib.nullcontext()
 
     def _do_count():
-        if args.extension and args.stream_batch_bases:
+        batch = args.stream_batch_bases
+        if args.extension and batch:
             # Bounded-memory EXT: per-batch unfiltered occurrence partials
             # merged on the host.
-            return count_reads_streaming_ext(
-                codes, lengths, cfg, args.stream_batch_bases, device=dev
-            )
-        if args.stream_batch_bases:
-            return count_reads_streaming(
-                codes, lengths, cfg, args.stream_batch_bases, device=dev
-            )
+            if sharded:
+                return sharded_pipeline.count_reads_sharded_ext_streaming(
+                    codes, lengths, cfg, batch, device=dev)
+            return count_reads_streaming_ext(codes, lengths, cfg, batch, device=dev)
+        if batch:
+            if sharded:
+                return sharded_pipeline.count_reads_sharded_streaming(
+                    codes, lengths, cfg, batch, device=dev)
+            return count_reads_streaming(codes, lengths, cfg, batch, device=dev)
+        # One shot; inside a group the facade takes the sharded path
+        # (extension mode included).
         return kmer_count(codes, lengths, cfg, device=dev)
 
     with profile_cm, timer.span("kmer_count"):

@@ -1,7 +1,9 @@
 """ctypes bindings for the native host-IO library (native/host_io.cpp).
 
 The wrapper of hysortk_tpu/io/native.py, loading the same library, cut to
-the entry points the single-device slice uses.
+the entry points the single-device and the sharded paths use (strip and
+pack of FASTA records, the 2-bit pack, key decode, output formatting); the
+supermer routing's entry points are not bound.
 
 Loads (building on first use if a toolchain is present) the OpenMP-parallel
 C++ implementations of the host hot loops; every entry point has a numpy

@@ -10,7 +10,8 @@ sequential run-length encoder.
 Word equality is bitwise, so the int32 words need no widening here. The
 hand-written CUDA kernels that fuse these scans are ops/fused_count.py
 (count + filter) and ops/run_length_sum.py (weighted sum); these functions
-are their plain versions.
+are their plain versions. `chunked_bincount` (the bucket sizes of minimizer
+routing) and `histogram` are a masked torch.bincount on either device.
 """
 
 from __future__ import annotations
@@ -100,3 +101,23 @@ def frequency_filter(
     Mirrors the reference's [L, U] filter (src/kmerops.cpp:1430-1460).
     """
     return head & (count >= lower) & (count <= upper)
+
+
+def chunked_bincount(
+    values: torch.Tensor, valid: torch.Tensor, num_bins: int
+) -> torch.Tensor:
+    """(num_bins,) int32 count of the valid `values` in each bin [0,
+    num_bins); values outside the bins count nowhere, as in the JAX
+    version. The JAX version bounds its memory by scanning a one-hot one
+    chunk at a time; torch.bincount needs no (N, num_bins) intermediate, so
+    there is no chunk here."""
+    v = values.to(torch.int64)
+    inside = valid.to(torch.bool) & (v >= 0) & (v < num_bins)
+    return torch.bincount(v[inside], minlength=num_bins).to(torch.int32)
+
+
+def histogram(keep: torch.Tensor, count: torch.Tensor, upper: int) -> torch.Tensor:
+    """hist[c] = number of kept k-mers with frequency c, c in [0, upper]
+    (print_kmer_histogram, src/hysortk.cpp:98-136, histograms the filtered
+    list)."""
+    return chunked_bincount(count, keep, upper + 1)

@@ -169,3 +169,26 @@ def encode_kmer(s: str) -> np.ndarray:
         w, j = divmod(i, 16)
         out[w] |= np.uint32(code[ch] << (2 * (15 - j)))
     return out
+
+
+def extend_kmer(key: np.ndarray, code: int, k: int) -> np.ndarray:
+    """Shift one base into packed (..., W) uint32 forward keys: the rolling
+    k-mer step next = ((kmer << 2) | code) cut to k bases
+    (reference Kmer::GetExtension, include/kmer.hpp:248-262). Layout as
+    encode_kmer: base 0 in the top crumb of word 0, the last word's unused
+    low bits zero. numpy only (the JAX version also takes jax arrays)."""
+    w_count = (k + 15) // 16
+    if key.shape[-1] != w_count:
+        raise ValueError(f"need {w_count} words for k={k}, got {key.shape}")
+    key = np.asarray(key, dtype=np.uint32)
+    shifted = [key[..., i] << np.uint32(2) for i in range(w_count)]
+    for i in range(w_count - 1):
+        shifted[i] = shifted[i] | (key[..., i + 1] >> np.uint32(30))
+    # The new base at position k - 1, then the tail word cut to its bases.
+    w, j = divmod(k - 1, 16)
+    shifted[w] = shifted[w] | np.uint32((int(code) & 3) << (2 * (15 - j)))
+    r_last = k - 16 * (w_count - 1)
+    if r_last < 16:
+        shifted[-1] = shifted[-1] & np.uint32(
+            (_MASK32 << (32 - 2 * r_last)) & _MASK32)
+    return np.stack(shifted, axis=-1)

@@ -1,4 +1,4 @@
-"""Heavy-hitter classifier and bucket dispatchers (numpy, host side).
+"""Heavy-hitter classifier, bucket dispatchers and the bucket measurement.
 
 The port of hysortk_tpu/parallel/dispatch.py. The reference over-partitions
 the key space into virtual tasks, classifies heavy hitters (> heavy_ratio x
@@ -7,16 +7,26 @@ ranks with a bounded first-fit dispatcher (BalancedDispatcher,
 src/kmerops.cpp:1214-1327). Under the default range routing only the
 classifier runs: on the per-destination totals of the exchange's first pass
 (parallel/pipeline.py), a destination above heavy_ratio x mean switches the
-step to the combiner. The dispatchers serve minimizer routing; they are
-copied here with the classifier, and the device-side bucket measurement
-(`bucket_sizes_device`) waits for that routing.
+step to the combiner. The dispatchers serve minimizer routing, whose bucket
+sizes are measured on the device (`bucket_sizes_device`); the assignment is
+a small host computation, like the reference's root-rank dispatch + Bcast.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..ops import count as count_ops
 
 NORMAL, HEAVY = 0, 1  # task types; reference kmerops.hpp task_type semantics
+
+
+def bucket_sizes_device(
+    dest: torch.Tensor, valid: torch.Tensor, num_buckets: int
+) -> torch.Tensor:
+    """(num_buckets,) int32 valid k-mers per destination bucket (local)."""
+    return count_ops.chunked_bincount(dest, valid, num_buckets)
 
 
 def classify(sizes: np.ndarray, heavy_ratio: float = 2.3) -> np.ndarray:

@@ -1,9 +1,8 @@
 """Key-range exchange between the ranks of a process group.
 
-The port of hysortk_tpu/parallel/exchange.py's range-routing pieces
-(`pack_sorted_ranges`, `mask_invalid_slots`, `all_to_all_exchange`); the
-bucketed `pack_by_destination` waits for the minimizer and key-hash
-routings. The JAX package moves fixed (S, capacity) blocks with one
+The port of hysortk_tpu/parallel/exchange.py: `pack_sorted_ranges` (range
+routing), `pack_by_destination` (the bucketed routings: minimizer and
+kmer_hash), `mask_invalid_slots`, `all_to_all_exchange`. The JAX package moves fixed (S, capacity) blocks with one
 `lax.all_to_all` per array over the mesh axis; here every key and payload
 row of a step rides ONE `dist.all_to_all_single` of an (S, rows, capacity)
 tensor, and the per-destination counts a second, small one. Slot capacity
@@ -30,6 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops import radix_sort
 from . import group as group_mod
 
 traffic = {"calls": 0, "bytes_sent": 0, "seconds": 0.0}
@@ -72,6 +72,54 @@ def pack_sorted_ranges(
         for r, row in enumerate(rows):
             send[s, r, :take] = row[start:start + take]
         send[s, :, take:] = -1
+    return send, counts, overflow
+
+
+def pack_by_destination(
+    valid: torch.Tensor,
+    dest: torch.Tensor,
+    words: Sequence[torch.Tensor],
+    payloads: Sequence[torch.Tensor],
+    num_shards: int,
+    capacity: int,
+) -> tuple[torch.Tensor, np.ndarray, bool]:
+    """Group the valid slots by destination into an (S, rows, capacity)
+    send block: row s holds the first `capacity` slots bound for rank s,
+    every key row and then every payload row; slots past the count hold the
+    all-ones sentinel.
+
+    The JAX version sorts [dest, *words, *payloads] together, which is up
+    to 9 rows for extension mode at K > 80; here only the destination is
+    sorted, with the slot index as its payload (ops/radix_sort: 2 rows at
+    any key width), and the rows are gathered by index. A destination's
+    slots therefore keep their input order instead of key order; the
+    receive side sorts again, so the counted keys are the same.
+
+    valid: (N,) bool; dest: (N,) int in [0, S) at valid slots. Returns
+    (send (S, rows, capacity) int32, counts (S,) int64 on the host,
+    overflow: some destination has more than `capacity` slots).
+    """
+    dev = dest.device
+    n = dest.shape[0]
+    rows = list(words) + list(payloads)
+    send = torch.empty((num_shards, len(rows), capacity), dtype=torch.int32,
+                       device=dev)
+    if n == 0:
+        return send.fill_(-1), np.zeros(num_shards, dtype=np.int64), False
+    dest_key = torch.where(valid, dest.to(torch.int32), num_shards)
+    (dest_s,), (order,) = radix_sort.sort_words(
+        [dest_key], [torch.arange(n, dtype=torch.int32, device=dev)])
+    counts_d = torch.bincount(dest_s.to(torch.int64), minlength=num_shards + 1)
+    counts = counts_d[:num_shards].cpu().numpy()
+    overflow = bool((counts > capacity).any())
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    slot = torch.arange(capacity, dtype=torch.int64, device=dev)
+    take = torch.from_numpy(np.minimum(counts, capacity)).to(dev)
+    inside = slot[None, :] < take[:, None]
+    src = torch.from_numpy(offsets[:-1]).to(dev)[:, None] + slot[None, :]
+    idx = order[torch.where(inside, src, 0).clamp(max=n - 1)].to(torch.int64)
+    for r, row in enumerate(rows):
+        send[:, r] = torch.where(inside, row[idx], -1)
     return send, counts, overflow
 
 

@@ -1,11 +1,12 @@
-"""Sharded k-mer counting over a torch.distributed process group: the range
-exchange.
+"""Sharded k-mer counting over a torch.distributed process group.
 
-The port of hysortk_tpu/parallel/pipeline.py's default route
-(`count_reads_sharded` with routing="range", its packed-wire entry
-`multihost._count_multihost_packed`, and the heavy-hitter combiner). Each
-rank is one process with one device (parallel/group.py); per step, on
-every rank:
+The port of hysortk_tpu/parallel/pipeline.py (and of the packed-wire entry
+of multihost._count_multihost_packed). Each rank is one process with one
+device (parallel/group.py); every rank is given the same global reads,
+computes the same partition, packs and uploads only its own block (the 2-bit
+wire, ops/wire.py) and returns the whole result.
+
+The default route is the range exchange; per step, on every rank:
 
   wire decode -> key build -> mix (ops/mixkey.py) -> ONE local sort
   -> contiguous per-destination segments -> all_to_all_single
@@ -15,25 +16,37 @@ every rank:
 Because the mixed sort key doubles as the routing key, a step costs one
 local sort plus a merge of the S received sorted runs. The ownership rule:
 dest = range of the mixed first word, uniform even on skewed genomes; equal
-keys mix equally, so they land together.
+keys mix equally, so they land together. The classifier
+(cfg.classifier == "heavy_hitter") reads the global per-destination totals
+that every pass computes anyway; a destination heavier than heavy_ratio x
+mean, which under a keyed routing can only come from duplicate k-mers,
+re-runs the step through the combiner, where each rank pre-aggregates its
+local duplicates and exchanges (key, partial count) entries (reference
+ScatteredKmerList, src/kmerops.cpp:363-417).
 
-The classifier (cfg.classifier == "heavy_hitter") reads the global
-per-destination totals that every pass computes anyway; a destination
-heavier than heavy_ratio x mean, which under a keyed routing can only come
-from duplicate k-mers, re-runs the step through the combiner, where each
-rank pre-aggregates its local duplicates and exchanges (key, partial count)
-entries (reference ScatteredKmerList, src/kmerops.cpp:363-417).
+The bucketed routes (`_shard_body_bucketed`) send each key to a bucket's
+owner: routing="minimizer" is the reference's virtual-task scheme (minimizer
+buckets, ops/minimizer.py, placed on ranks by the balanced or round-robin
+dispatcher; the balanced plan measures the bucket sizes first, so its
+capacity is exact), routing="kmer_hash" the legacy hash-mod rule. Both pack
+by destination, exchange, and sort again on the receive side.
 
-The result equals the JAX package's count_reads_sharded on a mesh of as
-many devices as there are ranks: keys in rank order, then mixed-key order,
-with the same counts and histogram. Every rank returns the whole list.
-Routings other than "range", sharded streaming and sharded extension mode
-are not ported yet (slice C).
+Around the step: `count_reads_sharded_streaming` streams batches of reads
+through it unfiltered in bounded device memory and merges each rank's
+partial lists at the end without an exchange (keys stay with their owner);
+`count_reads_sharded_ext[_streaming]` is extension mode, with (read id,
+position) payloads riding the sort and the exchange.
+
+Every result equals the JAX package's on a mesh of as many devices as there
+are ranks: keys in rank order, then the rank's key order (mixed-key order
+under range routing), the same counts and histogram; extension mode the
+same occurrences. routing="supermer" is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -44,23 +57,55 @@ from ..io import fasta as fasta_io
 from ..io import supermer as supermer_io
 from ..ops import count as count_ops
 from ..ops import fused_count
+from ..ops import hashes
 from ..ops import keybuild
 from ..ops import merge as merge_ops
+from ..ops import minimizer
 from ..ops import mixkey
 from ..ops import radix_sort
 from ..ops import run_length_sum
 from ..ops import wire
-from ..pipeline import KmerList, host_histogram
+from ..ops.kmer import widen
+from ..pipeline import (
+    KmerList,
+    KmerListExt,
+    host_histogram,
+    kept_occurrences,
+    merge_ext_partials,
+    split_occurrences,
+)
+from ..runtime.scheduler import iter_read_batches, read_batch_spans
 from . import dispatch
 from . import exchange
 from . import group as group_mod
 
-UNPORTED = "is not ported yet (slice C of the multi-device port)"
 _ATTEMPTS = 6  # passes per route before an overflow is an error, as in JAX
 
 
 def _next_pow2(x: int) -> int:
     return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def run_with_capacity_retry(run, capacity: int, measured: bool):
+    """Run `run(capacity)` under the capacity-overflow protocol. `run`
+    returns a tuple whose last element is the overflow flag, true where
+    any rank's segment overflowed (every rank sees the same flag). A
+    measured capacity is exact and gets one attempt; otherwise the capacity
+    doubles, for up to 4 attempts. Returns (outputs without the flag,
+    capacity)."""
+    attempts = 1 if measured else 4
+    for _ in range(attempts):
+        out = run(capacity)
+        if not out[-1]:
+            return out[:-1], capacity
+        capacity *= 2
+    raise RuntimeError(f"exchange capacity overflow after {attempts} attempts")
+
+
+def _factor_capacity(n_local: int, num_shards: int, cfg: KmerConfig) -> int:
+    """capacity_factor x the mean per-(source, destination) load, at least
+    64 slots: the capacity rule of every route that is not measured."""
+    return max(int(n_local / num_shards * cfg.capacity_factor), 64)
 
 
 def range_capacity(n_local: int, num_shards: int, cfg: KmerConfig) -> int:
@@ -75,9 +120,7 @@ def range_capacity(n_local: int, num_shards: int, cfg: KmerConfig) -> int:
     src/kmerops.cpp:439-471.
     """
     if cfg.extension:
-        return _next_pow2(
-            max(int(n_local / num_shards * cfg.capacity_factor), 64)
-        )
+        return _next_pow2(_factor_capacity(n_local, num_shards, cfg))
     mean = max(-(-n_local // num_shards), 128)
     return mean + max(mean >> 6, 64)
 
@@ -214,28 +257,168 @@ def _shard_body_range_combiner(codes, valid, *, cfg: KmerConfig,
     return merged_w, cnt, keep, totals, False
 
 
-def plan_sharded_step(
-    cfg: KmerConfig, num_shards: int, n_local: int
-) -> tuple[KmerConfig, int, bool]:
-    """(cfg, capacity, measured) for a step. Range routing needs no
-    measurement pass: the full-avalanche mix makes per-(src, dst) loads
-    uniform, so the capacity rule with the overflow protocol suffices
-    (measured=False), and the classifier reads the totals the main pass
-    returns. The measured minimizer plan waits for that routing."""
-    if cfg.routing != "range":
-        raise NotImplementedError(f"routing={cfg.routing!r} across ranks {UNPORTED}")
-    return cfg, range_capacity(n_local, num_shards, cfg), False
+def _hash_destinations(words, num_shards: int) -> torch.Tensor:
+    """kmer_hash routing: dest = mix_words(key) mod S, unsigned."""
+    return widen(hashes.mix_words(words)) % num_shards
 
 
-def _run_passes(codes, valid, cfg: KmerConfig, num_shards: int, n_local: int,
-                group, classify: bool):
+def _num_buckets(cfg: KmerConfig, num_shards: int) -> int:
+    return num_shards * cfg.avg_buckets_per_shard
+
+
+def _global_stats(counts: np.ndarray, overflow: bool, dev, group):
+    """One all-reduce (SUM) of the rank's per-destination counts and its
+    overflow flag: the global per-destination totals, and whether any
+    rank overflowed."""
+    stats = torch.from_numpy(np.append(counts, int(overflow)).astype(np.int64))
+    stats = stats.to(group_mod.collective_device(dev, group))
+    dist.all_reduce(stats, group=group)
+    host = stats.cpu().numpy()
+    return host[:-1], bool(host[-1] > 0)
+
+
+def _bucketed_exchange(valid, dest, words, payloads, num_shards: int,
+                       capacity: int, group):
+    """The bucketed routes' exchange: pack the valid slots by destination
+    (exchange.pack_by_destination), then the global stats, so that on an
+    overflow every rank returns before the exchange, (None, totals, True);
+    else the received rows flattened, key rows with the sentinel past each
+    source's count, then payload rows: (rows, totals, False)."""
+    send, counts, overflow = exchange.pack_by_destination(
+        valid, dest, words, payloads, num_shards, capacity)
+    totals, overflow = _global_stats(counts, overflow, send.device, group)
+    if overflow:
+        return None, totals, True
+    recv, _, recv_valid = exchange.all_to_all_exchange(send, counts, group)
+    del send
+    n_words = len(words)
+    rows = exchange.mask_invalid_slots(
+        [recv[:, r] for r in range(n_words)], recv_valid)
+    rows = [w.reshape(-1) for w in rows]
+    rows += [recv[:, r].reshape(-1) for r in range(n_words, recv.shape[1])]
+    return rows, totals, False
+
+
+def _shard_body_bucketed(codes, valid, *, assign, cfg: KmerConfig,
+                         num_shards: int, capacity: int, group=None):
+    """Bucketed per-rank program (minimizer or kmer_hash routing, with or
+    without the combiner): pack by destination, exchange, sort the received
+    rows, count. `assign` is the (buckets,) bucket -> rank table on the
+    device under minimizer routing, else None. Returns as _shard_body_range.
+
+    The combiner pre-aggregates local duplicates by one local sort and
+    count. Under minimizer routing the JAX version sorts [bucket, *words]
+    because the minimizer is positional and lost by the sort; here the
+    bucket rides the sort as a payload instead (7 rows at K > 80 where a
+    leading key word would need 7 key words): equal keys share their
+    minimizer, so each run's head carries its bucket.
+    """
+    words = keybuild.canonical_keys_fused(codes, valid, cfg.k)
+    bucket = None
+    if cfg.routing == "minimizer":
+        bucket = minimizer.kmer_destinations(
+            codes, cfg.k, cfg.m, _num_buckets(cfg, num_shards))
+    sent, payloads = valid, []  # the slots to send, with their payload rows
+    if cfg.combiner:
+        words, pay_s = radix_sort.sort_words(
+            words, [bucket] if bucket is not None else [])
+        local_cnt, sent = fused_count.run_length_count_filter(words, 1, 2**31 - 1)
+        bucket = pay_s[0] if bucket is not None else None
+        payloads = [local_cnt]
+    if bucket is not None:
+        dest = assign[bucket.to(torch.int64)]
+    else:
+        dest = _hash_destinations(words, num_shards)
+    del bucket
+    rows, totals, overflow = _bucketed_exchange(sent, dest, words, payloads,
+                                                num_shards, capacity, group)
+    del words, dest, sent, payloads
+    if overflow:
+        return None, None, None, totals, True
+    words_s, pay_s = radix_sort.sort_words(rows[:cfg.words], rows[cfg.words:])
+    del rows
+    if cfg.combiner:
+        head, cnt = run_length_sum.run_length_sum_fused(words_s, pay_s[0])
+        keep = count_ops.frequency_filter(head, cnt, *_bounds(cfg))
+    else:
+        cnt, keep = _count_merged(words_s, cfg)
+    return words_s, cnt, keep, totals, False
+
+
+def _bucket_sizes(codes, valid, cfg: KmerConfig, num_shards: int, group):
+    """Valid k-mers per minimizer bucket: the (S, buckets) matrix of every
+    rank's local sizes, by one all_gather, and the global totals (its
+    column sums, what the JAX version all-reduces). The totals are the
+    dispatcher's input (reference Reduce of task sizes,
+    src/kmerops.cpp:1157-1199); the local matrix gives the exact
+    per-(source, destination) maxima of the assignment."""
+    num_buckets = _num_buckets(cfg, num_shards)
+    bucket = minimizer.kmer_destinations(codes, cfg.k, cfg.m, num_buckets)
+    sizes = dispatch.bucket_sizes_device(bucket, valid, num_buckets)
+    sizes = sizes.to(group_mod.collective_device(codes.device, group))
+    local = [torch.empty_like(sizes) for _ in range(num_shards)]
+    dist.all_gather(local, sizes, group=group)
+    local = torch.stack(local).cpu().numpy().astype(np.int64)
+    return local.sum(axis=0), local
+
+
+def plan_sharded_step(codes, valid, cfg: KmerConfig, num_shards: int,
+                      n_local: int, group=None):
+    """(cfg, assign, capacity, measured) for a step on this rank's block.
+
+    Range routing needs no measurement pass: the full-avalanche mix makes
+    per-(src, dst) loads uniform, so the capacity rule with the overflow
+    protocol suffices, and the classifier reads the totals the main pass
+    returns. Minimizer routing under the balanced dispatcher measures the
+    bucket sizes (the dispatcher's input) and with them the exact
+    per-(source, destination) maxima of its assignment, so its capacity
+    cannot overflow (measured=True). Round-robin and kmer_hash size the
+    exchange by capacity_factor. `assign` is the bucket -> rank table on
+    the device (minimizer routing) or None. Every rank computes the same
+    plan: the assignment is a deterministic function of the all-gathered
+    sizes."""
+    factor_capacity = _factor_capacity(n_local, num_shards, cfg)
+    if cfg.routing == "range":
+        return cfg, None, range_capacity(n_local, num_shards, cfg), False
+    if cfg.routing == "kmer_hash":
+        return cfg, None, factor_capacity, False
+    num_buckets = _num_buckets(cfg, num_shards)
+    if cfg.dispatcher == "round_robin":
+        assign = dispatch.round_robin_assignment(num_buckets, num_shards)
+        return cfg, torch.from_numpy(assign).to(codes.device), factor_capacity, False
+    totals, local = _bucket_sizes(codes, valid, cfg, num_shards, group)
+    assign = dispatch.balanced_assignment(totals, num_shards)
+    onehot = np.zeros((num_buckets, num_shards), dtype=np.int64)
+    onehot[np.arange(num_buckets), assign] = 1
+    # With the combiner on, entries are distinct keys, at most these raw
+    # counts: still an upper bound.
+    capacity = max(int((local @ onehot).max()), 64)
+    return cfg, torch.from_numpy(assign).to(codes.device), capacity, True
+
+
+def _step_body(cfg: KmerConfig, assign):
+    if cfg.routing == "range":
+        return _shard_body_range_combiner if cfg.combiner else _shard_body_range
+    return functools.partial(_shard_body_bucketed, assign=assign)
+
+
+def _heavy_pending(cfg: KmerConfig) -> bool:
+    """Whether the classifier reads a pass's totals: the range route
+    without the combiner (never in extension mode, which has none)."""
+    return (cfg.routing == "range" and not cfg.combiner
+            and cfg.classifier == "heavy_hitter" and not cfg.extension)
+
+
+def _run_passes(codes, valid, plan, num_shards: int, group, classify: bool = False):
     """One route's passes with the overflow protocol: the capacity doubles
-    after a pass that overflowed, up to _ATTEMPTS passes. With `classify`,
-    a heavy destination in a pass's totals returns None (the caller re-runs
-    through the combiner) before its overflow flag is read, as the JAX
-    counting loops do. Returns (words, cnt, keep)."""
-    cfg, capacity, measured = plan_sharded_step(cfg, num_shards, n_local)
-    body = _shard_body_range_combiner if cfg.combiner else _shard_body_range
+    after a pass that overflowed, up to _ATTEMPTS passes; an overflow under
+    a measured capacity is an error. With `classify`, a heavy destination
+    in a pass's totals returns None (the caller re-runs through the
+    combiner) before its overflow flag is read, as the JAX counting loops
+    do. Returns ((words, cnt, keep) or None, the plan with the capacity
+    that last ran)."""
+    cfg, assign, capacity, measured = plan
+    body = _step_body(cfg, assign)
     for _ in range(_ATTEMPTS):
         words, cnt, keep, totals, overflow = body(
             codes, valid, cfg=cfg, num_shards=num_shards, capacity=capacity,
@@ -243,26 +426,28 @@ def _run_passes(codes, valid, cfg: KmerConfig, num_shards: int, n_local: int,
         )
         if classify and (
                 dispatch.classify(totals, cfg.heavy_ratio) == dispatch.HEAVY).any():
-            return None
+            return None, (cfg, assign, capacity, measured)
         if not overflow:
-            return words, cnt, keep
+            return (words, cnt, keep), (cfg, assign, capacity, measured)
         if measured:
             raise RuntimeError("overflow under exactly-measured capacity")
         capacity *= 2
     raise RuntimeError("exchange capacity overflow after retries")
 
 
+def _with_combiner(plan):
+    return (dataclasses.replace(plan[0], combiner=True),) + tuple(plan[1:])
+
+
 def _count_step(codes, valid, cfg: KmerConfig, n_local: int, group):
-    """The default route, then the combiner if the classifier flags a heavy
+    """The step's route, then the combiner if the classifier flags a heavy
     destination (or at once under cfg.combiner)."""
     num_shards = dist.get_world_size(group)
-    result = None
-    if not cfg.combiner:
-        result = _run_passes(codes, valid, cfg, num_shards, n_local, group,
-                             classify=cfg.classifier == "heavy_hitter")
+    plan = plan_sharded_step(codes, valid, cfg, num_shards, n_local, group)
+    result, plan = _run_passes(codes, valid, plan, num_shards, group,
+                               classify=_heavy_pending(cfg))
     if result is None:
-        result = _run_passes(codes, valid, dataclasses.replace(cfg, combiner=True),
-                             num_shards, n_local, group, classify=False)
+        result, _ = _run_passes(codes, valid, _with_combiner(plan), num_shards, group)
     return result
 
 
@@ -283,14 +468,19 @@ def _all_gather_rows(rows: torch.Tensor, group) -> list[torch.Tensor]:
     return [p[:m].cpu() for p, m in zip(parts, sizes)]
 
 
-def _gather_result(words, cnt, keep, cfg: KmerConfig, group):
-    """The rank's kept rows, unmixed on the host, then every rank's list in
-    rank order, and the histogram of the whole list."""
+def _rank_rows(keys_dev, mixed: bool) -> np.ndarray:
+    """(m, W) int32 key rows on the device -> (m, W) uint32 host keys,
+    unmixed where they are in the mixed key space (range routing)."""
+    keys = keys_dev.cpu().numpy().view(np.uint32)
+    return mixkey.unmix_keys_np(keys) if mixed else keys
+
+
+def _gather_result(words, cnt, keep, cfg: KmerConfig, group, mixed: bool):
+    """The rank's kept rows (unmixed on the host where `mixed`), then every
+    rank's list in rank order, and the histogram of the whole list."""
     dev = words[0].device
     idx = torch.nonzero(keep).squeeze(1)
-    keys = mixkey.unmix_keys_np(
-        torch.stack([w[idx] for w in words], dim=-1).cpu().numpy().view(np.uint32)
-    )
+    keys = _rank_rows(torch.stack([w[idx] for w in words], dim=-1), mixed)
     rows = np.concatenate(
         [keys.view(np.int32), cnt[idx].cpu().numpy()[:, None]], axis=1
     )
@@ -306,10 +496,8 @@ def _gather_result(words, cnt, keep, cfg: KmerConfig, group):
 
 
 def _check_ported(cfg: KmerConfig) -> None:
-    if cfg.routing != "range":
-        raise NotImplementedError(f"routing={cfg.routing!r} across ranks {UNPORTED}")
-    if cfg.extension:
-        raise NotImplementedError(f"extension mode across ranks {UNPORTED}")
+    if cfg.routing == "supermer":
+        raise NotImplementedError("routing='supermer' across ranks is not ported yet")
 
 
 def count_flat_sharded(
@@ -333,7 +521,7 @@ def count_flat_sharded(
     codes_d = torch.from_numpy(np.asarray(codes[mine], dtype=np.int8)).to(dev)
     valid_d = torch.from_numpy(np.asarray(valid[mine], dtype=bool)).to(dev)
     words, cnt, keep = _count_step(codes_d, valid_d, cfg, n_local, group)
-    return _gather_result(words, cnt, keep, cfg, group)
+    return _gather_result(words, cnt, keep, cfg, group, cfg.routing == "range")
 
 
 def _partition_bounds(lengths: np.ndarray, num_shards: int) -> list[int]:
@@ -447,6 +635,20 @@ def distribute_reads_packed(
     return packed.reshape(-1), lens2d, block_len, rid_base
 
 
+def _rank_wire(codes: np.ndarray, lengths: np.ndarray, cfg: KmerConfig, group,
+               dev, min_dims: tuple[int, int] = (0, 1)):
+    """This rank's block of the partition in wire format, on the device:
+    (packed words, read lengths, block_len, index of its first read). Every
+    rank computes the same partition and dims (min_dims pins them from
+    below, as the JAX streaming callers do) and packs only its own block."""
+    shards = _shard_reads(codes, lengths, dist.get_world_size(group))
+    block_len, lmax = _wire_dims(shards, cfg, *min_dims)
+    mine, lens, first = shards[dist.get_rank(group)]
+    packed, lens = _pack_shard(mine, lens, block_len, lmax)
+    return (torch.from_numpy(packed.view(np.int32)).to(dev),
+            torch.from_numpy(lens).to(dev), block_len, first)
+
+
 def count_reads_sharded(
     codes: np.ndarray,
     lengths: np.ndarray,
@@ -459,16 +661,310 @@ def count_reads_sharded(
     same partition and wire dims, packs and uploads only its own block
     (~2 bits/base + 4 B/read, ops/wire.py), runs the step, and returns the
     whole (KmerList, histogram). `device` as in group.rank_device: the
-    rank's CUDA device unless the caller asks for the CPU."""
+    rank's CUDA device unless the caller asks for the CPU.
+
+    Every routing takes the wire here; the JAX package feeds the routes
+    other than range (and the combiner) flat blocks (distribute_reads ->
+    count_flat_sharded), which gives the same result."""
     _check_ported(cfg)
     dev = group_mod.rank_device(device)
-    shards = _shard_reads(codes, lengths, dist.get_world_size(group))
-    block_len, lmax = _wire_dims(shards, cfg)
-    mine, lens, _ = shards[dist.get_rank(group)]
-    packed, lens = _pack_shard(mine, lens, block_len, lmax)
-    codes_d, valid_d = wire.decode_block(
-        torch.from_numpy(packed.view(np.int32)).to(dev),
-        torch.from_numpy(lens).to(dev), cfg.k, block_len,
-    )
+    packed, lens, block_len, _ = _rank_wire(codes, lengths, cfg, group, dev)
+    codes_d, valid_d = wire.decode_block(packed, lens, cfg.k, block_len)
+    del packed, lens
     words, cnt, keep = _count_step(codes_d, valid_d, cfg, block_len, group)
-    return _gather_result(words, cnt, keep, cfg, group)
+    return _gather_result(words, cnt, keep, cfg, group, cfg.routing == "range")
+
+
+# --------------------------------------------------------------------------
+# Sharded streaming: bounded device memory at any input size. Device batches
+# stream through the step with an UNFILTERED count (every distinct key
+# survives, the per-batch combiner idea of ScatteredKmerList,
+# src/kmerops.cpp:363-417); each rank keeps its compacted partial (key,
+# count) lists in host memory, and a final pass merges them per rank with
+# no exchange: the routing is fixed for the stream, so a key's owner never
+# moves (the reference's bounded round loop, src/kmerops.cpp:906-1007).
+
+
+def _merge_partials(parts, cfg: KmerConfig, dev):
+    """A rank's R partial lists (each ascending, from sorted batch output)
+    -> (words, total, keep): one merge of the R runs at their exact bounds
+    (ops/merge.merge_runs_at), the weighted run-length sum of the partial
+    counts, the [L, U] filter on the totals."""
+    w = cfg.words
+    rows = [torch.cat([p[0][i] for p in parts]).to(dev) for i in range(w)]
+    rows.append(torch.cat([p[1] for p in parts]).to(dev))
+    bounds = np.cumsum([0] + [p[1].shape[0] for p in parts])
+    if bounds[-1]:
+        rows = merge_ops.merge_runs_at(rows, w, bounds)
+    head, total = run_length_sum.run_length_sum_fused(rows[:w], rows[w])
+    return rows[:w], total, count_ops.frequency_filter(head, total, cfg.lower, cfg.upper)
+
+
+def count_reads_sharded_streaming(
+    codes: np.ndarray,
+    lengths: np.ndarray,
+    cfg: KmerConfig,
+    batch_bases: int = 1 << 26,
+    group=None,
+    device="cuda",
+    async_depth=None,
+) -> tuple[KmerList, np.ndarray]:
+    """Bounded-memory counting across the ranks of `group`: peak device
+    memory is set by batch_bases (plus a rank's merged partials at the
+    end), not by the input size. Equal to count_reads_sharded.
+
+    Every rank cuts the same batches (runtime/scheduler.read_batch_spans
+    on the global lengths), so every rank runs the same passes and
+    collectives, with or without reads of its own in a batch. The route is
+    planned on batch 0 and kept for the stream: the minimizer assignment,
+    and the combiner if the classifier flags batch 0's totals; a later
+    batch that overflows (a skew batch 0 did not show, or a measured
+    capacity outgrown) re-runs on every rank at twice the capacity, which
+    later batches keep.
+
+    async_depth is accepted for parity with the JAX signature: there it is
+    the number of batches in flight on the asynchronous dispatch. Here
+    each batch settles, first in first out, before the next starts (the
+    exchange reads its overflow flag on the host), so it changes nothing.
+    """
+    if cfg.extension:
+        raise ValueError("use count_reads_sharded_ext_streaming for extension mode")
+    if async_depth is not None and async_depth < 1:
+        raise ValueError(f"async_depth must be at least 1, got {async_depth}")
+    _check_ported(cfg)
+    dev = group_mod.rank_device(device)
+    num_shards = dist.get_world_size(group)
+    cfg_pre = dataclasses.replace(cfg, unfiltered=True)
+    plan = None
+    parts = []
+    for b_codes, b_lengths in iter_read_batches(codes, lengths, batch_bases):
+        packed, lens, block_len, _ = _rank_wire(b_codes, b_lengths, cfg, group, dev)
+        codes_d, valid_d = wire.decode_block(packed, lens, cfg.k, block_len)
+        del packed, lens
+        classify = False
+        if plan is None:
+            plan = plan_sharded_step(codes_d, valid_d, cfg_pre, num_shards,
+                                     block_len, group)
+            # A measured capacity is exact for batch 0 only: later batches
+            # double it on an overflow, as the JAX stream does.
+            plan = plan[:3] + (False,)
+            classify = _heavy_pending(cfg_pre)
+        result, plan = _run_passes(codes_d, valid_d, plan, num_shards, group,
+                                   classify)
+        if result is None:
+            plan = _with_combiner(plan)
+            result, plan = _run_passes(codes_d, valid_d, plan, num_shards, group)
+        words, cnt, keep = result
+        idx = torch.nonzero(keep).squeeze(1)
+        parts.append(([w[idx].cpu() for w in words], cnt[idx].cpu()))
+        del codes_d, valid_d, words, cnt, keep, result, idx
+    if plan is None:  # no reads: every rank saw no batch
+        return (KmerList(np.zeros((0, cfg.words), np.uint32), np.zeros(0, np.int32),
+                         cfg.k), np.zeros(cfg.upper + 1, np.int32))
+    words, total, keep = _merge_partials(parts, cfg, dev)
+    return _gather_result(words, total, keep, cfg, group, plan[0].routing == "range")
+
+
+# --------------------------------------------------------------------------
+# Extension mode: (ReadId, PosInRead) through the exchange, the reference's
+# EXTENSION wire format (include/kmer.hpp:346-360). There is no combiner in
+# extension mode, as in the reference (src/kmerops.cpp:109-113).
+
+
+def _shard_body_ext_range(codes, valid, rid, pos, *, cfg: KmerConfig,
+                          num_shards: int, capacity: int, group=None):
+    """Extension range program: rid and pos ride the local sort, the
+    exchange and the merge as payload rows. Extension mode keeps the
+    power-of-two capacity of range_capacity. Returns (words, cnt, keep,
+    rid, pos, dest_totals, overflow); the first five are None on an
+    overflow."""
+    if capacity & (capacity - 1):
+        raise ValueError(f"extension range exchange needs a power-of-two "
+                         f"capacity, got {capacity}")
+    mixed_s, payl_s = radix_sort.sort_words(
+        _build_marked_mixed(codes, valid, cfg), [rid, pos])
+    merged_w, merged_p, totals, overflow = _range_exchange_merge(
+        mixed_s, payl_s, valid.sum(), cfg, num_shards, capacity, group
+    )
+    if overflow:
+        return None, None, None, None, None, totals, True
+    del mixed_s, payl_s
+    cnt, keep = _count_merged(merged_w, cfg)
+    return merged_w, cnt, keep, merged_p[0], merged_p[1], totals, False
+
+
+def _shard_body_ext_bucketed(codes, valid, rid, pos, *, cfg: KmerConfig,
+                             num_shards: int, capacity: int, group=None):
+    """Extension under the bucketed routings: the kmer_hash destination,
+    which the JAX package uses for every bucketed routing in extension
+    mode. Returns as _shard_body_ext_range."""
+    words = keybuild.canonical_keys_fused(codes, valid, cfg.k)
+    rows, totals, overflow = _bucketed_exchange(
+        valid, _hash_destinations(words, num_shards), words, [rid, pos],
+        num_shards, capacity, group)
+    del words
+    if overflow:
+        return None, None, None, None, None, totals, True
+    words_s, (rid_s, pos_s) = radix_sort.sort_words(rows[:cfg.words],
+                                                   rows[cfg.words:])
+    del rows
+    cnt, keep = _count_merged(words_s, cfg)
+    return words_s, cnt, keep, rid_s, pos_s, totals, False
+
+
+def build_ext_blocks(
+    codes: np.ndarray,
+    lengths: np.ndarray,
+    cfg: KmerConfig,
+    num_shards: int,
+    read_id_offset: int = 0,
+    min_block_len: int = 0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
+    """Per-shard equal-size (codes, valid, rid, pos) blocks for extension
+    mode: (S, block_len) int8, bool, int32, uint32, and block_len."""
+    blocks = [
+        fasta_io.flatten_for_device_ext(c, l, cfg.k, cfg.pad_multiple,
+                                        read_id_offset + first)
+        for c, l, first in _shard_reads(codes, lengths, num_shards)
+    ]
+    block_len = max(max(b[0].shape[0] for b in blocks), min_block_len)
+    sc = np.zeros((num_shards, block_len), dtype=np.int8)
+    sv = np.zeros((num_shards, block_len), dtype=bool)
+    sr = np.zeros((num_shards, block_len), dtype=np.int32)
+    sp = np.zeros((num_shards, block_len), dtype=np.uint32)
+    for s, (c, v, r, p) in enumerate(blocks):
+        sc[s, : c.shape[0]] = c
+        sv[s, : v.shape[0]] = v
+        sr[s, : r.shape[0]] = r
+        sp[s, : p.shape[0]] = p
+    return sc, sv, sr, sp, block_len
+
+
+def batch_spans(lengths: np.ndarray, batch_bases: int) -> list[tuple[int, int]]:
+    """Read-index spans of the streaming batches: THE batching rule
+    (runtime/scheduler.read_batch_spans)."""
+    return read_batch_spans(lengths, batch_bases)
+
+
+def ext_stream_dims(
+    lengths: np.ndarray, batch_bases: int, cfg: KmerConfig, num_shards: int
+) -> tuple[int, int]:
+    """Exact (block_len, lmax) upper bounds of the wire blocks over every
+    streaming batch, from the lengths alone; the stream pins its blocks to
+    them from below (the JAX stream compiles once so)."""
+    gran = int(np.lcm(16, cfg.pad_multiple))
+    max_raw, max_lmax = gran, 1
+    lengths = np.asarray(lengths)
+    for s, e in batch_spans(lengths, batch_bases):
+        l = lengths[s:e]
+        csum = np.concatenate([[0], np.cumsum(l, dtype=np.int64)])
+        b = _partition_bounds(l, num_shards)
+        for lo, hi in zip(b[:-1], b[1:]):
+            if hi > lo:
+                max_raw = max(max_raw, int(csum[hi] - csum[lo]) + 16)
+                max_lmax = max(max_lmax, hi - lo)
+    return -(-max_raw // gran) * gran, max_lmax
+
+
+def _gather_ext_result(words, cnt, keep, rid_s, pos_s, cfg: KmerConfig, group,
+                       mixed: bool):
+    """The rank's kept keys (unmixed on the host where `mixed`) and counts,
+    and their occurrences gathered on the device; then every rank's rows
+    in rank order, as flat int32 (key words, count) and (rid, pos) rows,
+    assembled into one KmerListExt."""
+    dev = keep.device
+    starts, counts, rid, pos = kept_occurrences(cnt, keep, rid_s, pos_s)
+    keys = _rank_rows(torch.stack([w[starts] for w in words], dim=-1), mixed)
+    rows = np.concatenate(
+        [keys.view(np.int32), counts.to(torch.int32).cpu().numpy()[:, None]], axis=1)
+    occ = torch.stack([rid, pos], dim=1)
+    del starts, counts, rid, pos
+    cdev = group_mod.collective_device(dev, group)
+    every = torch.cat(_all_gather_rows(torch.from_numpy(rows).to(cdev), group)).numpy()
+    occ = torch.cat(_all_gather_rows(occ.to(cdev), group)).numpy()
+    counts = np.ascontiguousarray(every[:, -1])
+    out_starts = np.zeros(counts.size, dtype=np.int64)
+    np.cumsum(counts[:-1], out=out_starts[1:])
+    pos_runs, rid_runs = split_occurrences(
+        out_starts, counts, np.ascontiguousarray(occ[:, 1]).view(np.uint32),
+        np.ascontiguousarray(occ[:, 0]))
+    result = KmerListExt(
+        keys=np.ascontiguousarray(every[:, :-1]).view(np.uint32),
+        counts=counts, k=cfg.k, pos=pos_runs, rid=rid_runs,
+    )
+    return result, host_histogram(result.counts, cfg.upper)
+
+
+def count_reads_sharded_ext(
+    codes: np.ndarray,
+    lengths: np.ndarray,
+    cfg: KmerConfig,
+    group=None,
+    device="cuda",
+    read_id_offset: int = 0,
+    min_dims: tuple[int, int] = (0, 1),
+) -> tuple[KmerListExt, np.ndarray]:
+    """Extension mode across the ranks of `group`: every k-mer's (read id,
+    position) occurrences; read ids count from read_id_offset. Under range
+    routing the feed is the 2-bit wire and (rid, pos) are derived on the
+    device from the read lengths (ops/wire.decode_block_ext); the bucketed
+    routings take flat blocks (build_ext_blocks), as in the JAX package.
+    min_dims pins (block_len, lmax) from below (the streaming caller's
+    ext_stream_dims). Every rank returns the whole (KmerListExt,
+    histogram)."""
+    _check_ported(cfg)
+    dev = group_mod.rank_device(device)
+    num_shards = dist.get_world_size(group)
+    if cfg.routing == "range":
+        packed, lens, block_len, first = _rank_wire(codes, lengths, cfg, group,
+                                                    dev, min_dims)
+        inputs = wire.decode_block_ext(packed, lens, cfg.k, block_len,
+                                       read_id_offset + first)
+        del packed, lens
+        body = _shard_body_ext_range
+        capacity = _next_pow2(_factor_capacity(block_len, num_shards, cfg))
+    else:
+        sc, sv, sr, sp, block_len = build_ext_blocks(
+            codes, lengths, cfg, num_shards, read_id_offset, min_block_len=min_dims[0])
+        r = dist.get_rank(group)
+        inputs = tuple(torch.from_numpy(a[r]).to(dev)
+                       for a in (sc, sv, sr, sp.view(np.int32)))
+        del sc, sv, sr, sp
+        body = _shard_body_ext_bucketed
+        capacity = _factor_capacity(block_len, num_shards, cfg)
+    (words, cnt, keep, rid_s, pos_s, _), _ = run_with_capacity_retry(
+        lambda cap: body(*inputs, cfg=cfg, num_shards=num_shards, capacity=cap,
+                         group=group),
+        capacity, False,
+    )
+    del inputs
+    return _gather_ext_result(words, cnt, keep, rid_s, pos_s, cfg, group,
+                              cfg.routing == "range")
+
+
+def count_reads_sharded_ext_streaming(
+    codes: np.ndarray,
+    lengths: np.ndarray,
+    cfg: KmerConfig,
+    batch_bases: int = 1 << 26,
+    group=None,
+    device="cuda",
+    read_id_offset: int = 0,
+) -> tuple[KmerListExt, np.ndarray]:
+    """Bounded-memory extension mode across the ranks: each batch runs the
+    sharded extension pass UNFILTERED, and the per-batch (key, count,
+    occurrences) partials merge on the host ([L, U] applies to the merged
+    totals only): the reference's bounded round loop, where nothing in the
+    exchange is EXT-conditional (src/kmerops.cpp:906-1007)."""
+    cfg_pre = dataclasses.replace(cfg, unfiltered=True)
+    min_dims = ext_stream_dims(lengths, batch_bases, cfg,
+                               dist.get_world_size(group))
+    partials = []
+    rid_off = read_id_offset
+    for b_codes, b_lengths in iter_read_batches(codes, lengths, batch_bases):
+        kl, _ = count_reads_sharded_ext(b_codes, b_lengths, cfg_pre, group, device,
+                                        rid_off, min_dims)
+        partials.append(kl)
+        rid_off += b_lengths.size
+    merged = merge_ext_partials(partials, cfg.lower, cfg.upper, cfg.k, cfg.words)
+    return merged, host_histogram(merged.counts, cfg.upper)

@@ -301,12 +301,10 @@ def split_occurrences(
     ]
 
 
-def assemble_ext_result(words, cnt, keep, rid_s, pos_s, cfg: KmerConfig) -> KmerListExt:
-    """Assembly of the extension step's device outputs: the kept keys and
-    counts, and the sorted payload streams cut into per-kmer occurrence
-    lists. The occurrences of the kept runs are gathered on the device and
-    only those cross to the host (the JAX package copies both whole streams
-    and slices them there); the ragged lists are host views of them."""
+def kept_occurrences(cnt, keep, rid_s, pos_s):
+    """The kept runs of the extension step's sorted outputs, gathered on the
+    device: (starts, counts int64, rid, pos), the occurrences of the kept
+    runs laid end to end in run order."""
     starts = torch.nonzero(keep).squeeze(1)
     counts = cnt[starts].to(torch.int64)
     ends = torch.cumsum(counts, 0)
@@ -316,13 +314,21 @@ def assemble_ext_result(words, cnt, keep, rid_s, pos_s, cfg: KmerConfig) -> Kmer
     slot = torch.arange(total, device=keep.device) + torch.repeat_interleave(
         starts - (ends - counts), counts, output_size=total
     )
+    return starts, counts, rid_s[slot], pos_s[slot]
+
+
+def assemble_ext_result(words, cnt, keep, rid_s, pos_s, cfg: KmerConfig) -> KmerListExt:
+    """Assembly of the extension step's device outputs: the kept keys and
+    counts, and the sorted payload streams cut into per-kmer occurrence
+    lists. The occurrences of the kept runs are gathered on the device and
+    only those cross to the host (the JAX package copies both whole streams
+    and slices them there); the ragged lists are host views of them."""
+    starts, counts, rid, pos = kept_occurrences(cnt, keep, rid_s, pos_s)
     counts_np = counts.cpu().numpy()
     out_starts = np.zeros(counts_np.size, dtype=np.int64)
     np.cumsum(counts_np[:-1], out=out_starts[1:])
     pos_runs, rid_runs = split_occurrences(
-        out_starts, counts_np,
-        pos_s[slot].cpu().numpy().view(np.uint32),
-        rid_s[slot].cpu().numpy(),
+        out_starts, counts_np, pos.cpu().numpy().view(np.uint32), rid.cpu().numpy(),
     )
     keys = torch.stack([w[starts] for w in words], dim=-1)
     return KmerListExt(

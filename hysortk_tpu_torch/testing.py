@@ -698,12 +698,18 @@ def mix_case_words(kind: str, n_words: int, n: int, seed: int) -> np.ndarray:
 # package).
 
 
-def _pass_counters(stack, pipeline_mod) -> dict:
-    """Count the passes of both range bodies (the overflow retry and the
-    combiner re-run show in them)."""
+COUNTED = ("_shard_body_range", "_shard_body_range_combiner", "_shard_body_bucketed",
+           "_shard_body_ext_range", "_shard_body_ext_bucketed", "count_reads_sharded",
+           "count_reads_sharded_ext", "count_reads_sharded_streaming")
+
+
+def call_counters(stack, pipeline_mod) -> dict:
+    """Count the calls of the step bodies (the overflow retry and the
+    combiner re-run show in them) and of the sharded entries (the facade's
+    choice shows in them)."""
     from unittest import mock
 
-    calls = {"_shard_body_range": 0, "_shard_body_range_combiner": 0}
+    calls = dict.fromkeys(COUNTED, 0)
     for name in calls:
         real = getattr(pipeline_mod, name)
 
@@ -715,17 +721,55 @@ def _pass_counters(stack, pipeline_mod) -> dict:
     return calls
 
 
+def _run_count_job(kind: str, data, cfg, job: dict):
+    """One counting job of run_rank_jobs: (list, histogram)."""
+    from .parallel import pipeline as sharded
+
+    device = job["device"]
+    if kind == "count_flat_sharded":
+        return sharded.count_flat_sharded(data["codes"], data["valid"], cfg,
+                                          device=device)
+    codes, lengths = data["codes"], data["lengths"]
+    if kind == "count_reads_sharded":
+        return sharded.count_reads_sharded(codes, lengths, cfg, device=device)
+    if kind == "kmer_count":
+        from . import kmer_count
+
+        return kmer_count(codes, lengths, cfg, device=device)
+    if kind == "count_reads_sharded_streaming":
+        return sharded.count_reads_sharded_streaming(
+            codes, lengths, cfg, job["batch_bases"], device=device,
+            async_depth=job.get("async_depth"))
+    if kind == "count_reads_sharded_ext":
+        return sharded.count_reads_sharded_ext(
+            codes, lengths, cfg, device=device,
+            read_id_offset=job.get("read_id_offset", 0))
+    if kind == "count_reads_sharded_ext_streaming":
+        return sharded.count_reads_sharded_ext_streaming(
+            codes, lengths, cfg, job["batch_bases"], device=device,
+            read_id_offset=job.get("read_id_offset", 0))
+    raise ValueError(f"unknown job kind {kind!r}")
+
+
 def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
     """Run `jobs` in order on this rank. A job is a dict with `name`,
     `kind` and `inputs` (an .npz path), and per kind:
 
-      count_reads_sharded  cfg (KmerConfig fields), device, optional
-                           capacity (every pass starts from it)
-      count_flat_sharded   cfg, device
-      kmer_count           cfg, device (the facade)
+      count_reads_sharded, count_flat_sharded (inputs: codes, valid),
+      kmer_count (the facade), count_reads_sharded_streaming,
+      count_reads_sharded_ext, count_reads_sharded_ext_streaming
+                           cfg (KmerConfig fields), device; batch_bases for
+                           the streaming kinds, optional async_depth and
+                           read_id_offset; optional capacity (every range
+                           route starts from it) and headroom (the device
+                           memory headroom the facade sees, in bytes)
       exchange             (inputs: send_<rank>, counts_<rank>)
       cli                  argv (run under WORLD_SIZE / RANK / LOCAL_RANK of
                            the spawned group, output to <name>.<rank>.txt)
+
+    A counting job writes keys, counts, hist and each counted function's
+    calls; an extension-mode list also every k-mer's occurrences end to end
+    (occ_rid, occ_pos).
     """
     import contextlib
     import io
@@ -737,6 +781,8 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
     from .config import KmerConfig
     from .parallel import exchange
     from .parallel import pipeline as sharded
+    from .pipeline import KmerListExt
+    from .runtime import memcheck
 
     for job in jobs:
         data = np.load(job["inputs"])
@@ -762,26 +808,22 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
         else:
             cfg = KmerConfig(**job["cfg"])
             with contextlib.ExitStack() as stack:
-                passes = _pass_counters(stack, sharded)
-                if job.get("capacity"):  # every route starts from it
+                calls = call_counters(stack, sharded)
+                if job.get("capacity"):  # every range route starts from it
                     stack.enter_context(mock.patch.object(
                         sharded, "range_capacity",
                         lambda n_local, num_shards, cfg, c=job["capacity"]: c))
-                if kind == "count_reads_sharded":
-                    kl, hist = sharded.count_reads_sharded(
-                        data["codes"], data["lengths"], cfg, device=job["device"])
-                elif kind == "count_flat_sharded":
-                    kl, hist = sharded.count_flat_sharded(
-                        data["codes"], data["valid"], cfg, device=job["device"])
-                elif kind == "kmer_count":
-                    from . import kmer_count
-
-                    kl, hist = kmer_count(data["codes"], data["lengths"], cfg,
-                                          device=job["device"])
-                else:
-                    raise ValueError(f"unknown job kind {kind!r}")
+                if job.get("headroom"):
+                    stack.enter_context(mock.patch.object(
+                        memcheck, "hbm_headroom_bytes",
+                        lambda device, safety=0.9, h=job["headroom"]: h))
+                kl, hist = _run_count_job(kind, data, cfg, job)
             out = dict(keys=kl.keys, counts=kl.counts, hist=hist,
-                       passes=np.int64(passes["_shard_body_range"]),
-                       combiner_passes=np.int64(passes["_shard_body_range_combiner"]))
+                       passes=np.int64(calls["_shard_body_range"]),
+                       combiner_passes=np.int64(calls["_shard_body_range_combiner"]),
+                       calls=np.array([calls[n] for n in COUNTED], dtype=np.int64))
+            if isinstance(kl, KmerListExt):
+                empty = np.zeros(0, np.int32)
+                out.update(occ_rid=np.concatenate([empty, *kl.rid]),
+                           occ_pos=np.concatenate([empty.view(np.uint32), *kl.pos]))
         np.savez(path + ".npz", **out)
-

@@ -82,13 +82,15 @@ def test_cli_matches_jax_cli(fasta, tmp_path, capsys, k, stream):
 ])
 def test_unported_paths_exit_nonzero(fasta, tmp_path, capsys, monkeypatch, flags):
     """Flags of paths that are not ported end the run with an error.
-    --combiner and --classifier are ported (they steer the sharded path):
-    on one device they change nothing, and the output file and histogram
-    are those of the run without them. --extension is ported: one-shot it
+    --combiner, --classifier, --routing minimizer and --dispatcher
+    round_robin are ported (they steer the sharded path): on one device
+    they change nothing, and the output file and histogram are those of the
+    run without them. --extension is ported: one-shot it
     goes through count_reads_ext, with --stream-batch-bases through
     count_reads_streaming_ext, and the output and the validated counts are
     those of the run without it."""
-    if flags[0] in ("--combiner", "--classifier"):
+    if flags[0] in ("--combiner", "--classifier") or flags in (
+            ["--routing", "minimizer"], ["--dispatcher", "round_robin"]):
         outs = []
         for extra in ([], flags):
             out_dir = tmp_path / ("with" if extra else "without")
@@ -182,12 +184,17 @@ def test_cuda_device_is_the_default_and_raises_without_a_card(fasta):
         cli.main([fasta[0], *BOUNDS])
 
 
-@pytest.mark.parametrize("flags", [[], ["--combiner"]], ids=["default", "combiner"])
+@pytest.mark.parametrize("flags", [
+    [], ["--combiner"], ["--extension"], ["--stream-batch-bases", "700"],
+    ["--extension", "--stream-batch-bases", "700"], ["--routing", "minimizer"],
+], ids=["default", "combiner", "extension", "stream", "extension_stream", "minimizer"])
 def test_cli_across_two_ranks_matches_jax_cli(fasta, tmp_path, capsys, flags):
     """The port's CLI on 2 gloo ranks (WORLD_SIZE=2, as torchrun sets it)
-    against the JAX CLI's multi-device run over the 8 virtual devices: rank
-    0 writes the one output file, whose lines equal the JAX file's sorted,
-    and prints the histogram, equal to the JAX CLI's; rank 1 prints neither.
+    against the JAX CLI's multi-device run over the 8 virtual devices, with
+    the same flags (extension mode, sharded streaming, both, a routing):
+    rank 0 writes the one output file, whose lines equal the JAX file's
+    sorted, and prints the histogram, equal to the JAX CLI's; rank 1 prints
+    neither.
     """
     path, reads = fasta
     args = [path, "-k", "31", "-m", "17", *BOUNDS]
@@ -206,7 +213,7 @@ def test_cli_across_two_ranks_matches_jax_cli(fasta, tmp_path, capsys, flags):
         assert "#count" not in f.read()
     assert "2 ranks" in ours
     assert sorted(os.listdir(out_dir)) == ["0.out"]
-    assert jcli.main(args[:1] + [str(tmp_path / "jax")] + args[1:]) == 0
+    assert jcli.main(args[:1] + [str(tmp_path / "jax")] + args[1:] + flags) == 0
     theirs = capsys.readouterr().out
     lines = sorted(_read(out_dir / "0.out").splitlines())
     assert lines and lines == sorted(_read(tmp_path / "jax" / "0.out").splitlines())
@@ -216,9 +223,9 @@ def test_cli_across_two_ranks_matches_jax_cli(fasta, tmp_path, capsys, flags):
 
 
 def test_cli_across_ranks_refuses_unported_modes(tmp_path, fasta, monkeypatch, capsys):
-    """Streaming and extension mode across ranks are not ported: the CLI
-    under WORLD_SIZE > 1 exits 2 before it joins a group."""
+    """The supermer routing and the JAX multi-process flags are not ported:
+    the CLI under WORLD_SIZE > 1 exits 2 before it joins a group."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    for flags in (["--extension"], ["--stream-batch-bases", "700"]):
+    for flags in (["--routing", "supermer"], ["--coordinator", "localhost:1234"]):
         assert cli.main([fasta[0], "--device", "cpu", *flags]) == 2
         assert "not ported yet" in capsys.readouterr().err

@@ -197,39 +197,46 @@ def test_partition_matches_jax_on_ragged_lengths(seed):
 
 
 def test_unported_routes_raise():
-    """Other routings, extension mode across ranks and the facade's
-    sharded streaming name the slice that brings them; none runs one-shot
-    quietly."""
+    """routing="supermer" is the one route across ranks that is not ported:
+    both entries say so before they touch a process group; none runs
+    another route quietly."""
     codes, lengths = jfasta.reads_to_codes(_reads("random"))
-    for fields in (dict(routing="minimizer"), dict(routing="kmer_hash"),
-                   dict(routing="supermer"), dict(extension=True)):
-        cfg = KmerConfig(**dict(BASE, **fields))
-        with pytest.raises(NotImplementedError, match="slice C"):
-            sharded.count_reads_sharded(codes, lengths, cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="slice C"):
-            sharded.count_flat_sharded(codes, codes, cfg, device="cpu")
+    cfg = KmerConfig(**dict(BASE, routing="supermer"))
+    with pytest.raises(NotImplementedError, match="supermer.*not ported yet"):
+        sharded.count_reads_sharded(codes, lengths, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="supermer.*not ported yet"):
+        sharded.count_flat_sharded(codes, codes, cfg, device="cpu")
 
 
 def test_facade_inside_a_group_routes_to_the_sharded_path(monkeypatch):
-    """kmer_count inside a group of more than one rank counts sharded;
-    extension mode and a share over the headroom raise there."""
+    """kmer_count inside a group of more than one rank counts sharded:
+    extension mode by count_reads_sharded_ext, a share over the headroom by
+    count_reads_sharded_streaming in batches of suggest_batch_bases x the
+    rank count, else count_reads_sharded."""
     import hysortk_tpu_torch as ht
     from hysortk_tpu_torch.runtime import memcheck
+    from hysortk_tpu_torch.runtime import scheduler
 
     calls = []
     monkeypatch.setattr(ht._dist, "is_initialized", lambda: True)
     monkeypatch.setattr(ht._dist, "get_world_size", lambda group=None: 2)
-    monkeypatch.setattr(sharded, "count_reads_sharded",
-                        lambda *a, **k: calls.append((a, k)) or "sharded")
+    for entry in ("count_reads_sharded", "count_reads_sharded_ext",
+                  "count_reads_sharded_streaming"):
+        monkeypatch.setattr(sharded, entry,
+                            lambda *a, _e=entry, **k: calls.append((_e, a, k)) or _e)
     codes, lengths = jfasta.reads_to_codes(_reads("random"))
-    assert ht.kmer_count(codes, lengths, KmerConfig(**BASE), device="cpu") == "sharded"
-    assert calls and calls[0][1]["device"] == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="extension mode across ranks"):
-        ht.kmer_count(codes, lengths, KmerConfig(**dict(BASE, extension=True)),
-                      device="cpu")
+    assert ht.kmer_count(codes, lengths, KmerConfig(**BASE), device="cpu") == \
+        "count_reads_sharded"
+    assert calls[-1][2]["device"] == torch.device("cpu")
+    ext = KmerConfig(**dict(BASE, extension=True))
+    assert ht.kmer_count(codes, lengths, ext, device="cpu") == "count_reads_sharded_ext"
     monkeypatch.setattr(memcheck, "hbm_headroom_bytes", lambda dev, safety=0.9: 1)
-    with pytest.raises(NotImplementedError, match="streaming across ranks"):
-        ht.kmer_count(codes, lengths, KmerConfig(**BASE), device="cpu")
+    assert ht.kmer_count(codes, lengths, KmerConfig(**BASE), device="cpu") == \
+        "count_reads_sharded_streaming"
+    batch = scheduler.suggest_batch_bases(KmerConfig(**BASE), torch.device("cpu"))
+    assert calls[-1][1][3] == 2 * batch
+    # Extension mode does not stream by itself, as in the JAX facade.
+    assert ht.kmer_count(codes, lengths, ext, device="cpu") == "count_reads_sharded_ext"
     with pytest.raises(NotImplementedError):
         ht.kmer_count(codes, lengths, KmerConfig(**BASE), device=["cpu", "cpu"])
 
