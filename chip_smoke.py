@@ -80,6 +80,28 @@ build/kernels/ at first use. Phases, each printing its findings:
      (extension mode: every occurrence as sorted (key, rid, pos) rows); per
      rank the wall, the peak device memory, the step passes, the bytes sent
      and the kernels' launches
+ 11  supermer routing (parallel/supermer_route.py: destination scan,
+     classification and dispatch, supermer streams, 2-bit segments,
+     all_to_all, receive-side decode, key build, sort, count) with phase 2's
+     configuration: first the encoder's and fill_run_meta's hard cases of
+     hysortk_tpu_torch.testing on the card (each case's route result equal
+     to kmer_count's, fill_run_meta equal to its CPU result); (a)
+     count_reads_sharded with routing="supermer" on phase 2's reads, one
+     rank with NCCL, best of three, with a stage line and the wire bytes
+     beside the range route's (9(a)); (b) four spawned ranks sharing the card
+     over gloo; (c) the heavy-bucket pre-count on four ranks: phase 8(c)'s
+     2^24 bases plus poly-A reads making ~25% of the k-mers (the poly-A
+     key's count is above U = 65535, the most a configuration allows, and is
+     dropped), and 2^17 bases with ~25% poly-A k-mers (the poly-A key's
+     count passes U and is kept), a bucket flagged and pre-counted, each
+     result equal to the range route's on the same reads; (d) extension mode on phase 8(c)'s 2^24 bases with read ids
+     from EXT_RID0, one-shot on one rank and on two, and streamed in batches
+     of 2^22 on two, each against phase 8(c)'s one-shot result; (e)
+     count_reads_sharded_streaming in batches of 2^24, one rank and two
+     ranks, against phase 2. Each result exactly equal after sorting by key
+     (extension mode: every occurrence as sorted (key, rid, pos) rows); per
+     rank the wall, the peak device memory, the bytes sent and the kernels'
+     launches
 
 Any failure raises (exit code 1); a rank's failure fails its spawn. Without
 a CUDA device the script exits 1 before printing any result. The last three
@@ -1819,8 +1841,8 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
     """The sharded range exchange on phase 2's reads: (a) one rank with
     NCCL in this process, (b) 4 spawned ranks sharing the card over gloo
     (host staging), (c) the combiner forced on 2 spawned ranks on the first
-    2^24 bases. Returns (a)'s launch counts (one call) and the one-shot
-    result on the first 2^24 bases."""
+    2^24 bases. Returns (a)'s launch counts (one call), the one-shot result
+    on the first 2^24 bases and (a)'s exchange traffic."""
     import dataclasses
 
     import torch.distributed as dist
@@ -1883,7 +1905,7 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
                 if not st["launches"].get(name):
                     raise AssertionError(f"phase 9({tag}) rank {r} did not launch {name}")
         log_sharded(tag, stats, len(want[0]))
-    return a["launches"], sub_one_shot
+    return a["launches"], sub_one_shot, a["traffic"]
 
 
 # --------------------------------------------------------------------------
@@ -1968,6 +1990,7 @@ def phase10_call(entry: str, codes, lengths, fields: dict, args: tuple = (),
         stats = sharded_run_stats(lambda: getattr(sharded, entry)(
             codes, lengths, cfg, *args, **(kwargs or {})), 1)
     stats["passes"] = sum(n for name, n in calls.items() if "_shard_body" in name)
+    stats["calls"] = dict(calls)
     stats["merge_ms"] = merge_ms
     return stats
 
@@ -2012,20 +2035,23 @@ def load_phase10_result(path: str):
 
 
 def log_phase10(tag: str, what: str, ranks: list[dict], n_kept: int,
-                needed: tuple) -> None:
-    """Check that every rank launched `needed`, and print each rank's line."""
+                needed: tuple, phase: int = 10) -> None:
+    """Check that every rank launched `needed`, and print each rank's line
+    (the step passes count the step bodies of parallel/pipeline.py; the
+    supermer route has none)."""
     for r, st in enumerate(ranks):
         for name in needed:
             if not st["launches"].get(name):
-                raise AssertionError(f"phase 10({tag}) rank {r} did not launch {name}")
+                raise AssertionError(f"phase {phase}({tag}) rank {r} did not launch "
+                                     f"{name}")
         t = st["traffic"]
         merge = (f"; final merge {st['merge_ms'][0]:.1f} ms" if st["merge_ms"] else "")
-        log(f"phase10{tag} {what} rank {r}/{len(ranks)} ({st['backend']}): wall "
+        log(f"phase{phase}{tag} {what} rank {r}/{len(ranks)} ({st['backend']}): wall "
             f"{st['walls'][0]:.4f} s; peak device memory {st['peak'] / 2**30:.3f} GiB; "
             f"{st['passes']} step passes; sent {t['bytes_sent']} B in {t['calls']} "
             f"exchange(s), {t['seconds'] * 1e3:.1f} ms in the exchange{merge}; "
             f"launches {json.dumps(st['launches'])}")
-    log(f"phase10{tag} {what}: {n_kept} k-mers equal to the reference")
+    log(f"phase{phase}{tag} {what}: {n_kept} k-mers equal to the reference")
 
 
 def phase10_minimizer_stages(codes, lengths, cfg) -> None:
@@ -2100,7 +2126,6 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
     import torch.distributed as dist
 
     from hysortk_tpu_torch.parallel import group
-    from hysortk_tpu_torch.parallel.spawn import spawn_ranks
 
     cfg = slice_config()
     base = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
@@ -2172,8 +2197,24 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
     }
     # The reference of three runs: its sorted occurrence rows once.
     sub_rows = ext_occurrence_rows(ext_sub_one_shot[0])
+    run_spawned(workdir, 10, spawns, inputs, ext_sub_one_shot, sub_rows)
+    del sub_rows
+    log(f"phase10 {time.perf_counter() - t_phase:.1f} s in all")
+
+
+def run_spawned(workdir, phase: int, spawns: dict, inputs: dict, ext_ref, ext_rows,
+                check=None) -> None:
+    """The spawned runs of phase 10 or 11: per rank count, one spawn of
+    ranks sharing the card over gloo running its jobs (tag, what, entry,
+    inputs key, config fields, args, kwargs, reference, kernels) in turn;
+    each result held against its reference (extension mode against
+    `ext_rows`, the sorted occurrence rows of `ext_ref`, where that is the
+    reference), each rank's line printed, and check(tag, rank stats) where
+    given."""
+    from hysortk_tpu_torch.parallel.spawn import spawn_ranks
+
     for ranks, runs in spawns.items():
-        out_dir = os.path.join(workdir, f"phase10-{ranks}")
+        out_dir = os.path.join(workdir, f"phase{phase}-{ranks}")
         os.makedirs(out_dir)
         jobs = [dict(tag=f"{tag}{i}", entry=entry, inputs=inputs[which], cfg=fields,
                      args=list(args), kwargs=kwargs)
@@ -2181,15 +2222,15 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
         t0 = time.perf_counter()
         spawn_ranks(phase10_rank, ranks, (jobs, out_dir), workdir=out_dir,
                     device="cuda", timeout=600)
-        log(f"phase10 {ranks} ranks on one card, {len(jobs)} run(s): "
+        log(f"phase{phase} {ranks} ranks on one card, {len(jobs)} run(s): "
             f"{time.perf_counter() - t0:.1f} s with process start")
         for job, (tag, what, entry, _, fields, _, _, want, needed) in zip(jobs, runs):
             got = load_phase10_result(os.path.join(out_dir, f"{job['tag']}.npz"))
             if fields.get("extension"):
-                require_same_ext(f"phase 10({tag}) {what}", got, want,
-                                 sub_rows if want is ext_sub_one_shot else None)
+                require_same_ext(f"phase {phase}({tag}) {what}", got, want,
+                                 ext_rows if want is ext_ref else None)
             else:
-                require_same_result(f"phase 10({tag}) {what}", got, want)
+                require_same_result(f"phase {phase}({tag}) {what}", got, want)
             del got
             stats = []
             for r in range(ranks):
@@ -2197,9 +2238,235 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
                     stats.append(json.load(fh))
             if any(st["backend"] != "gloo" for st in stats):
                 raise AssertionError("ranks sharing a card took another backend than gloo")
-            log_phase10(tag, what, stats, len(want[0]), needed)
+            if check is not None:
+                check(tag, stats)
+            log_phase10(tag, what, stats, len(want[0]), needed, phase)
+
+
+# --------------------------------------------------------------------------
+# Phase 11
+
+POLY_A_SHARE = 0.25  # of the k-mers of 11(c)'s reads: one dominant bucket
+# 11(c)'s second case: few enough bases that the poly-A key's count stays
+# within U = 65535, so that its pre-counted total reaches the result
+HEAVY_KEPT_BASES = 1 << 17
+
+
+def phase11_hard_cases() -> None:
+    """The supermer hard cases of hysortk_tpu_torch.testing on the card,
+    inside phase 11's one-rank group: each encoder case's reads through the
+    route, equal to kmer_count's result; each fill_run_meta case on the
+    card, equal to its CPU result."""
+    import dataclasses
+
+    import torch
+
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch import testing
+    from hysortk_tpu_torch.io import fasta as fasta_io
+    from hysortk_tpu_torch.ops import wire
+    from hysortk_tpu_torch.parallel import pipeline as sharded
+
+    n = 0
+    for kind in testing.SUPERMER_KINDS:
+        for k, m in ((15, 7), (31, 17)):
+            reads = testing.supermer_reads(kind, k, 11)
+            codes, lengths = fasta_io.reads_to_codes(reads)
+            cfg = ht.KmerConfig(k=k, m=m, lower=1, upper=2**15)
+            want = ht.kmer_count(codes, lengths, cfg, device="cuda")
+            got = sharded.count_reads_sharded(
+                codes, lengths, dataclasses.replace(cfg, routing="supermer"))
+            require_same_result(f"phase 11 hard case {kind} k={k}", got, want)
+            n += 1
+    cases = testing.fill_meta_cases()
+    for name, lens, rid0, pos0, size in cases:
+        args = (torch.from_numpy(lens), torch.from_numpy(rid0),
+                torch.from_numpy(pos0.view(np.int32)))
+        cpu = wire.fill_run_meta(*args, size)
+        dev = wire.fill_run_meta(*(a.cuda() for a in args), size)
+        if not all(torch.equal(c, d.cpu()) for c, d in zip(cpu, dev)):
+            raise AssertionError(f"phase 11 fill_run_meta case {name} differs on the card")
+    log(f"phase11 hard cases: {n} encoder cases through the route equal to kmer_count, "
+        f"{len(cases)} fill_run_meta cases equal to the CPU's")
+
+
+def phase11_stages(codes, lengths, cfg, range_traffic) -> None:
+    """One rank's supermer call stage by stage, a synchronize after each
+    (inside phase 11's one-rank group), with the wire bytes beside the range
+    route's of 9(a)."""
+    import torch
+
+    from hysortk_tpu_torch.ops import keybuild, radix_sort
+    from hysortk_tpu_torch.parallel import dispatch, exchange
+    from hysortk_tpu_torch.parallel import pipeline as sharded
+    from hysortk_tpu_torch.parallel import supermer_route as sr
+
+    stages = []
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages.append(f"{name} {(time.perf_counter() - t0) * 1e3:.1f}")
+        return out
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for _ in range(2):
+        stages.clear()
+        exchange.reset_traffic()
+        flat_codes, flat_valid, lens, first = timed(
+            "partition + flatten", lambda: sr._rank_flat(codes, lengths, cfg, None))
+        dest = timed("destination scan", lambda: sr.host_destinations(
+            flat_codes, cfg.k, cfg.m, sharded._num_buckets(cfg, 1), dev))
+        types, assign = timed("sizes + plan", lambda: sr._plan(
+            dest, flat_valid, cfg, None, True, dev, None))
+        if (types == dispatch.HEAVY).any():
+            raise AssertionError("phase 2's reads flagged a heavy bucket")
+        streams = timed("encode", lambda: sr._encode(
+            flat_codes, flat_valid, assign[dest], cfg, 1, lens, first, False))
+        del flat_codes, flat_valid, dest
+        supermers = sum(int(st[1].size) for st in streams)
+        payload = sr.wire_nbytes(streams)
+        send, block_len, lmax = timed("pack + H2D", lambda: sr._segments(
+            streams, cfg, dev, None))
+        del streams
+        recv = timed("exchange", lambda: exchange.all_to_all_exchange(
+            send, [send.shape[2]], None)[0])
+        marked = timed("decode + keybuild", lambda: keybuild.canonical_keys_fused(
+            *sr._decode_received(recv, cfg, block_len, lmax)[:2], cfg.k))
+        del recv, send
+        words_s = timed("radix sort", lambda: radix_sort.sort_words(marked)[0])
+        del marked
+        cnt, keep = timed("fused count", lambda: sharded._count_merged(words_s, cfg))
+        timed("result (compact + D2H + all_gather + histogram)",
+              lambda: sharded._gather_result(words_s, cnt, keep, cfg, None, False))
+        del words_s, cnt, keep
+    log(f"phase11a stages of one supermer call, second of two, ms: {'; '.join(stages)}")
+    log(f"phase11a wire: {supermers} supermers, {payload} B of supermer payload "
+        f"(2 bits a base + 4 B a supermer), {exchange.traffic['bytes_sent']} B sent "
+        f"(segments padded to {block_len} bases, lmax {lmax}); the range route's "
+        f"9(a): {range_traffic['bytes_sent']} B sent")
+
+
+def heavy_reads(codes, lengths, n_bases):
+    """11(c)'s reads: the first `n_bases` bases (whole reads), then poly-A
+    reads of the same length making POLY_A_SHARE of the k-mers. Returns
+    (codes, lengths, the poly-A k-mers)."""
+    n_reads = n_bases // READ_LEN
+    sub_codes, sub_lengths = codes[: n_reads * READ_LEN], lengths[:n_reads]
+    n_poly = int(sub_lengths.size * POLY_A_SHARE / (1 - POLY_A_SHARE))
+    poly = np.zeros(n_poly * READ_LEN, dtype=sub_codes.dtype)  # A codes as 0
+    return (np.concatenate([sub_codes, poly]),
+            np.concatenate([sub_lengths, np.full(n_poly, READ_LEN, sub_lengths.dtype)]),
+            n_poly * (READ_LEN - K + 1))
+
+
+def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
+                     range_traffic) -> None:
+    """Supermer routing on phase 2's reads and configuration: the hard
+    cases, then (a)-(e) of the docstring, every result exactly equal to its
+    reference."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from hysortk_tpu_torch.parallel import group
+
+    cfg = slice_config()
+    base = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    sm = dict(base, routing="supermer")
+    heavy_f = dict(sm, upper=65535)  # the most U may be: 11(c)'s two cases
+    ext = dict(sm, extension=True)
+    rid0 = dict(read_id_offset=EXT_RID0)
+    stream_needed = CORE_KERNELS + ("merge_runs", "run_length_sum")
+    sub_codes, sub_lengths = ext_stream_reads(codes, lengths)
+    h_codes, h_lengths, poly_kmers = heavy_reads(codes, lengths, EXT_STREAM_BASES)
+    hk_codes, hk_lengths, kept_kmers = heavy_reads(codes, lengths, HEAVY_KEPT_BASES)
+
+    t_phase = time.perf_counter()
+    group.init("file://" + os.path.join(workdir, "rendezvous-11"), 0, 1, "cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"one rank with its own card took {dist.get_backend()}")
+        phase11_hard_cases()
+        a = phase10_call("count_reads_sharded", codes, lengths, sm)
+        walls = list(a["walls"])
+        for _ in range(2):
+            walls += phase10_call("count_reads_sharded", codes, lengths, sm)["walls"]
+        require_same_result("phase 11(a)", a.pop("result"), one_shot)
+        a.update(backend="nccl", walls=walls)
+        log_phase10("a", f"count_reads_sharded, routing supermer, {int(codes.size)} "
+                    f"bases (walls {', '.join(f'{w:.4f}' for w in walls)} s; the first "
+                    f"call's line)", [a], len(one_shot[0]), CORE_KERNELS, 11)
+        if a["launches"]["keybuild"] < 2:
+            raise AssertionError("phase 11(a) did not build the m-mer words by the kernel")
+        phase11_stages(codes, lengths, cfg, range_traffic)
+        torch.cuda.empty_cache()
+        h_ref = phase10_call("count_reads_sharded", h_codes, h_lengths,
+                             dict(heavy_f, routing="range"))["result"]
+        hk_ref = phase10_call("count_reads_sharded", hk_codes, hk_lengths,
+                              dict(heavy_f, routing="range"))["result"]
+        if not kept_kmers <= hk_ref[0].counts.max() <= heavy_f["upper"]:
+            raise AssertionError("phase 11(c) second case: the poly-A key is not kept")
+        d = phase10_call("count_reads_sharded_ext", sub_codes, sub_lengths, ext, (), rid0)
+        got = d.pop("result")
+        require_same_ext("phase 11(d) one rank", got, ext_sub_one_shot)
+        del got
+        d["backend"] = "nccl"
+        log_phase10("d", "count_reads_sharded_ext, routing supermer, 2^24 bases",
+                    [d], len(ext_sub_one_shot[0]), CORE_KERNELS, 11)
+        torch.cuda.empty_cache()
+        e = phase10_call("count_reads_sharded_streaming", codes, lengths, sm,
+                         (STREAM_BATCH,))
+        require_same_result("phase 11(e) one rank", e.pop("result"), one_shot)
+        e["backend"] = "nccl"
+        log_phase10("e", f"count_reads_sharded_streaming, routing supermer, "
+                    f"{int(codes.size)} bases in batches of {STREAM_BATCH}", [e],
+                    len(one_shot[0]), stream_needed, 11)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    inputs = {}
+    for name, (c_, l_) in (("all", (codes, lengths)), ("sub", (sub_codes, sub_lengths)),
+                           ("heavy", (h_codes, h_lengths)),
+                           ("heavy_kept", (hk_codes, hk_lengths))):
+        inputs[name] = os.path.join(workdir, f"phase11-{name}.npz")
+        np.savez(inputs[name], codes=c_, lengths=l_)
+    spawns = {
+        4: [  # (tag, what, entry, inputs, cfg, args, kwargs, reference, kernels)
+            ("c", f"heavy pre-count, 2^24 bases + {poly_kmers} poly-A k-mers",
+             "count_reads_sharded", "heavy", heavy_f, (), {}, h_ref, CORE_KERNELS),
+            ("c", f"heavy pre-count, 2^17 bases + {kept_kmers} poly-A k-mers, the "
+             "poly-A key kept", "count_reads_sharded", "heavy_kept", heavy_f, (), {},
+             hk_ref, CORE_KERNELS),
+            ("b", "count_reads_sharded, routing supermer, 2^26 bases",
+             "count_reads_sharded", "all", sm, (), {}, one_shot, CORE_KERNELS),
+        ],
+        2: [
+            ("d", "count_reads_sharded_ext, routing supermer, 2^24 bases",
+             "count_reads_sharded_ext", "sub", ext, (), rid0, ext_sub_one_shot,
+             CORE_KERNELS),
+            ("d", "count_reads_sharded_ext_streaming, routing supermer, 2^24 bases in "
+             "batches of 2^22", "count_reads_sharded_ext_streaming", "sub", ext,
+             (EXT_STREAM_BATCH,), rid0, ext_sub_one_shot, CORE_KERNELS),
+            ("e", "count_reads_sharded_streaming, routing supermer, 2^26 bases in "
+             "batches of 2^24", "count_reads_sharded_streaming", "all", sm,
+             (STREAM_BATCH,), {}, one_shot, stream_needed),
+        ],
+    }
+
+    def check(tag, stats):
+        if any(st["calls"]["_supermer_step"] < 1 for st in stats):
+            raise AssertionError(f"phase 11({tag}) did not take the supermer step")
+        if tag == "c" and any(st["calls"]["heavy_precount"] != 1 for st in stats):
+            raise AssertionError("phase 11(c) flagged no heavy bucket")
+
+    sub_rows = ext_occurrence_rows(ext_sub_one_shot[0])
+    run_spawned(workdir, 11, spawns, inputs, ext_sub_one_shot, sub_rows, check)
     del sub_rows
-    log(f"phase10 {time.perf_counter() - t_phase:.1f} s in all")
+    log(f"phase11 {time.perf_counter() - t_phase:.1f} s in all")
 
 
 def main() -> int:
@@ -2238,11 +2505,14 @@ def main() -> int:
         ext_one_shot, ext_sub_one_shot = phase8_extension(
             workdir, codes, lengths, one_shot, peak, fasta, reads, errs)
         torch.cuda.empty_cache()
-        sharded_launches, sub_one_shot = phase9_sharded(workdir, codes, lengths,
-                                                        one_shot)
+        sharded_launches, sub_one_shot, range_traffic = phase9_sharded(
+            workdir, codes, lengths, one_shot)
         torch.cuda.empty_cache()
         phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot, sub_one_shot,
                         ext_sub_one_shot)
+        torch.cuda.empty_cache()
+        phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
+                         range_traffic)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     times.update(stream_times)

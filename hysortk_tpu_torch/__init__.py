@@ -14,7 +14,8 @@ extension mode ((ReadId, PosInRead) occurrence payloads: count_reads_ext,
 count_reads_streaming_ext), and counting across the ranks of a
 torch.distributed process group, one device a rank
 (parallel/pipeline.count_reads_sharded: the range exchange by default, the
-minimizer and kmer_hash routings; count_reads_sharded_streaming,
+minimizer and kmer_hash routings, and supermer routing, the reference's own
+exchange, parallel/supermer_route.py; count_reads_sharded_streaming,
 count_reads_sharded_ext, count_reads_sharded_ext_streaming). It imports
 neither jax nor hysortk_tpu.
 """
@@ -53,6 +54,11 @@ _SHARDED_ENTRIES = (
     "count_reads_sharded_streaming",
     "count_reads_sharded_ext_streaming",
 )
+_SUPERMER_ENTRIES = (
+    "count_reads_supermer",
+    "count_reads_supermer_ext",
+    "count_reads_supermer_exchange",
+)
 
 __all__ = [
     "KmerConfig",
@@ -70,6 +76,7 @@ __all__ = [
     "count_reads_ext",
     "count_reads_streaming_ext",
     *_SHARDED_ENTRIES,
+    *_SUPERMER_ENTRIES,
 ]
 
 
@@ -79,6 +86,10 @@ def __getattr__(name):
         from .parallel import pipeline as _pp
 
         return getattr(_pp, name)
+    if name in _SUPERMER_ENTRIES:
+        from .parallel import supermer_route as _sr
+
+        return getattr(_sr, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -6,9 +6,11 @@ read -> count -> histogram -> output files, on one device, or under
 torchrun (WORLD_SIZE > 1) across its ranks, one device a rank (rank 0
 prints the histogram and writes the one output file, as the JAX CLI's
 multi-device run writes one): one-shot, streamed (--stream-batch-bases),
-in extension mode, by any routing but supermer. Flags of paths that are not
-ported yet (--routing supermer, the JAX multi-process flags) are accepted
-and end the run with an error.
+in extension mode, by any routing (--routing supermer ships supermers; on
+one device it changes nothing, as in the JAX CLI, and with --single-device
+it is an error). The JAX multi-process flags (--coordinator,
+--num-processes, --process-id) are not ported yet: they are accepted and
+end the run with an error.
 
     torchrun --nproc-per-node 2 -m hysortk_tpu_torch.cli reads.fa out/ --device cpu
 """
@@ -72,8 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--routing",
                    choices=("range", "kmer_hash", "minimizer", "supermer"),
                    default="range",
-                   help="multi-device destination rule (supermer is not "
-                        "ported yet; no effect on one rank)")
+                   help="multi-device destination rule (supermer ships "
+                        "supermers, the reference's exchange; no effect on "
+                        "one rank)")
     p.add_argument("--classifier", choices=("heavy_hitter", "plain"),
                    default="heavy_hitter",
                    help="across ranks, heavy_hitter re-runs a skewed input "
@@ -95,7 +98,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags of `args` that ask for a path this package does not have."""
     asked = {
-        "--routing": args.routing == "supermer",
         "--coordinator": args.coordinator is not None,
         "--num-processes": args.num_processes is not None,
         "--process-id": args.process_id is not None,
@@ -111,6 +113,10 @@ def main(argv=None) -> int:
         print(f"hysortk_tpu_torch: {', '.join(refused)}: not ported yet",
               file=sys.stderr)
         return 2
+    if args.routing == "supermer" and args.single_device:
+        p.error("--routing supermer is a sharded dispatch path; it does not "
+                "combine with --single-device (use the default range routing "
+                "there)")
 
     # HYSORTK_LOG=info (or debug) surfaces the internal stage logs: the
     # streaming scheduler stamps drain / consolidation / merge spans.

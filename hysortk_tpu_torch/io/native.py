@@ -1,9 +1,9 @@
 """ctypes bindings for the native host-IO library (native/host_io.cpp).
 
 The wrapper of hysortk_tpu/io/native.py, loading the same library, cut to
-the entry points the single-device and the sharded paths use (strip and
-pack of FASTA records, the 2-bit pack, key decode, output formatting); the
-supermer routing's entry points are not bound.
+the entry points the port's paths use: strip and pack of FASTA records, the
+2-bit pack, key decode, output formatting, and the supermer encoder's run
+decomposition and run gather (io/supermer.py).
 
 Loads (building on first use if a toolchain is present) the OpenMP-parallel
 C++ implementations of the host hot loops; every entry point has a numpy
@@ -69,6 +69,15 @@ def _load() -> Optional[ctypes.CDLL]:
                 ctypes.c_char_p,
             ]
             lib.hk_format_output.restype = ctypes.c_int64
+            i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+            lib.hk_run_boundaries.argtypes = [
+                u8p, i32p, ctypes.c_int64, ctypes.c_int64,
+                i64p, i64p, i32p,
+            ]
+            lib.hk_run_boundaries.restype = ctypes.c_int64
+            lib.hk_gather_runs.argtypes = [
+                i8p, i64p, i64p, i64p, ctypes.c_int64, i8p,
+            ]
         except AttributeError:
             # Stale prebuilt .so missing a symbol: degrade to the numpy
             # fallbacks (the module contract) instead of raising out of
@@ -157,3 +166,49 @@ def format_output(keys: np.ndarray, counts: np.ndarray, k: int) -> Optional[byte
     if nbytes is None:
         return None
     return out[:nbytes].tobytes()
+
+
+def run_boundaries(
+    valid: np.ndarray, dest: np.ndarray, max_kmers: int
+) -> Optional[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Native supermer run decomposition (hk_run_boundaries): one
+    sequential pass against numpy's ~8 full-array passes. Returns
+    (run_start_flat, run_kmers, run_dest) or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    valid_u8 = np.ascontiguousarray(valid, dtype=np.uint8)
+    dest_i32 = np.ascontiguousarray(dest, dtype=np.int32)
+    n = valid_u8.size
+    cap = max(int(valid_u8.sum()), 1)
+    out_start = np.empty(cap, dtype=np.int64)
+    out_kmers = np.empty(cap, dtype=np.int64)
+    out_dest = np.empty(cap, dtype=np.int32)
+    runs = lib.hk_run_boundaries(
+        valid_u8, dest_i32, n, int(max_kmers),
+        out_start, out_kmers, out_dest,
+    )
+    return out_start[:runs], out_kmers[:runs], out_dest[:runs]
+
+
+def gather_runs(
+    codes: np.ndarray,
+    starts: np.ndarray,
+    bases: np.ndarray,
+    out_off: np.ndarray,
+    total: int,
+) -> Optional[np.ndarray]:
+    """Native per-run slice concatenation (hk_gather_runs)."""
+    lib = _load()
+    if lib is None:
+        return None
+    out = np.empty(total, dtype=np.int8)
+    lib.hk_gather_runs(
+        np.ascontiguousarray(codes, dtype=np.int8),
+        np.ascontiguousarray(starts, dtype=np.int64),
+        np.ascontiguousarray(bases, dtype=np.int64),
+        np.ascontiguousarray(out_off, dtype=np.int64),
+        starts.size,
+        out,
+    )
+    return out

@@ -10,6 +10,10 @@ rebuilds the flat (codes, valid) stream with dense bit math:
     last read) cannot start a k-mer — marked by a scatter-add of +/-1
     deltas at read boundaries (O(reads)) and one cumsum.
 
+Under supermer routing the same decode parses the received supermers, each
+one a short read, and extension mode fills every position's (read id,
+position) from per-run headers (`fill_run_meta`).
+
 This step is XLA code in the JAX package, not a Pallas kernel, so it stays
 plain torch here too. Packing lives host-side in io/supermer.py.
 """
@@ -107,3 +111,44 @@ def decode_block_ext(
     codes, valid = decode_block(packed, lengths, k, n)
     rid, pos = rid_pos_from_lengths(lengths, n, rid_base)
     return codes, valid, rid, pos
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values -> int32 with the same low 32 bits (two's complement
+    wrap, what JAX's int32 arithmetic gives)."""
+    return (((x + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def fill_run_meta(
+    lengths: torch.Tensor, rid0: torch.Tensor, pos0: torch.Tensor, n: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-position (read id, pos in read) from per-RUN headers, both int32
+    (pos a uint32 bit pattern).
+
+    Runs (supermers) are concatenated from flat position 0 by `lengths`;
+    run s starts at position pos0[s] (a uint32 bit pattern in int32) of
+    read rid0[s]: the decode of the reference's extension-mode supermer wire
+    ({len, pos, rid} per supermer, include/kmer.hpp:348-360). A
+    piecewise-constant fill of per-run values by a boundary DIFF scatter and
+    one cumulative sum, as the JAX version; the sums run in int64 and wrap
+    to int32 at the end, which equals JAX's int32 wrap at every step
+    (addition mod 2^32). Zero-length pad runs stack their diffs on the next
+    start (a scatter-add sums repeated indices), and the telescoped sum
+    stays right. Only meaningful where valid_from_lengths is True.
+    """
+    dev = lengths.device
+    lengths = lengths.to(torch.int64)
+    ends = torch.cumsum(lengths, 0)
+    starts = ends - lengths
+    at = starts.clamp(max=n)
+
+    def fill(vals: torch.Tensor) -> torch.Tensor:
+        diffs = torch.cat([vals[:1], vals[1:] - vals[:-1]])
+        buf = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        buf.scatter_add_(0, at, diffs)
+        return torch.cumsum(buf[:-1], 0)
+
+    rid = fill(rid0.to(torch.int64))
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    pos = fill((pos0.to(torch.int64) & 0xFFFFFFFF) - starts) + idx
+    return _wrap32(rid), _wrap32(pos)

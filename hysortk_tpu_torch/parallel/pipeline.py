@@ -37,10 +37,16 @@ partial lists at the end without an exchange (keys stay with their owner);
 `count_reads_sharded_ext[_streaming]` is extension mode, with (read id,
 position) payloads riding the sort and the exchange.
 
+routing="supermer" ships supermers instead of keys (parallel/supermer_route.py):
+count_reads_sharded, count_reads_sharded_streaming and count_reads_sharded_ext
+hand it to that module, as the JAX package does; count_flat_sharded has no
+supermer branch there and none here (its flat blocks take the kmer_hash
+destination).
+
 Every result equals the JAX package's on a mesh of as many devices as there
 are ranks: keys in rank order, then the rank's key order (mixed-key order
 under range routing), the same counts and histogram; extension mode the
-same occurrences. routing="supermer" is not ported yet.
+same occurrences.
 """
 
 from __future__ import annotations
@@ -380,7 +386,7 @@ def plan_sharded_step(codes, valid, cfg: KmerConfig, num_shards: int,
     factor_capacity = _factor_capacity(n_local, num_shards, cfg)
     if cfg.routing == "range":
         return cfg, None, range_capacity(n_local, num_shards, cfg), False
-    if cfg.routing == "kmer_hash":
+    if cfg.routing != "minimizer":  # kmer_hash, and supermer's flat blocks
         return cfg, None, factor_capacity, False
     num_buckets = _num_buckets(cfg, num_shards)
     if cfg.dispatcher == "round_robin":
@@ -475,9 +481,9 @@ def _rank_rows(keys_dev, mixed: bool) -> np.ndarray:
     return mixkey.unmix_keys_np(keys) if mixed else keys
 
 
-def _gather_result(words, cnt, keep, cfg: KmerConfig, group, mixed: bool):
+def _gather_kmerlist(words, cnt, keep, cfg: KmerConfig, group, mixed: bool) -> KmerList:
     """The rank's kept rows (unmixed on the host where `mixed`), then every
-    rank's list in rank order, and the histogram of the whole list."""
+    rank's list in rank order."""
     dev = words[0].device
     idx = torch.nonzero(keep).squeeze(1)
     keys = _rank_rows(torch.stack([w[idx] for w in words], dim=-1), mixed)
@@ -487,17 +493,17 @@ def _gather_result(words, cnt, keep, cfg: KmerConfig, group, mixed: bool):
     cdev = group_mod.collective_device(dev, group)
     parts = _all_gather_rows(torch.from_numpy(rows).to(cdev), group)
     every = torch.cat(parts).numpy()
-    kmerlist = KmerList(
+    return KmerList(
         keys=np.ascontiguousarray(every[:, :-1]).view(np.uint32),
         counts=np.ascontiguousarray(every[:, -1]),
         k=cfg.k,
     )
+
+
+def _gather_result(words, cnt, keep, cfg: KmerConfig, group, mixed: bool):
+    """_gather_kmerlist, and the histogram of the whole list."""
+    kmerlist = _gather_kmerlist(words, cnt, keep, cfg, group, mixed)
     return kmerlist, host_histogram(kmerlist.counts, cfg.upper)
-
-
-def _check_ported(cfg: KmerConfig) -> None:
-    if cfg.routing == "supermer":
-        raise NotImplementedError("routing='supermer' across ranks is not ported yet")
 
 
 def count_flat_sharded(
@@ -509,8 +515,9 @@ def count_flat_sharded(
 ) -> tuple[KmerList, np.ndarray]:
     """Sharded entry on flat global (codes, valid), whose length must divide
     by the rank count: rank r counts slice r. Every rank returns the whole
-    (KmerList, histogram)."""
-    _check_ported(cfg)
+    (KmerList, histogram). Under routing="supermer" the slices take the
+    kmer_hash destination, as in the JAX package, which has no supermer
+    branch here."""
     dev = group_mod.rank_device(device)
     num_shards = dist.get_world_size(group)
     n = codes.shape[0]
@@ -663,10 +670,14 @@ def count_reads_sharded(
     whole (KmerList, histogram). `device` as in group.rank_device: the
     rank's CUDA device unless the caller asks for the CPU.
 
-    Every routing takes the wire here; the JAX package feeds the routes
-    other than range (and the combiner) flat blocks (distribute_reads ->
-    count_flat_sharded), which gives the same result."""
-    _check_ported(cfg)
+    Every routing but supermer takes the wire here; the JAX package feeds
+    the routes other than range (and the combiner) flat blocks
+    (distribute_reads -> count_flat_sharded), which gives the same result.
+    routing="supermer" goes to supermer_route.count_reads_supermer."""
+    if cfg.routing == "supermer":
+        from . import supermer_route
+
+        return supermer_route.count_reads_supermer(codes, lengths, cfg, group, device)
     dev = group_mod.rank_device(device)
     packed, lens, block_len, _ = _rank_wire(codes, lengths, cfg, group, dev)
     codes_d, valid_d = wire.decode_block(packed, lens, cfg.k, block_len)
@@ -726,12 +737,17 @@ def count_reads_sharded_streaming(
     the number of batches in flight on the asynchronous dispatch. Here
     each batch settles, first in first out, before the next starts (the
     exchange reads its overflow flag on the host), so it changes nothing.
+    routing="supermer" goes to supermer_route.count_reads_supermer_streaming.
     """
     if cfg.extension:
         raise ValueError("use count_reads_sharded_ext_streaming for extension mode")
     if async_depth is not None and async_depth < 1:
         raise ValueError(f"async_depth must be at least 1, got {async_depth}")
-    _check_ported(cfg)
+    if cfg.routing == "supermer":
+        from . import supermer_route
+
+        return supermer_route.count_reads_supermer_streaming(
+            codes, lengths, cfg, batch_bases, group, device, async_depth)
     dev = group_mod.rank_device(device)
     num_shards = dist.get_world_size(group)
     cfg_pre = dataclasses.replace(cfg, unfiltered=True)
@@ -911,8 +927,13 @@ def count_reads_sharded_ext(
     routings take flat blocks (build_ext_blocks), as in the JAX package.
     min_dims pins (block_len, lmax) from below (the streaming caller's
     ext_stream_dims). Every rank returns the whole (KmerListExt,
-    histogram)."""
-    _check_ported(cfg)
+    histogram). routing="supermer" goes to
+    supermer_route.count_reads_supermer_ext."""
+    if cfg.routing == "supermer":
+        from . import supermer_route
+
+        return supermer_route.count_reads_supermer_ext(
+            codes, lengths, cfg, group, device, read_id_offset, min_dims)
     dev = group_mod.rank_device(device)
     num_shards = dist.get_world_size(group)
     if cfg.routing == "range":

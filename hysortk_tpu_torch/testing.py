@@ -691,6 +691,108 @@ def mix_case_words(kind: str, n_words: int, n: int, seed: int) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
+# Supermer routing's hard cases: the encoder (io/supermer), the run headers'
+# fill (ops/wire.fill_run_meta) and the route's heavy pre-count. The CPU
+# tests hold them against the JAX package; chip_smoke.py phase 11 runs them
+# on the card.
+
+SUPERMER_KINDS = ("random", "zero_length", "shorter_than_k", "all_n", "cap",
+                  "empty_dest", "heavy_top_bit")
+
+
+def top_bit_kmer(rng, k: int) -> str:
+    """A k-mer that is its own canonical form and starts with G or T, so
+    that its first key word has the top bit set."""
+    while True:
+        s = "".join(rng.choice(list("GT"))) + "".join(rng.choice(list("ACGT"), k - 1))
+        if canonical(s) == s:
+            return s
+
+
+def supermer_reads(kind: str, k: int, seed: int) -> list[str]:
+    """Reads of one encoder case.
+
+    random          reads of k + 5 to 3k bases
+    zero_length     random, with empty records among them and at both ends
+    shorter_than_k  random, with reads of 1 to k - 1 bases among them
+    all_n           random, with reads of N only (N codes as A: poly-A
+                    k-mers) and one of mixed N and n
+    cap             reads of 600 to 1000 bases: one destination over a read
+                    runs past the 250-base cap (MAX_SUPERMER_LEN) at K=15
+    empty_dest      random (the case's destinations leave one unused)
+    heavy_top_bit   random, plus 1500 copies of a top_bit_kmer read: a
+                    heavy bucket whose dominant key has the top bit set
+    """
+    rng = np.random.default_rng(seed)
+    base = random_reads(rng, 24, k + 5, 3 * k)
+    if kind in ("random", "empty_dest"):
+        return base
+    if kind == "zero_length":
+        return ["", *base[:10], "", "", *base[10:], ""]
+    if kind == "shorter_than_k":
+        short = [r[: int(n)] for r, n in zip(base, rng.integers(1, k, len(base)))]
+        return [r for pair in zip(base, short) for r in pair]
+    if kind == "all_n":
+        return base[:12] + ["N" * (2 * k), "N" * k] + base[12:] + ["nNnN" * k]
+    if kind == "cap":
+        return random_reads(rng, 6, 600, 1000) + base[:4]
+    if kind == "heavy_top_bit":
+        return base + [top_bit_kmer(rng, k)] * 1500
+    raise ValueError(f"unknown kind {kind!r}")
+
+
+def supermer_case_dest(kind: str, n: int, num_dest: int, seed: int) -> np.ndarray:
+    """(n,) int32 destinations of one encoder case's flat stream:
+    piecewise constant in stretches of 1 to 40 positions (so that runs form
+    and break); one destination everywhere for `cap` (only the read ends
+    and the cap break runs); destination 1 never for `empty_dest`."""
+    rng = np.random.default_rng(seed)
+    if kind == "cap":
+        return np.zeros(n, dtype=np.int32)
+    pool = np.arange(num_dest)
+    if kind == "empty_dest":
+        pool = pool[pool != 1]
+    reps = rng.integers(1, 41, n + 1)
+    vals = rng.choice(pool, reps.size)
+    return np.repeat(vals, reps)[:n].astype(np.int32)
+
+
+def fill_meta_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int]]:
+    """(name, lengths int32, rid0 int32, pos0 uint32, n) of every
+    fill_run_meta case:
+
+    random    runs of 15 to 250 positions, random headers, spare tail
+    zero_pad  zero-length runs among the runs (their diffs stack on the
+              next start) and a tail of zero-length pad runs
+    wrap      headers that make every int32 difference wrap: rid0
+              alternating near -2^31 and 2^31 - 1, pos0 near 0 and 2^32 - 1
+    exact     runs that fill all n positions
+    one       a single run
+    """
+    rng = np.random.default_rng(91)
+    cases = []
+    for name in ("random", "zero_pad", "wrap", "exact", "one"):
+        lengths = rng.integers(15, 251, 64).astype(np.int32)
+        if name == "zero_pad":
+            lengths[rng.random(64) < 0.3] = 0
+            lengths = np.concatenate([lengths, np.zeros(9, np.int32)])
+        if name == "one":
+            lengths = lengths[:1]
+        m = lengths.size
+        rid0 = rng.integers(0, 2**20, m).astype(np.int32)
+        pos0 = rng.integers(0, 2**32, m, dtype=np.uint64).astype(np.uint32)
+        if name == "wrap":
+            rid0 = np.where(np.arange(m) % 2, 2**31 - 1 - np.arange(m),
+                            -(2**31) + np.arange(m)).astype(np.int32)
+            pos0 = np.where(np.arange(m) % 2, 2**32 - 1 - np.arange(m),
+                            np.arange(m)).astype(np.uint32)
+        total = int(lengths.sum())
+        n = total if name == "exact" else total + 37
+        cases.append((name, lengths, rid0, pos0, n))
+    return cases
+
+
+# --------------------------------------------------------------------------
 # Jobs for ranks spawned by parallel/spawn.spawn_ranks: each job reads its
 # inputs from an .npz file and writes this rank's outputs to
 # <out_dir>/<name>.<rank>.npz, so that a test compares them in its own
@@ -698,26 +800,31 @@ def mix_case_words(kind: str, n_words: int, n: int, seed: int) -> np.ndarray:
 # package).
 
 
+SUPERMER_COUNTED = ("_supermer_step", "heavy_precount")  # in supermer_route
 COUNTED = ("_shard_body_range", "_shard_body_range_combiner", "_shard_body_bucketed",
            "_shard_body_ext_range", "_shard_body_ext_bucketed", "count_reads_sharded",
-           "count_reads_sharded_ext", "count_reads_sharded_streaming")
+           "count_reads_sharded_ext", "count_reads_sharded_streaming", *SUPERMER_COUNTED)
 
 
 def call_counters(stack, pipeline_mod) -> dict:
     """Count the calls of the step bodies (the overflow retry and the
-    combiner re-run show in them) and of the sharded entries (the facade's
-    choice shows in them)."""
+    combiner re-run show in them), of the sharded entries (the facade's
+    choice shows in them), and of the supermer route's step and heavy
+    pre-count."""
     from unittest import mock
+
+    from .parallel import supermer_route
 
     calls = dict.fromkeys(COUNTED, 0)
     for name in calls:
-        real = getattr(pipeline_mod, name)
+        mod = supermer_route if name in SUPERMER_COUNTED else pipeline_mod
+        real = getattr(mod, name)
 
         def counted(*a, _real=real, _name=name, **k):
             calls[_name] += 1
             return _real(*a, **k)
 
-        stack.enter_context(mock.patch.object(pipeline_mod, name, counted))
+        stack.enter_context(mock.patch.object(mod, name, counted))
     return calls
 
 
@@ -748,6 +855,16 @@ def _run_count_job(kind: str, data, cfg, job: dict):
         return sharded.count_reads_sharded_ext_streaming(
             codes, lengths, cfg, job["batch_bases"], device=device,
             read_id_offset=job.get("read_id_offset", 0))
+    if kind.startswith("count_reads_supermer"):
+        from .parallel import supermer_route
+
+        entry = getattr(supermer_route, kind)
+        if kind == "count_reads_supermer_streaming":
+            return entry(codes, lengths, cfg, job["batch_bases"], device=device)
+        if kind == "count_reads_supermer":
+            return entry(codes, lengths, cfg, device=device)
+        return entry(codes, lengths, cfg, device=device,
+                     read_id_offset=job.get("read_id_offset", 0))
     raise ValueError(f"unknown job kind {kind!r}")
 
 
@@ -757,7 +874,9 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
 
       count_reads_sharded, count_flat_sharded (inputs: codes, valid),
       kmer_count (the facade), count_reads_sharded_streaming,
-      count_reads_sharded_ext, count_reads_sharded_ext_streaming
+      count_reads_sharded_ext, count_reads_sharded_ext_streaming,
+      count_reads_supermer, count_reads_supermer_ext,
+      count_reads_supermer_exchange, count_reads_supermer_streaming
                            cfg (KmerConfig fields), device; batch_bases for
                            the streaming kinds, optional async_depth and
                            read_id_offset; optional capacity (every range

@@ -82,15 +82,16 @@ def test_cli_matches_jax_cli(fasta, tmp_path, capsys, k, stream):
 ])
 def test_unported_paths_exit_nonzero(fasta, tmp_path, capsys, monkeypatch, flags):
     """Flags of paths that are not ported end the run with an error.
-    --combiner, --classifier, --routing minimizer and --dispatcher
-    round_robin are ported (they steer the sharded path): on one device
-    they change nothing, and the output file and histogram are those of the
-    run without them. --extension is ported: one-shot it
+    --combiner, --classifier, --routing minimizer, --routing supermer and
+    --dispatcher round_robin are ported (they steer the sharded path): on
+    one device they change nothing, and the output file and histogram are
+    those of the run without them, as the JAX CLI gives on one device;
+    --routing supermer with --single-device is an error, as there.
+    --extension is ported: one-shot it
     goes through count_reads_ext, with --stream-batch-bases through
     count_reads_streaming_ext, and the output and the validated counts are
     those of the run without it."""
-    if flags[0] in ("--combiner", "--classifier") or flags in (
-            ["--routing", "minimizer"], ["--dispatcher", "round_robin"]):
+    if flags[0] in ("--combiner", "--classifier", "--routing", "--dispatcher"):
         outs = []
         for extra in ([], flags):
             out_dir = tmp_path / ("with" if extra else "without")
@@ -100,6 +101,11 @@ def test_unported_paths_exit_nonzero(fasta, tmp_path, capsys, monkeypatch, flags
             assert "not ported yet" not in text.err and "validate OK" in text.out
             outs.append((_read(out_dir / "0.out"), _histogram(text.out)))
         assert outs[0] == outs[1] and outs[0][0]
+        if flags == ["--routing", "supermer"]:
+            with pytest.raises(SystemExit) as exc:
+                cli.main([fasta[0], "--device", "cpu", "--single-device", *flags])
+            assert exc.value.code == 2
+            assert "--single-device" in capsys.readouterr().err
         return
     if flags[0] != "--extension":
         assert cli.main([fasta[0], "--device", "cpu", *flags]) != 0
@@ -187,7 +193,9 @@ def test_cuda_device_is_the_default_and_raises_without_a_card(fasta):
 @pytest.mark.parametrize("flags", [
     [], ["--combiner"], ["--extension"], ["--stream-batch-bases", "700"],
     ["--extension", "--stream-batch-bases", "700"], ["--routing", "minimizer"],
-], ids=["default", "combiner", "extension", "stream", "extension_stream", "minimizer"])
+    ["--routing", "supermer"], ["--routing", "supermer", "--stream-batch-bases", "700"],
+], ids=["default", "combiner", "extension", "stream", "extension_stream", "minimizer",
+        "supermer", "supermer_stream"])
 def test_cli_across_two_ranks_matches_jax_cli(fasta, tmp_path, capsys, flags):
     """The port's CLI on 2 gloo ranks (WORLD_SIZE=2, as torchrun sets it)
     against the JAX CLI's multi-device run over the 8 virtual devices, with
@@ -196,6 +204,10 @@ def test_cli_across_two_ranks_matches_jax_cli(fasta, tmp_path, capsys, flags):
     sorted, and prints the histogram, equal to the JAX CLI's; rank 1 prints
     neither.
     """
+    _two_ranks_match_jax_cli(fasta, tmp_path, capsys, flags)
+
+
+def _two_ranks_match_jax_cli(fasta, tmp_path, capsys, flags):
     path, reads = fasta
     args = [path, "-k", "31", "-m", "17", *BOUNDS]
     out_dir = tmp_path / "port"
@@ -223,9 +235,14 @@ def test_cli_across_two_ranks_matches_jax_cli(fasta, tmp_path, capsys, flags):
 
 
 def test_cli_across_ranks_refuses_unported_modes(tmp_path, fasta, monkeypatch, capsys):
-    """The supermer routing and the JAX multi-process flags are not ported:
-    the CLI under WORLD_SIZE > 1 exits 2 before it joins a group."""
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    for flags in (["--routing", "supermer"], ["--coordinator", "localhost:1234"]):
-        assert cli.main([fasta[0], "--device", "cpu", *flags]) == 2
+    """The JAX multi-process flags are not ported: the CLI under
+    WORLD_SIZE > 1 exits 2 before it joins a group. The supermer routing
+    is: on 2 ranks in extension mode (one-shot, through the facade) it
+    gives the JAX CLI's output and histogram."""
+    with monkeypatch.context() as m:
+        m.setenv("WORLD_SIZE", "2")
+        assert cli.main([fasta[0], "--device", "cpu", "--coordinator",
+                         "localhost:1234"]) == 2
         assert "not ported yet" in capsys.readouterr().err
+    _two_ranks_match_jax_cli(fasta, tmp_path, capsys,
+                             ["--routing", "supermer", "--extension"])

@@ -64,6 +64,12 @@ SCENARIOS = [
     ("overflow", 4, "random", dict(BASE, classifier="plain"), "count_reads_sharded", 64),
 ]
 IDS = [f"{name}-{ws}ranks" for name, ws, *_ in SCENARIOS]
+# routing="supermer" through both entries, in the same spawn.
+SUPERMER_SCENARIOS = [
+    ("supermer", 2, "random", dict(BASE, routing="supermer"), "count_reads_sharded", None),
+    ("supermer_flat", 2, "random", dict(BASE, routing="supermer"), "count_flat_sharded",
+     None),
+]
 
 
 def _jax_result(ws, reads_kind, fields, kind):
@@ -86,7 +92,7 @@ def port_results(tmp_path_factory):
         d = root / f"ranks{ws}"
         d.mkdir()
         jobs = []
-        for name, w, reads_kind, fields, kind, capacity in SCENARIOS:
+        for name, w, reads_kind, fields, kind, capacity in SCENARIOS + SUPERMER_SCENARIOS:
             if w != ws:
                 continue
             codes, lengths = jfasta.reads_to_codes(_reads(reads_kind))
@@ -196,16 +202,23 @@ def test_partition_matches_jax_on_ragged_lengths(seed):
                 jsharded.partition_read_indices(lengths, num_shards)
 
 
-def test_unported_routes_raise():
-    """routing="supermer" is the one route across ranks that is not ported:
-    both entries say so before they touch a process group; none runs
-    another route quietly."""
-    codes, lengths = jfasta.reads_to_codes(_reads("random"))
-    cfg = KmerConfig(**dict(BASE, routing="supermer"))
-    with pytest.raises(NotImplementedError, match="supermer.*not ported yet"):
-        sharded.count_reads_sharded(codes, lengths, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="supermer.*not ported yet"):
-        sharded.count_flat_sharded(codes, codes, cfg, device="cpu")
+def test_unported_routes_raise(port_results):
+    """routing="supermer" is ported: count_reads_sharded ships supermers
+    (the supermer step runs, no other step body) and count_flat_sharded
+    takes the kmer_hash destination on its flat blocks, as the JAX function
+    does under this routing; both equal the JAX package on the same mesh
+    size."""
+    for name, ws, reads_kind, fields, kind, _ in SUPERMER_SCENARIOS:
+        want, want_hist = _jax_result(ws, reads_kind, fields, kind)
+        for got in port_results[(name, ws)]:
+            assert np.array_equal(got["keys"], want.keys), name
+            assert np.array_equal(got["counts"], want.counts), name
+            assert np.array_equal(got["hist"], want_hist), name
+            calls = dict(zip(testing.COUNTED, got["calls"].tolist()))
+            flat = kind == "count_flat_sharded"
+            assert calls["_supermer_step"] == (0 if flat else 1), name
+            assert calls["_shard_body_bucketed"] == (1 if flat else 0), name
+        assert len(want.keys) > 0
 
 
 def test_facade_inside_a_group_routes_to_the_sharded_path(monkeypatch):

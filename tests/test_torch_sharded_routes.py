@@ -127,6 +127,15 @@ SCENARIOS = [
     ("facade_stream", 2, "random", BASE, "kmer_count", dict(headroom=1)),
 ]
 IDS = [f"{name}-{ws}ranks" for name, ws, *_ in SCENARIOS]
+# routing="supermer" through the three sharded entries (the route itself is
+# tested in test_torch_supermer.py); run in the same spawns.
+SUPERMER_SCENARIOS = [
+    ("supermer", 2, "random", dict(BASE, routing="supermer"), ONE_SHOT, {}),
+    ("supermer_ext", 2, "random", dict(EXT, routing="supermer"), SEXT,
+     dict(read_id_offset=4)),
+    ("supermer_stream", 2, "random", dict(BASE, routing="supermer"), STREAM,
+     dict(batch_bases=600)),
+]
 
 
 def _jax_result(ws, reads_kind, fields, kind, opts):
@@ -158,7 +167,7 @@ def port_results(tmp_path_factory):
         d = root / f"ranks{ws}"
         d.mkdir()
         jobs = []
-        for name, w, reads_kind, fields, kind, opts in SCENARIOS:
+        for name, w, reads_kind, fields, kind, opts in SCENARIOS + SUPERMER_SCENARIOS:
             if w != ws:
                 continue
             codes, lengths = jfasta.reads_to_codes(_reads(reads_kind))
@@ -304,16 +313,29 @@ def test_run_with_capacity_retry():
         assert len(seen) == attempts
 
 
-def test_supermer_routing_still_raises():
+def test_supermer_routing_still_raises(port_results):
+    """routing="supermer" runs through count_reads_sharded,
+    count_reads_sharded_ext and count_reads_sharded_streaming (the supermer
+    step, no other step body) and equals the JAX package; extension mode
+    through count_reads_sharded_streaming still raises, with or without
+    it, as in the JAX package."""
+    for name, ws, reads_kind, fields, kind, opts in SUPERMER_SCENARIOS:
+        want, want_hist = _jax_result(ws, reads_kind, fields, kind, opts)
+        for got in port_results[(name, ws)]:
+            assert np.array_equal(got["keys"], want.keys), name
+            assert np.array_equal(got["counts"], want.counts), name
+            assert np.array_equal(got["hist"], want_hist), name
+            if fields.get("extension"):
+                assert _as_ext(got, fields["k"]).as_dict() == want.as_dict(), name
+            calls = _calls(got)
+            assert calls["_supermer_step"] >= 1, name
+            assert not any(n for b, n in calls.items() if b.startswith("_shard_body"))
+        assert len(want.keys) > 0
     codes, lengths = jfasta.reads_to_codes(_reads("random"))
-    cfg = KmerConfig(**dict(BASE, routing="supermer"))
-    for entry in (sharded.count_reads_sharded, sharded.count_reads_sharded_ext,
-                  sharded.count_reads_sharded_streaming):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            entry(codes, lengths, cfg, device="cpu")
-    with pytest.raises(ValueError, match="count_reads_sharded_ext_streaming"):
-        sharded.count_reads_sharded_streaming(
-            codes, lengths, KmerConfig(**EXT), device="cpu")
+    for fields in (EXT, dict(EXT, routing="supermer")):
+        with pytest.raises(ValueError, match="count_reads_sharded_ext_streaming"):
+            sharded.count_reads_sharded_streaming(
+                codes, lengths, KmerConfig(**fields), device="cpu")
 
 
 CUDA_SCENARIOS = [s for s in SCENARIOS if s[1] == 2 and s[0] in (

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's sharded range exchange (hysortk_tpu_torch.parallel) on
-the cards of one host, beside one-device counting of the same reads.
+"""Time the port's sharded routes (hysortk_tpu_torch.parallel) on the cards
+of one host, beside one-device counting of the same reads.
 
     python3 tools/bench_torch_sharded.py [--ranks N] [--bases B] [--repeats R]
+                                         [--with-supermer]
 
 Run from the repository root on a machine with sm_90 cards and the CUDA
 toolkit. The reads are those of chip_smoke.py phase 2, made in memory from
@@ -12,11 +13,14 @@ K=31, M=17, L=2, U=50.
 
 The script first counts them on cuda:0 alone (kmer_count, one warm-up call
 and R timed calls), then spawns N ranks (default: one per card) that count
-them with count_reads_sharded, one warm-up call and R timed calls each. The
-backend follows parallel/group.backend_for: NCCL when every rank has a card
-of its own, gloo through pinned host buffers when ranks share one. The
-sharded result must equal the one-device result after sorting by key,
-histogram included. It prints the card's name and power limit, per rank the
+them with count_reads_sharded, one warm-up call and R timed calls each: by
+the range exchange (the default route), and with --with-supermer by the
+supermer route too (parallel/supermer_route.py), so that each rank's bytes
+and seconds in the exchange stand beside the range route's. The backend
+follows parallel/group.backend_for: NCCL when every rank has a card of its
+own, gloo through pinned host buffers when ranks share one. Every sharded
+result must equal the one-device result after sorting by key, histogram
+included. It prints the card's name and power limit, per rank and route the
 walls, the peak device memory, the bytes sent and the seconds in the
 exchange, and as its last line one JSON object.
 """
@@ -57,10 +61,10 @@ def seeded_reads(n_bases: int) -> tuple[np.ndarray, np.ndarray]:
     return reads.reshape(-1), np.full(n_reads, READ_LEN, dtype=np.int64)
 
 
-def config():
+def config(routing: str = "range"):
     import hysortk_tpu_torch as ht
 
-    return ht.KmerConfig(k=K, m=M, lower=LOWER, upper=UPPER)
+    return ht.KmerConfig(k=K, m=M, lower=LOWER, upper=UPPER, routing=routing)
 
 
 def timed_calls(run, repeats: int) -> dict:
@@ -87,23 +91,28 @@ def timed_calls(run, repeats: int) -> dict:
                 traffic=dict(exchange.traffic))
 
 
-def rank_main(rank: int, inputs: str, out_dir: str, repeats: int) -> None:
+def rank_main(rank: int, inputs: str, out_dir: str, repeats: int,
+              routings: list) -> None:
     import torch
     import torch.distributed as dist
 
     from hysortk_tpu_torch.parallel import pipeline as sharded
 
     data = np.load(inputs)
-    cfg = config()
-    stats = timed_calls(lambda: sharded.count_reads_sharded(
-        data["codes"], data["lengths"], cfg), repeats)
-    kl, hist = stats.pop("result")
-    if rank == 0:
-        np.savez(os.path.join(out_dir, "result.npz"), keys=kl.keys,
-                 counts=kl.counts, hist=hist)
-    stats.update(backend=dist.get_backend(), device=str(torch.cuda.current_device()))
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(stats, f)
+    for routing in routings:
+        cfg = config(routing)
+        stats = timed_calls(lambda: sharded.count_reads_sharded(
+            data["codes"], data["lengths"], cfg), repeats)
+        kl, hist = stats.pop("result")
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"result-{routing}.npz"), keys=kl.keys,
+                     counts=kl.counts, hist=hist)
+        del kl, hist
+        torch.cuda.empty_cache()
+        stats.update(backend=dist.get_backend(),
+                     device=str(torch.cuda.current_device()))
+        with open(os.path.join(out_dir, f"rank{rank}-{routing}.json"), "w") as f:
+            json.dump(stats, f)
 
 
 def sorted_by_key(keys, counts):
@@ -118,7 +127,10 @@ def main() -> int:
     p.add_argument("--ranks", type=int, default=0, help="default: one per card")
     p.add_argument("--bases", type=int, default=1 << 26)
     p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--with-supermer", action="store_true",
+                   help="also time the supermer route, beside the range route")
     args = p.parse_args()
+    routings = ["range"] + (["supermer"] if args.with_supermer else [])
     if not torch.cuda.is_available():
         print("bench_torch_sharded: needs a CUDA device", file=sys.stderr)
         return 1
@@ -148,41 +160,52 @@ def main() -> int:
         inputs = os.path.join(out_dir, "reads.npz")
         np.savez(inputs, codes=codes, lengths=lengths)
         t0 = time.perf_counter()
-        spawn_ranks(rank_main, ranks, (inputs, out_dir, args.repeats),
+        spawn_ranks(rank_main, ranks, (inputs, out_dir, args.repeats, routings),
                     workdir=out_dir, device="cuda", timeout=900)
         spawn_s = time.perf_counter() - t0
-        res = dict(np.load(os.path.join(out_dir, "result.npz")))
-        stats = []
-        for r in range(ranks):
-            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-                stats.append(json.load(f))
+        res, stats = {}, {}
+        for routing in routings:
+            res[routing] = dict(np.load(os.path.join(out_dir, f"result-{routing}.npz")))
+            stats[routing] = []
+            for r in range(ranks):
+                with open(os.path.join(out_dir, f"rank{r}-{routing}.json")) as f:
+                    stats[routing].append(json.load(f))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    got = sorted_by_key(res["keys"], res["counts"])
     want = sorted_by_key(want_kl.keys, want_kl.counts)
-    equal = (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
-             and np.array_equal(res["hist"], want_hist))
-    for r, st in enumerate(stats):
-        t = st["traffic"]
-        print(f"rank {r} ({st['backend']}, cuda:{st['device']}): walls "
-              f"{', '.join(f'{w:.4f}' for w in st['walls'])} s; peak "
-              f"{st['peak'] / 2**30:.3f} GiB; sent {t['bytes_sent']} B, "
-              f"{t['seconds'] * 1e3:.1f} ms in the exchange; launches "
-              f"{json.dumps(st['launches'])}", flush=True)
+    equal = {}
+    for routing in routings:
+        got = sorted_by_key(res[routing]["keys"], res[routing]["counts"])
+        equal[routing] = bool(
+            np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and np.array_equal(res[routing]["hist"], want_hist))
+    for r in range(ranks):
+        for routing in routings:
+            st = stats[routing][r]
+            t = st["traffic"]
+            print(f"rank {r} {routing} ({st['backend']}, cuda:{st['device']}): walls "
+                  f"{', '.join(f'{w:.4f}' for w in st['walls'])} s; peak "
+                  f"{st['peak'] / 2**30:.3f} GiB; sent {t['bytes_sent']} B, "
+                  f"{t['seconds'] * 1e3:.1f} ms in the exchange; launches "
+                  f"{json.dumps(st['launches'])}", flush=True)
     record = {
         "card": smi, "cards": torch.cuda.device_count(), "ranks": ranks,
-        "backend": stats[0]["backend"], "bases": int(codes.size),
-        "kept": len(want_kl), "equal": bool(equal),
+        "backend": stats["range"][0]["backend"], "bases": int(codes.size),
+        "kept": len(want_kl), "equal": equal,
         "one_device_walls_s": one["walls"], "one_device_peak_b": one["peak"],
-        "rank_walls_s": [st["walls"] for st in stats],
-        "rank_exchange_s": [st["traffic"]["seconds"] for st in stats],
-        "rank_bytes_sent": [st["traffic"]["bytes_sent"] for st in stats],
-        "rank_peak_b": [st["peak"] for st in stats],
         "spawn_s": spawn_s,
     }
+    for routing in routings:
+        sts = stats[routing]
+        record[routing] = {
+            "rank_walls_s": [st["walls"] for st in sts],
+            "rank_exchange_s": [st["traffic"]["seconds"] for st in sts],
+            "rank_bytes_sent": [st["traffic"]["bytes_sent"] for st in sts],
+            "rank_peak_b": [st["peak"] for st in sts],
+        }
     print(json.dumps(record))
-    if not equal:
-        print("bench_torch_sharded: the sharded result differs", file=sys.stderr)
+    if not all(equal.values()):
+        print("bench_torch_sharded: a sharded result differs", file=sys.stderr)
         return 1
     return 0
 
