@@ -102,6 +102,18 @@ build/kernels/ at first use. Phases, each printing its findings:
      (extension mode: every occurrence as sorted (key, rid, pos) rows); per
      rank the wall, the peak device memory, the bytes sent and the kernels'
      launches
+ 12  multi-process runs (parallel/multihost.py) through the CLI's
+     --coordinator, each process reading its own records of the FASTA and
+     writing its share to <rank>.out: (a) two processes sharing the card
+     over gloo and (b) one process over NCCL on phase 2's FASTA, (c)
+     --routing supermer on two processes, each against phase 2; (d)
+     --extension --stream-batch-bases 2^24 on two processes on phase 2's
+     FASTA against phase 8(a)'s one-shot extension result. Each time the
+     union of the
+     shares equals the reference's lines (so the shares are disjoint) and
+     the printed histogram the reference's; per rank its wall, its stage
+     times (read shard, pack, step, merge, result, write), its peak device
+     memory and its kernels' launches
 
 Any failure raises (exit code 1); a rank's failure fails its spawn. Without
 a CUDA device the script exits 1 before printing any result. The last three
@@ -2075,9 +2087,10 @@ def phase10_minimizer_stages(codes, lengths, cfg) -> None:
     dev = torch.device("cuda", torch.cuda.current_device())
     for _ in range(2):
         stages.clear()
-        packed, lens, block_len, _ = timed(
+        packed, lens, block_len = timed(
             "host partition + pack + H2D",
-            lambda: sharded._rank_wire(codes, lengths, cfg, None, dev))
+            lambda: sharded._rank_wire(*sharded._rank_share(codes, lengths, None)[:2],
+                                       cfg, None, dev))
         codes_d, valid_d = timed("decode", lambda: wire.decode_block(
             packed, lens, cfg.k, block_len))
         bucket = timed("minimizer scan", lambda: minimizer.kmer_destinations(
@@ -2296,6 +2309,7 @@ def phase11_stages(codes, lengths, cfg, range_traffic) -> None:
     route's of 9(a)."""
     import torch
 
+    from hysortk_tpu_torch.io import fasta as fasta_io
     from hysortk_tpu_torch.ops import keybuild, radix_sort
     from hysortk_tpu_torch.parallel import dispatch, exchange
     from hysortk_tpu_torch.parallel import pipeline as sharded
@@ -2314,8 +2328,13 @@ def phase11_stages(codes, lengths, cfg, range_traffic) -> None:
     for _ in range(2):
         stages.clear()
         exchange.reset_traffic()
-        flat_codes, flat_valid, lens, first = timed(
-            "partition + flatten", lambda: sr._rank_flat(codes, lengths, cfg, None))
+        def partition_flatten():  # supermer_route._supermer_step's first stage
+            mine, lens, first = sharded._rank_share(codes, lengths, None)
+            return (*fasta_io.flatten_for_device(mine, lens, cfg.k, cfg.pad_multiple),
+                    lens, first)
+
+        flat_codes, flat_valid, lens, first = timed("partition + flatten",
+                                                    partition_flatten)
         dest = timed("destination scan", lambda: sr.host_destinations(
             flat_codes, cfg.k, cfg.m, sharded._num_buckets(cfg, 1), dev))
         types, assign = timed("sizes + plan", lambda: sr._plan(
@@ -2469,6 +2488,130 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
     log(f"phase11 {time.perf_counter() - t_phase:.1f} s in all")
 
 
+# --------------------------------------------------------------------------
+# Phase 12
+
+CLI_BOUNDS = ["-k", str(K), "-m", str(M), "-l", str(LOWER), "-u", str(UPPER)]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_cli_processes(fasta: str, out_dir: str, n: int, flags: list) -> tuple[str, list]:
+    """python -m hysortk_tpu_torch.cli as n processes joined at --coordinator
+    on this host, all on this card: rank 0's standard output and each
+    process's wall, start to exit."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hysortk_tpu_torch.cli", fasta, out_dir, *CLI_BOUNDS,
+         "--device", "cuda", "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", str(n), "--process-id", str(r), *flags],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(n)]
+    outs, walls = [], []
+    try:
+        for r, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=400)
+            walls.append(time.perf_counter() - t0)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 12 process {r} exited {proc.returncode}:\n"
+                                     f"{out[-2000:]}\n{err[-4000:]}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs[0], walls
+
+
+def sorted_lines(paths) -> list:
+    """Every `kmer\tcount` line of the files, sorted; a file without one
+    fails (every rank owns a share)."""
+    lines = []
+    for path in paths:
+        with open(path, "rb") as f:
+            part = f.read().splitlines()
+        if not part:
+            raise AssertionError(f"{path} holds no k-mer")
+        lines += part
+    lines.sort()
+    return lines
+
+
+def histogram_block(text: str) -> str:
+    start = text.index("#count")
+    return text[start: text.index("\n\n", start) + 2]
+
+
+def phase12_run(tag: str, what: str, fasta: str, out_root: str, n: int, flags: list,
+                want_lines: list, want_hist: str, kernels: tuple, backend: str) -> None:
+    """One multi-process CLI run: the union of its <rank>.out files equal
+    to the reference's lines (so the shares are disjoint), its histogram to
+    the reference's, every rank's kernels launched; every rank's line
+    logged."""
+    out_dir = os.path.join(out_root, tag)
+    out, walls = run_cli_processes(fasta, out_dir, n, flags)
+    if f"{n} processes ({backend})" not in out:
+        raise AssertionError(f"phase 12({tag}) did not join {n} processes over {backend}")
+    ranks = [line for line in out.splitlines() if line.startswith("[proc ")]
+    if len(ranks) != n:
+        raise AssertionError(f"phase 12({tag}): {len(ranks)} rank lines of {n}")
+    for r, line in enumerate(ranks):
+        launches = json.loads(line[line.index("launches ") + len("launches "):])
+        missing = [k for k in kernels if launches.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"phase 12({tag}) rank {r} launched no {missing}")
+        log(f"phase12{tag} {line}; process wall {walls[r]:.2f} s")
+    got = sorted_lines([os.path.join(out_dir, f"{r}.out") for r in range(n)])
+    if got != want_lines:
+        raise AssertionError(f"phase 12({tag}): the union of {n} shares ({len(got)} "
+                             f"lines) is not the reference's ({len(want_lines)})")
+    if histogram_block(out) != want_hist:
+        raise AssertionError(f"phase 12({tag}): the histogram differs")
+    log(f"phase12{tag} {what}: {n} processes over {backend}, {len(got)} k-mers in "
+        f"{n} disjoint shares, their union and the histogram equal to the reference")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase12_multiprocess(workdir: str, one_shot, ext_one_shot) -> None:
+    """The CLI's multi-process run on phase 2's FASTA: (a) two processes
+    sharing the card over gloo, (b) one process over NCCL, (c) supermer
+    routing on two processes, each against phase 2; (d) extension mode
+    streamed in batches of STREAM_BATCH on two processes against phase
+    8(a)'s one-shot extension result."""
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch.io import writer
+
+    t_phase = time.perf_counter()
+    fasta = os.path.join(workdir, "reads.fa")
+    want_lines = sorted_lines([os.path.join(workdir, "out", "0.out")])
+    want_hist = writer.format_histogram(one_shot[1])
+    range_kernels = CORE_KERNELS + ("mix_keys",)
+    phase12_run("a", "range, one-shot", fasta, workdir, 2, [], want_lines, want_hist,
+                range_kernels, "gloo")
+    phase12_run("b", "range, one-shot", fasta, workdir, 1, [], want_lines, want_hist,
+                range_kernels, "nccl")
+    phase12_run("c", "supermer routing, one-shot", fasta, workdir, 2,
+                ["--routing", "supermer"], want_lines, want_hist, CORE_KERNELS, "gloo")
+    del want_lines
+
+    ext_kl, ext_hist = ext_one_shot
+    want_ext = sorted(writer.format_output_lines(
+        ht.KmerList(ext_kl.keys, ext_kl.counts, K)).splitlines())
+    phase12_run("d", f"extension mode streamed in batches of {STREAM_BATCH}", fasta,
+                workdir, 2, ["--extension", "--stream-batch-bases", str(STREAM_BATCH)],
+                want_ext, writer.format_histogram(ext_hist), range_kernels, "gloo")
+    log(f"phase12 {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2513,6 +2656,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
                          range_traffic)
+        torch.cuda.empty_cache()
+        phase12_multiprocess(workdir, one_shot, ext_one_shot)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     times.update(stream_times)

@@ -16,7 +16,13 @@ torch.distributed process group, one device a rank
 (parallel/pipeline.count_reads_sharded: the range exchange by default, the
 minimizer and kmer_hash routings, and supermer routing, the reference's own
 exchange, parallel/supermer_route.py; count_reads_sharded_streaming,
-count_reads_sharded_ext, count_reads_sharded_ext_streaming). It imports
+count_reads_sharded_ext, count_reads_sharded_ext_streaming), and
+multi-process runs, where each process reads its own records of a FASTA
+file and keeps its own share of the result with the global histogram
+(parallel/multihost.py: count_fasta_multihost, count_fasta_multihost_ext,
+count_fasta_multihost_streaming, count_fasta_multihost_ext_streaming;
+count_fasta_multihost_supermer; the group joined by
+initialize_distributed, as the CLI's --coordinator does). It imports
 neither jax nor hysortk_tpu.
 """
 
@@ -58,6 +64,13 @@ _SUPERMER_ENTRIES = (
     "count_reads_supermer",
     "count_reads_supermer_ext",
     "count_reads_supermer_exchange",
+    "count_fasta_multihost_supermer",
+)
+_MULTIHOST_ENTRIES = (
+    "count_fasta_multihost",
+    "count_fasta_multihost_ext",
+    "count_fasta_multihost_streaming",
+    "count_fasta_multihost_ext_streaming",
 )
 
 __all__ = [
@@ -77,6 +90,7 @@ __all__ = [
     "count_reads_streaming_ext",
     *_SHARDED_ENTRIES,
     *_SUPERMER_ENTRIES,
+    *_MULTIHOST_ENTRIES,
 ]
 
 
@@ -90,6 +104,10 @@ def __getattr__(name):
         from .parallel import supermer_route as _sr
 
         return getattr(_sr, name)
+    if name in _MULTIHOST_ENTRIES:
+        from .parallel import multihost as _mh
+
+        return getattr(_mh, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -2,23 +2,38 @@
 
 The port of hysortk_tpu/cli.py. Mirrors the reference standalone binary
 (reference: standalone/main.cpp:9-72): prints the parameter block, runs
-read -> count -> histogram -> output files, on one device, or under
-torchrun (WORLD_SIZE > 1) across its ranks, one device a rank (rank 0
-prints the histogram and writes the one output file, as the JAX CLI's
-multi-device run writes one): one-shot, streamed (--stream-batch-bases),
-in extension mode, by any routing (--routing supermer ships supermers; on
-one device it changes nothing, as in the JAX CLI, and with --single-device
-it is an error). The JAX multi-process flags (--coordinator,
---num-processes, --process-id) are not ported yet: they are accepted and
-end the run with an error.
+read -> count -> histogram -> output files, on one device, or across the
+ranks of a process group, one device a rank: one-shot, streamed
+(--stream-batch-bases), in extension mode, by any routing (--routing
+supermer ships supermers; on one device it changes nothing, as in the JAX
+CLI, and with --single-device it is an error).
 
-    torchrun --nproc-per-node 2 -m hysortk_tpu_torch.cli reads.fa out/ --device cpu
+Two ways to run across ranks:
+
+  * under torchrun (WORLD_SIZE > 1) every rank reads the whole FASTA and
+    counts its share of it; rank 0 prints the histogram and writes the one
+    output file, as the JAX CLI's multi-device run writes one:
+
+        torchrun --nproc-per-node 2 -m hysortk_tpu_torch.cli reads.fa out/ --device cpu
+
+  * as the JAX CLI's multi-process run, one command a process joined at
+    --coordinator (parallel/multihost.py; at any process count, one
+    included): each process reads only its own records, keeps its own share
+    of the result and writes it to <outdir>/<process id>.out; rank 0 prints
+    the global histogram, and every rank's stage times are printed by rank
+    0 in rank order:
+
+        python -m hysortk_tpu_torch.cli reads.fa out/ --coordinator 127.0.0.1:29500 \
+            --num-processes 2 --process-id 0 &
+        python -m hysortk_tpu_torch.cli reads.fa out/ --coordinator 127.0.0.1:29500 \
+            --num-processes 2 --process-id 1
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import logging
 import os
 import sys
@@ -86,33 +101,24 @@ def build_parser() -> argparse.ArgumentParser:
                    default="balanced",
                    help="bucket placement under minimizer routing (no "
                         "effect on one rank)")
-    # Paths that are not ported yet: accepted, then refused.
-    p.add_argument("--coordinator", default=None,
-                   help="multi-process coordinator address (not ported yet; "
-                        "run under torchrun instead)")
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process run: the address process 0 listens on "
+                        "(with --num-processes and --process-id); each "
+                        "process reads its own records and writes "
+                        "<process id>.out")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-process run: the number of processes")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-process run: this process's rank")
     return p
-
-
-def unported_flags(args: argparse.Namespace) -> list[str]:
-    """The flags of `args` that ask for a path this package does not have."""
-    asked = {
-        "--coordinator": args.coordinator is not None,
-        "--num-processes": args.num_processes is not None,
-        "--process-id": args.process_id is not None,
-    }
-    return [flag for flag, on in asked.items() if on]
 
 
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    refused = unported_flags(args)
-    if refused:
-        print(f"hysortk_tpu_torch: {', '.join(refused)}: not ported yet",
-              file=sys.stderr)
-        return 2
+    if args.coordinator is not None and (args.num_processes is None
+                                         or args.process_id is None):
+        p.error("--coordinator needs --num-processes and --process-id")
     if args.routing == "supermer" and args.single_device:
         p.error("--routing supermer is a sharded dispatch path; it does not "
                 "combine with --single-device (use the default range routing "
@@ -137,28 +143,37 @@ def main(argv=None) -> int:
         combiner=args.combiner, classifier=args.classifier,
         routing=args.routing, dispatcher=args.dispatcher,
     )
-    sharded = int(os.environ.get("WORLD_SIZE", "1")) > 1
-    owns_group = sharded and not dist.is_initialized()
+    multiproc = args.coordinator is not None
+    sharded = not multiproc and int(os.environ.get("WORLD_SIZE", "1")) > 1
+    owns_group = (sharded or multiproc) and not dist.is_initialized()
     try:
-        return _run(args, p, cfg, sharded)
+        return _run(args, p, cfg, sharded, multiproc)
     finally:
         if owns_group and dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _run(args, p, cfg, sharded: bool) -> int:
+def _run(args, p, cfg, sharded: bool, multiproc: bool) -> int:
     import torch
     import torch.distributed as dist
 
+    from . import _build
     from . import kmer_count, print_kmer_histogram, read_dna_buffer, write_output_file
     from .parallel import pipeline as sharded_pipeline
     from .pipeline import resolve_device
     from .runtime import memcheck
+    from .runtime import timer as timer_mod
     from .runtime.logger import Logger
     from .runtime.scheduler import count_reads_streaming, count_reads_streaming_ext
     from .runtime.timer import Timer
 
-    if sharded:
+    if multiproc:
+        from .parallel import multihost
+
+        dev = multihost.initialize_distributed(args.coordinator, args.num_processes,
+                                               args.process_id, args.device)
+        rank, ranks = dist.get_rank(), dist.get_world_size()
+    elif sharded:
         from .parallel import group
 
         dev = group.init_from_env(args.device)
@@ -171,14 +186,25 @@ def _run(args, p, cfg, sharded: bool) -> int:
     log.root(f"hysortk_tpu_torch | k={cfg.k} m={cfg.m} L={cfg.lower} "
              f"U={cfg.upper}")
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    log.root(f"device: {dev} ({kind})" + (f", {ranks} ranks" if sharded else ""))
+    log.root(f"device: {dev} ({kind})" + (f", {ranks} ranks" if sharded else "")
+             + (f", {ranks} processes ({dist.get_backend()})" if multiproc else ""))
     log.root(f"input: {args.fasta}")
 
-    timer = Timer(synchronized=dev.type == "cuda")
+    # Synchronized spans: the device, and across ranks a barrier, like the
+    # reference Timer's barrier + MPI_Wtime (include/timer.hpp:24-68); so
+    # every rank enters every span below.
+    timer = Timer(synchronized=dev.type == "cuda" or ranks > 1)
     with timer.span("read_fasta"):
-        codes, lengths = read_dna_buffer(args.fasta)
-    log.root(f"{lengths.size} reads, {codes.size} bases "
-             f"({codes.size / max(timer.last('read_fasta'), 1e-9) / 1e6:.1f} Mb/s)")
+        if multiproc:
+            # The index of this rank's records only: the count reads them.
+            records, _ = multihost.my_records(args.fasta, None)
+            n_reads, n_bases = len(records), sum(r.length for r in records)
+        else:
+            codes, lengths = read_dna_buffer(args.fasta)
+            n_reads, n_bases = lengths.size, codes.size
+    log.root(("rank 0's records: " if multiproc else "")
+             + f"{n_reads} reads, {n_bases} bases "
+             f"({n_bases / max(timer.last('read_fasta'), 1e-9) / 1e6:.1f} Mb/s)")
 
     if args.profile:
         from .runtime.profiling import trace as profile_trace
@@ -187,8 +213,27 @@ def _run(args, p, cfg, sharded: bool) -> int:
     else:
         profile_cm = contextlib.nullcontext()
 
+    stages = {}  # the last count's stage seconds, multi-process runs only
+
     def _do_count():
         batch = args.stream_batch_bases
+        _build.reset_launches()
+        if multiproc:
+            # The JAX CLI's multi-process branches; each entry hands
+            # routing="supermer" to its supermer_route counterpart.
+            if batch:
+                entry = functools.partial(
+                    multihost.count_fasta_multihost_ext_streaming if args.extension
+                    else multihost.count_fasta_multihost_streaming,
+                    batch_bases=batch)
+            else:
+                entry = (multihost.count_fasta_multihost_ext if args.extension
+                         else multihost.count_fasta_multihost)
+            with timer_mod.record_stages() as seconds:
+                result = entry(args.fasta, cfg, device=dev)
+            stages.clear()
+            stages.update(seconds)
+            return result
         if args.extension and batch:
             # Bounded-memory EXT: per-batch unfiltered occurrence partials
             # merged on the host.
@@ -223,7 +268,10 @@ def _run(args, p, cfg, sharded: bool) -> int:
     if args.validate:
         # Runtime sanitizer (the role ASan/UBSan builds play for the
         # reference): recount on the host with the brute-force oracle and
-        # require exact {kmer: count} equality.
+        # require exact {kmer: count} equality; a process of a
+        # multi-process run checks that its share is contained in it.
+        if multiproc:
+            codes, lengths = read_dna_buffer(args.fasta)
         if codes.size > 4 * 1024 * 1024:
             p.error("--validate is for inputs up to ~4 Mb")
         import numpy as np
@@ -245,7 +293,12 @@ def _run(args, p, cfg, sharded: bool) -> int:
         got = kmerlist.as_dict()
         if args.extension:  # (count, occurrences) per k-mer: the counts
             got = {km: entry[0] for km, entry in got.items()}
-        if got != want:
+        ok = got == want
+        if multiproc:  # every rank returns together
+            ok = all(want.get(km) == c for km, c in got.items())
+            ok = bool(sharded_pipeline._all_reduce_host(
+                [int(ok)], dist.ReduceOp.MIN, dev, None)[0])
+        if not ok:
             log.root("VALIDATE FAILED: device result != host oracle")
             return 1
         log.root(f"validate OK ({len(got)} kmers vs host oracle)")
@@ -253,14 +306,41 @@ def _run(args, p, cfg, sharded: bool) -> int:
     if not args.no_histogram and rank == 0:
         print_kmer_histogram(hist)
 
-    if args.output_dir and rank == 0:
+    if args.output_dir:
+        # A multi-process run writes each process's share to <rank>.out,
+        # like the reference (src/hysortk.cpp:138-164); under torchrun rank
+        # 0 writes the whole list. Every rank enters the span.
         with timer.span("write_output"):
-            path = write_output_file(kmerlist, args.output_dir)
+            path = (write_output_file(kmerlist, args.output_dir,
+                                      shard=rank if multiproc else 0)
+                    if multiproc or rank == 0 else None)
         log.root(f"wrote {path}")
 
+    if multiproc:
+        log.log(_rank_line(kmerlist, timer, last_span, dev, stages))
+        log.flush("per rank")
     log.root(timer.report())
     log.root(memcheck.gathered_memory_report())
     return 0
+
+
+def _rank_line(kmerlist, timer, last_span: str, dev, stages: dict) -> str:
+    """One rank's line of a multi-process run: its share, the wall of its
+    count, the seconds of each stage of it (runtime/timer.record_stages)
+    and of the output file, its peak device memory and its kernels'
+    launches in the count (_build.launches)."""
+    import json
+
+    import torch
+
+    from ._build import launches
+
+    stages = dict(stages, write=timer.total("write_output"))
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
+            if dev.type == "cuda" else "not measured (cpu)")
+    return (f"{len(kmerlist)} kmers, wall {timer.last(last_span):.4f} s, stages s: "
+            + ", ".join(f"{name} {sec:.4f}" for name, sec in stages.items())
+            + f", peak device memory {peak}, launches {json.dumps(launches)}")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,9 @@
 """Host-side FASTA input: index, partition, parse, 2-bit pack, flatten.
 
-The jax-free host code of hysortk_tpu/io/fasta.py, carried over unchanged for
-one process: the single-device flattener and the extension-mode one
-(`flatten_for_device_ext`, with each slot's read id and position). The
-multi-host read-id helpers (`read_displacements`, `getreadowner`) are not
-part of it yet.
+The jax-free host code of hysortk_tpu/io/fasta.py, carried over unchanged:
+the single-device flattener, the extension-mode one
+(`flatten_for_device_ext`, with each slot's read id and position), and the
+multi-process read-id helpers (`read_displacements`, `getreadowner`).
 
 TPU-native redesign of the reference's FastaIndex + DnaBuffer input stage
 (reference: src/fastaindex.cpp, src/dnabuffer.cpp, src/dnaseq.cpp):
@@ -148,6 +147,33 @@ def partition_records(
         parts[shard].append(i)
         acc += rec.length
     return parts
+
+
+def read_displacements(parts: Sequence[Sequence[int]]) -> np.ndarray:
+    """Per-shard read displacements for a partition_records() result:
+    displs[s] = global id of shard s's first read; displs[n_shards] = total
+    reads. The analogue of the reference's readdispls vector
+    (fastaindex.hpp:23, built in fastaindex.cpp:102-130) — valid because
+    partition_records assigns CONTIGUOUS ranges."""
+    displs = np.zeros(len(parts) + 1, dtype=np.int64)
+    for s, idxs in enumerate(parts):
+        displs[s + 1] = displs[s] + len(idxs)
+    return displs
+
+
+def getreadowner(displs: np.ndarray, read_id) -> np.ndarray:
+    """Owner shard of global read id(s): the rank r with
+    displs[r] <= read_id < displs[r+1]. Mirrors FastaIndex::getreadowner
+    (reference fastaindex.cpp:30-50, upper_bound on readdispls); vectorized
+    so downstream consumers (ELBA-style overlappers) can map whole id
+    arrays at once."""
+    ids = np.asarray(read_id, dtype=np.int64)
+    if np.any(ids < 0) or np.any(ids >= displs[-1]):
+        raise IndexError(
+            f"read id out of range [0, {int(displs[-1])})"
+        )
+    owner = np.searchsorted(displs, ids, side="right") - 1
+    return owner if ids.shape else int(owner)
 
 
 def read_records(

@@ -54,18 +54,20 @@ def backend_for(device: torch.device, local_world_size: int) -> str:
     return "gloo"
 
 
-def init(init_method: str, rank: int, world_size: int, device="cuda",
-         local_world_size: int | None = None) -> torch.device:
+def init(init_method: str | None, rank: int, world_size: int, device="cuda",
+         local_world_size: int | None = None, store=None) -> torch.device:
     """Join the default process group as `rank` of `world_size` and return
     this rank's device. The backend follows `backend_for`; rank 0 logs the
-    choice. local_world_size defaults to world_size (one host)."""
+    choice. local_world_size defaults to world_size (one host). A `store`
+    (a torch.distributed Store every rank has already reached) takes the
+    place of init_method."""
     dev = rank_device(device)
     lws = world_size if local_world_size is None else local_world_size
     backend = backend_for(dev, lws)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world_size)
+    meeting = {"init_method": init_method} if store is None else {"store": store}
+    dist.init_process_group(backend, rank=rank, world_size=world_size, **meeting)
     if rank == 0:
         _LOG.info(
             "process group: %d ranks, backend %s (%s)", world_size, backend,

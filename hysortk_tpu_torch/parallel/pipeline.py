@@ -2,9 +2,14 @@
 
 The port of hysortk_tpu/parallel/pipeline.py (and of the packed-wire entry
 of multihost._count_multihost_packed). Each rank is one process with one
-device (parallel/group.py); every rank is given the same global reads,
-computes the same partition, packs and uploads only its own block (the 2-bit
-wire, ops/wire.py) and returns the whole result.
+device (parallel/group.py). The drivers here are per rank: a rank's own
+reads are its block (every dimension that reaches a collective agreed by
+one all-reduce MAX), and it ends with its own share of the result. The
+entries below give every rank the same global reads: each cuts its share
+(_rank_share, the base-balanced partition), runs the per-rank driver and
+all-gathers every rank's rows. The multi-process entries
+(parallel/multihost.py) give each rank its own reads and return its own
+share with the global histogram (one all-reduce SUM).
 
 The default route is the range exchange; per step, on every rank:
 
@@ -81,6 +86,7 @@ from ..pipeline import (
     split_occurrences,
 )
 from ..runtime.scheduler import iter_read_batches, read_batch_spans
+from ..runtime.timer import stage
 from . import dispatch
 from . import exchange
 from . import group as group_mod
@@ -139,6 +145,22 @@ def _build_marked_mixed(codes, valid, cfg: KmerConfig) -> list[torch.Tensor]:
 
 def _bounds(cfg: KmerConfig) -> tuple[int, int]:
     return (1, 2**31 - 1) if cfg.unfiltered else (cfg.lower, cfg.upper)
+
+
+def _all_reduce_host(values, op, dev, group) -> np.ndarray:
+    """One all-reduce of int64 host values; the result on the host."""
+    t = torch.from_numpy(np.asarray(values, dtype=np.int64).copy())
+    t = t.to(group_mod.collective_device(dev, group))
+    dist.all_reduce(t, op=op, group=group)
+    return t.cpu().numpy()
+
+
+def _global_histogram(counts: np.ndarray, upper: int, dev, group) -> np.ndarray:
+    """The histogram of the rank's counts summed over the ranks by one
+    all-reduce (the reference's MPI_Allreduce SUM, src/hysortk.cpp:115), as
+    int32."""
+    hist = host_histogram(counts, upper)
+    return _all_reduce_host(hist, dist.ReduceOp.SUM, dev, group).astype(np.int32)
 
 
 def _count_merged(merged_words, cfg: KmerConfig):
@@ -481,29 +503,46 @@ def _rank_rows(keys_dev, mixed: bool) -> np.ndarray:
     return mixkey.unmix_keys_np(keys) if mixed else keys
 
 
-def _gather_kmerlist(words, cnt, keep, cfg: KmerConfig, group, mixed: bool) -> KmerList:
-    """The rank's kept rows (unmixed on the host where `mixed`), then every
-    rank's list in rank order."""
-    dev = words[0].device
-    idx = torch.nonzero(keep).squeeze(1)
-    keys = _rank_rows(torch.stack([w[idx] for w in words], dim=-1), mixed)
-    rows = np.concatenate(
-        [keys.view(np.int32), cnt[idx].cpu().numpy()[:, None]], axis=1
-    )
-    cdev = group_mod.collective_device(dev, group)
-    parts = _all_gather_rows(torch.from_numpy(rows).to(cdev), group)
-    every = torch.cat(parts).numpy()
+def _rank_list(words, cnt, keep, cfg: KmerConfig, mixed: bool) -> KmerList:
+    """The rank's kept rows as its KmerList, keys unmixed on the host where
+    `mixed` (range routing)."""
+    with stage("result", keep.device):
+        idx = torch.nonzero(keep).squeeze(1)
+        keys = _rank_rows(torch.stack([w[idx] for w in words], dim=-1), mixed)
+        return KmerList(keys=keys, counts=cnt[idx].cpu().numpy(), k=cfg.k)
+
+
+def _empty_list(cfg: KmerConfig) -> KmerList:
+    """A rank's list where no rank saw a batch."""
+    return KmerList(np.zeros((0, cfg.words), np.uint32), np.zeros(0, np.int32), cfg.k)
+
+
+def _gather_list(kmerlist: KmerList, group, dev) -> KmerList:
+    """Every rank's list, in rank order, on every rank: one all_gather of
+    (key words, count) int32 rows."""
+    with stage("result", dev):
+        rows = np.concatenate([kmerlist.keys.view(np.int32),
+                               kmerlist.counts[:, None]], axis=1)
+        cdev = group_mod.collective_device(dev, group)
+        every = torch.cat(_all_gather_rows(torch.from_numpy(rows).to(cdev), group)).numpy()
     return KmerList(
         keys=np.ascontiguousarray(every[:, :-1]).view(np.uint32),
         counts=np.ascontiguousarray(every[:, -1]),
-        k=cfg.k,
+        k=kmerlist.k,
     )
 
 
-def _gather_result(words, cnt, keep, cfg: KmerConfig, group, mixed: bool):
-    """_gather_kmerlist, and the histogram of the whole list."""
-    kmerlist = _gather_kmerlist(words, cnt, keep, cfg, group, mixed)
+def _every_rank(kmerlist: KmerList, cfg: KmerConfig, group, dev):
+    """What the entries on global reads return: every rank's list in rank
+    order (_gather_list) and its histogram."""
+    kmerlist = _gather_list(kmerlist, group, dev)
     return kmerlist, host_histogram(kmerlist.counts, cfg.upper)
+
+
+def _gather_result(words, cnt, keep, cfg: KmerConfig, group, mixed: bool):
+    """The rank's kept rows (_rank_list), then every rank's list and its
+    histogram (_every_rank)."""
+    return _every_rank(_rank_list(words, cnt, keep, cfg, mixed), cfg, group, keep.device)
 
 
 def count_flat_sharded(
@@ -572,6 +611,12 @@ def _shard_reads(codes: np.ndarray, lengths: np.ndarray, num_shards: int):
     return [(codes[offsets[lo]: offsets[hi]],
              np.asarray(lengths[lo:hi]).astype(np.int32), lo)
             for lo, hi in zip(b[:-1], b[1:])]
+
+
+def _rank_share(codes: np.ndarray, lengths: np.ndarray, group):
+    """This rank's share of the global reads: (codes, int32 lengths, index
+    of its first read)."""
+    return _shard_reads(codes, lengths, dist.get_world_size(group))[dist.get_rank(group)]
 
 
 def distribute_reads(
@@ -644,16 +689,44 @@ def distribute_reads_packed(
 
 def _rank_wire(codes: np.ndarray, lengths: np.ndarray, cfg: KmerConfig, group,
                dev, min_dims: tuple[int, int] = (0, 1)):
-    """This rank's block of the partition in wire format, on the device:
-    (packed words, read lengths, block_len, index of its first read). Every
-    rank computes the same partition and dims (min_dims pins them from
-    below, as the JAX streaming callers do) and packs only its own block."""
-    shards = _shard_reads(codes, lengths, dist.get_world_size(group))
-    block_len, lmax = _wire_dims(shards, cfg, *min_dims)
-    mine, lens, first = shards[dist.get_rank(group)]
-    packed, lens = _pack_shard(mine, lens, block_len, lmax)
-    return (torch.from_numpy(packed.view(np.int32)).to(dev),
-            torch.from_numpy(lens).to(dev), block_len, first)
+    """The rank's reads as its block in wire format, on the device: (packed
+    words, read lengths, block_len). The dims are the most of any rank (one
+    all-reduce MAX, as the JAX multi-process entries all-gather them; for
+    shares of one partition, what a mesh computes from every shard), pinned
+    from below by min_dims, as the JAX streaming callers do."""
+    with stage("pack", dev):
+        lens = np.asarray(lengths).astype(np.int32)
+        dims = _wire_dims([(codes, lens, 0)], cfg, *min_dims)
+        block_len, lmax = (int(d) for d in
+                           _all_reduce_host(dims, dist.ReduceOp.MAX, dev, group))
+        packed, lens = _pack_shard(codes, lens, block_len, lmax)
+        return (torch.from_numpy(packed.view(np.int32)).to(dev),
+                torch.from_numpy(lens).to(dev), block_len)
+
+
+def _share_batches(codes: np.ndarray, lengths: np.ndarray, batch_bases: int, group):
+    """The streaming batches of the global reads, the same on every rank
+    (runtime/scheduler.read_batch_spans), each cut to this rank's share:
+    (codes, lengths, global index of the share's first read)."""
+    offsets = np.concatenate([[0], np.cumsum(lengths, dtype=np.int64)])
+    for s, e in read_batch_spans(np.asarray(lengths), batch_bases):
+        c, l, first = _rank_share(codes[offsets[s]: offsets[e]], lengths[s:e], group)
+        yield c, l, s + first
+
+
+def _own_batches(codes: np.ndarray, lengths: np.ndarray, batch_bases: int, dev, group,
+                 first: int = 0):
+    """The streaming batches of a rank's own reads, the first of them the
+    global read `first`: (codes, lengths, global index of the batch's first
+    read). The batch count is the most of any rank (one all-reduce MAX): a
+    rank that runs out feeds empty batches, so that every rank runs the same
+    collectives (the JAX multi-process streaming loops)."""
+    spans = read_batch_spans(np.asarray(lengths), batch_bases)
+    (nb,) = _all_reduce_host([len(spans)], dist.ReduceOp.MAX, dev, group)
+    offsets = np.concatenate([[0], np.cumsum(lengths, dtype=np.int64)])
+    for i in range(int(nb)):
+        s, e = spans[i] if i < len(spans) else (0, 0)
+        yield codes[offsets[s]: offsets[e]], lengths[s:e], first + s
 
 
 def count_reads_sharded(
@@ -679,11 +752,19 @@ def count_reads_sharded(
 
         return supermer_route.count_reads_supermer(codes, lengths, cfg, group, device)
     dev = group_mod.rank_device(device)
-    packed, lens, block_len, _ = _rank_wire(codes, lengths, cfg, group, dev)
+    mine, lens, _ = _rank_share(codes, lengths, group)
+    return _every_rank(_count_rank(mine, lens, cfg, group, dev), cfg, group, dev)
+
+
+def _count_rank(codes, lengths, cfg: KmerConfig, group, dev) -> KmerList:
+    """The rank's own reads -> its block on the wire -> the step -> its
+    share of the filtered list (every routing but supermer)."""
+    packed, lens, block_len = _rank_wire(codes, lengths, cfg, group, dev)
     codes_d, valid_d = wire.decode_block(packed, lens, cfg.k, block_len)
     del packed, lens
-    words, cnt, keep = _count_step(codes_d, valid_d, cfg, block_len, group)
-    return _gather_result(words, cnt, keep, cfg, group, cfg.routing == "range")
+    with stage("step", dev):
+        words, cnt, keep = _count_step(codes_d, valid_d, cfg, block_len, group)
+    return _rank_list(words, cnt, keep, cfg, cfg.routing == "range")
 
 
 # --------------------------------------------------------------------------
@@ -702,13 +783,15 @@ def _merge_partials(parts, cfg: KmerConfig, dev):
     (ops/merge.merge_runs_at), the weighted run-length sum of the partial
     counts, the [L, U] filter on the totals."""
     w = cfg.words
-    rows = [torch.cat([p[0][i] for p in parts]).to(dev) for i in range(w)]
-    rows.append(torch.cat([p[1] for p in parts]).to(dev))
-    bounds = np.cumsum([0] + [p[1].shape[0] for p in parts])
-    if bounds[-1]:
-        rows = merge_ops.merge_runs_at(rows, w, bounds)
-    head, total = run_length_sum.run_length_sum_fused(rows[:w], rows[w])
-    return rows[:w], total, count_ops.frequency_filter(head, total, cfg.lower, cfg.upper)
+    with stage("merge", dev):
+        rows = [torch.cat([p[0][i] for p in parts]).to(dev) for i in range(w)]
+        rows.append(torch.cat([p[1] for p in parts]).to(dev))
+        bounds = np.cumsum([0] + [p[1].shape[0] for p in parts])
+        if bounds[-1]:
+            rows = merge_ops.merge_runs_at(rows, w, bounds)
+        head, total = run_length_sum.run_length_sum_fused(rows[:w], rows[w])
+        keep = count_ops.frequency_filter(head, total, cfg.lower, cfg.upper)
+    return rows[:w], total, keep
 
 
 def count_reads_sharded_streaming(
@@ -749,36 +832,45 @@ def count_reads_sharded_streaming(
         return supermer_route.count_reads_supermer_streaming(
             codes, lengths, cfg, batch_bases, group, device, async_depth)
     dev = group_mod.rank_device(device)
+    batches = _share_batches(codes, lengths, batch_bases, group)
+    return _every_rank(_count_rank_streaming(batches, cfg, group, dev), cfg, group, dev)
+
+
+def _count_rank_streaming(batches, cfg: KmerConfig, group, dev) -> KmerList:
+    """The streaming driver (every routing but supermer) on the rank's
+    batches, (codes, lengths, first read) of its own reads in each, as many
+    on every rank (_share_batches, _own_batches). Returns the rank's share
+    of the filtered list."""
     num_shards = dist.get_world_size(group)
     cfg_pre = dataclasses.replace(cfg, unfiltered=True)
     plan = None
     parts = []
-    for b_codes, b_lengths in iter_read_batches(codes, lengths, batch_bases):
-        packed, lens, block_len, _ = _rank_wire(b_codes, b_lengths, cfg, group, dev)
+    for b_codes, b_lengths, _ in batches:
+        packed, lens, block_len = _rank_wire(b_codes, b_lengths, cfg, group, dev)
         codes_d, valid_d = wire.decode_block(packed, lens, cfg.k, block_len)
         del packed, lens
-        classify = False
-        if plan is None:
-            plan = plan_sharded_step(codes_d, valid_d, cfg_pre, num_shards,
-                                     block_len, group)
-            # A measured capacity is exact for batch 0 only: later batches
-            # double it on an overflow, as the JAX stream does.
-            plan = plan[:3] + (False,)
-            classify = _heavy_pending(cfg_pre)
-        result, plan = _run_passes(codes_d, valid_d, plan, num_shards, group,
-                                   classify)
-        if result is None:
-            plan = _with_combiner(plan)
-            result, plan = _run_passes(codes_d, valid_d, plan, num_shards, group)
-        words, cnt, keep = result
-        idx = torch.nonzero(keep).squeeze(1)
-        parts.append(([w[idx].cpu() for w in words], cnt[idx].cpu()))
+        with stage("step", dev):
+            classify = False
+            if plan is None:
+                plan = plan_sharded_step(codes_d, valid_d, cfg_pre, num_shards,
+                                         block_len, group)
+                # A measured capacity is exact for batch 0 only: later
+                # batches double it on an overflow, as the JAX stream does.
+                plan = plan[:3] + (False,)
+                classify = _heavy_pending(cfg_pre)
+            result, plan = _run_passes(codes_d, valid_d, plan, num_shards, group,
+                                       classify)
+            if result is None:
+                plan = _with_combiner(plan)
+                result, plan = _run_passes(codes_d, valid_d, plan, num_shards, group)
+            words, cnt, keep = result
+            idx = torch.nonzero(keep).squeeze(1)
+            parts.append(([w[idx].cpu() for w in words], cnt[idx].cpu()))
         del codes_d, valid_d, words, cnt, keep, result, idx
-    if plan is None:  # no reads: every rank saw no batch
-        return (KmerList(np.zeros((0, cfg.words), np.uint32), np.zeros(0, np.int32),
-                         cfg.k), np.zeros(cfg.upper + 1, np.int32))
+    if plan is None:  # no reads: no rank saw a batch
+        return _empty_list(cfg)
     words, total, keep = _merge_partials(parts, cfg, dev)
-    return _gather_result(words, total, keep, cfg, group, plan[0].routing == "range")
+    return _rank_list(words, total, keep, cfg, plan[0].routing == "range")
 
 
 # --------------------------------------------------------------------------
@@ -882,33 +974,41 @@ def ext_stream_dims(
     return -(-max_raw // gran) * gran, max_lmax
 
 
-def _gather_ext_result(words, cnt, keep, rid_s, pos_s, cfg: KmerConfig, group,
-                       mixed: bool):
-    """The rank's kept keys (unmixed on the host where `mixed`) and counts,
-    and their occurrences gathered on the device; then every rank's rows
-    in rank order, as flat int32 (key words, count) and (rid, pos) rows,
-    assembled into one KmerListExt."""
-    dev = keep.device
-    starts, counts, rid, pos = kept_occurrences(cnt, keep, rid_s, pos_s)
-    keys = _rank_rows(torch.stack([w[starts] for w in words], dim=-1), mixed)
-    rows = np.concatenate(
-        [keys.view(np.int32), counts.to(torch.int32).cpu().numpy()[:, None]], axis=1)
-    occ = torch.stack([rid, pos], dim=1)
-    del starts, counts, rid, pos
+def _ext_rows(words, cnt, keep, rid_s, pos_s, mixed: bool):
+    """The rank's kept keys (unmixed on the host where `mixed`) and counts
+    as (m, W + 1) int32 host rows, and their occurrences, gathered on the
+    device, as (n, 2) int32 (rid, pos) rows there."""
+    with stage("result", keep.device):
+        starts, counts, rid, pos = kept_occurrences(cnt, keep, rid_s, pos_s)
+        keys = _rank_rows(torch.stack([w[starts] for w in words], dim=-1), mixed)
+        rows = np.concatenate(
+            [keys.view(np.int32), counts.to(torch.int32).cpu().numpy()[:, None]], axis=1)
+        return rows, torch.stack([rid, pos], dim=1)
+
+
+def _ext_list(rows: np.ndarray, occ: torch.Tensor, k: int) -> KmerListExt:
+    """(key words, count) rows and their (rid, pos) occurrence rows, in the
+    same order, as one KmerListExt."""
+    with stage("result"):
+        occ = occ.cpu().numpy()
+        counts = np.ascontiguousarray(rows[:, -1])
+        starts = np.zeros(counts.size, dtype=np.int64)
+        np.cumsum(counts[:-1], out=starts[1:])
+        pos_runs, rid_runs = split_occurrences(
+            starts, counts, np.ascontiguousarray(occ[:, 1]).view(np.uint32),
+            np.ascontiguousarray(occ[:, 0]))
+    return KmerListExt(keys=np.ascontiguousarray(rows[:, :-1]).view(np.uint32),
+                       counts=counts, k=k, pos=pos_runs, rid=rid_runs)
+
+
+def _gather_ext(rows: np.ndarray, occ: torch.Tensor, k: int, group, dev) -> KmerListExt:
+    """Every rank's _ext_rows in rank order (two all_gathers), as one
+    KmerListExt on every rank."""
     cdev = group_mod.collective_device(dev, group)
-    every = torch.cat(_all_gather_rows(torch.from_numpy(rows).to(cdev), group)).numpy()
-    occ = torch.cat(_all_gather_rows(occ.to(cdev), group)).numpy()
-    counts = np.ascontiguousarray(every[:, -1])
-    out_starts = np.zeros(counts.size, dtype=np.int64)
-    np.cumsum(counts[:-1], out=out_starts[1:])
-    pos_runs, rid_runs = split_occurrences(
-        out_starts, counts, np.ascontiguousarray(occ[:, 1]).view(np.uint32),
-        np.ascontiguousarray(occ[:, 0]))
-    result = KmerListExt(
-        keys=np.ascontiguousarray(every[:, :-1]).view(np.uint32),
-        counts=counts, k=cfg.k, pos=pos_runs, rid=rid_runs,
-    )
-    return result, host_histogram(result.counts, cfg.upper)
+    with stage("result", dev):
+        rows = torch.cat(_all_gather_rows(torch.from_numpy(rows).to(cdev), group)).numpy()
+        occ = torch.cat(_all_gather_rows(occ.to(cdev), group))
+    return _ext_list(rows, occ, k)
 
 
 def count_reads_sharded_ext(
@@ -935,32 +1035,50 @@ def count_reads_sharded_ext(
         return supermer_route.count_reads_supermer_ext(
             codes, lengths, cfg, group, device, read_id_offset, min_dims)
     dev = group_mod.rank_device(device)
+    mine, lens, first = _rank_share(codes, lengths, group)
+    kl = _gather_ext(*_count_rank_ext(mine, lens, cfg, group, dev, read_id_offset + first,
+                                      min_dims), cfg.k, group, dev)
+    return kl, host_histogram(kl.counts, cfg.upper)
+
+
+def _ext_block(codes, lengths, cfg: KmerConfig, read_id_offset: int, min_block_len: int,
+               dev, group):
+    """The rank's reads as one extension-mode block (build_ext_blocks of one
+    shard), padded to the longest block of any rank (one all-reduce MAX):
+    (codes, valid, rid, pos) on the device, and block_len."""
+    with stage("pack", dev):
+        sc, sv, sr, sp, block_len = build_ext_blocks(codes, lengths, cfg, 1,
+                                                     read_id_offset, min_block_len)
+        (longest,) = _all_reduce_host([block_len], dist.ReduceOp.MAX, dev, group)
+        pad = (0, int(longest) - block_len)
+        blocks = (np.pad(a[0], pad) for a in (sc, sv, sr, sp.view(np.int32)))
+        return tuple(torch.from_numpy(a).to(dev) for a in blocks) + (int(longest),)
+
+
+def _count_rank_ext(codes, lengths, cfg: KmerConfig, group, dev, read_id_offset: int,
+                    min_dims):
+    """Extension mode on the rank's own reads, read ids from read_id_offset
+    (every routing but supermer): its share as _ext_rows."""
     num_shards = dist.get_world_size(group)
     if cfg.routing == "range":
-        packed, lens, block_len, first = _rank_wire(codes, lengths, cfg, group,
-                                                    dev, min_dims)
-        inputs = wire.decode_block_ext(packed, lens, cfg.k, block_len,
-                                       read_id_offset + first)
+        packed, lens, block_len = _rank_wire(codes, lengths, cfg, group, dev, min_dims)
+        inputs = wire.decode_block_ext(packed, lens, cfg.k, block_len, read_id_offset)
         del packed, lens
         body = _shard_body_ext_range
         capacity = _next_pow2(_factor_capacity(block_len, num_shards, cfg))
     else:
-        sc, sv, sr, sp, block_len = build_ext_blocks(
-            codes, lengths, cfg, num_shards, read_id_offset, min_block_len=min_dims[0])
-        r = dist.get_rank(group)
-        inputs = tuple(torch.from_numpy(a[r]).to(dev)
-                       for a in (sc, sv, sr, sp.view(np.int32)))
-        del sc, sv, sr, sp
+        *inputs, block_len = _ext_block(codes, lengths, cfg, read_id_offset,
+                                        min_dims[0], dev, group)
         body = _shard_body_ext_bucketed
         capacity = _factor_capacity(block_len, num_shards, cfg)
-    (words, cnt, keep, rid_s, pos_s, _), _ = run_with_capacity_retry(
-        lambda cap: body(*inputs, cfg=cfg, num_shards=num_shards, capacity=cap,
-                         group=group),
-        capacity, False,
-    )
+    with stage("step", dev):
+        (words, cnt, keep, rid_s, pos_s, _), _ = run_with_capacity_retry(
+            lambda cap: body(*inputs, cfg=cfg, num_shards=num_shards, capacity=cap,
+                             group=group),
+            capacity, False,
+        )
     del inputs
-    return _gather_ext_result(words, cnt, keep, rid_s, pos_s, cfg, group,
-                              cfg.routing == "range")
+    return _ext_rows(words, cnt, keep, rid_s, pos_s, cfg.routing == "range")
 
 
 def count_reads_sharded_ext_streaming(
@@ -976,7 +1094,10 @@ def count_reads_sharded_ext_streaming(
     sharded extension pass UNFILTERED, and the per-batch (key, count,
     occurrences) partials merge on the host ([L, U] applies to the merged
     totals only): the reference's bounded round loop, where nothing in the
-    exchange is EXT-conditional (src/kmerops.cpp:906-1007)."""
+    exchange is EXT-conditional (src/kmerops.cpp:906-1007). Every batch's
+    whole list is gathered before the merge: under routing="supermer" each
+    batch plans its own assignment, so a key's owner can change between
+    batches."""
     cfg_pre = dataclasses.replace(cfg, unfiltered=True)
     min_dims = ext_stream_dims(lengths, batch_bases, cfg,
                                dist.get_world_size(group))
@@ -987,5 +1108,6 @@ def count_reads_sharded_ext_streaming(
                                         rid_off, min_dims)
         partials.append(kl)
         rid_off += b_lengths.size
-    merged = merge_ext_partials(partials, cfg.lower, cfg.upper, cfg.k, cfg.words)
+    with stage("merge"):
+        merged = merge_ext_partials(partials, cfg.lower, cfg.upper, cfg.k, cfg.words)
     return merged, host_histogram(merged.counts, cfg.upper)

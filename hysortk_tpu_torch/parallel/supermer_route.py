@@ -1,12 +1,11 @@
 """Supermer routing across the ranks of a torch.distributed process group.
 
-The port of hysortk_tpu/parallel/supermer_route.py without its
-multi-process FASTA entries. Keys never travel: *supermers* do (maximal runs
-of consecutive k-mers in one read that share a destination, shipped as a
-lengths array plus 2-bit packed bases, ~0.28 B/base), and each rank extracts
-and counts the k-mers it received (prepare_supermer src/kmerops.cpp:23-127,
-SupermerEncoder :1096-1148, exchange :587-643, receive-side parse
-:484-521). Equal canonical k-mers share their minimizer, hence their bucket
+The port of hysortk_tpu/parallel/supermer_route.py. Keys never travel:
+*supermers* do (maximal runs of consecutive k-mers in one read that share a
+destination, shipped as a lengths array plus 2-bit packed bases, ~0.28
+B/base), and each rank extracts and counts the k-mers it received
+(prepare_supermer src/kmerops.cpp:23-127, SupermerEncoder :1096-1148,
+exchange :587-643, receive-side parse :484-521). Equal canonical k-mers share their minimizer, hence their bucket
 and their rank, so the ranks' result sets are disjoint.
 
 One driver, the exchange, because a rank feeds only its own card. The JAX
@@ -48,6 +47,19 @@ mode the same occurrences. Streaming (count_reads_supermer_streaming)
 fixes the assignment on batch 0, pre-counts heavy buckets per batch and
 merges each rank's partial lists with them as one extra sorted run.
 
+The step is per rank, on the rank's own reads: the entries above cut each
+rank's share of the global reads first (parallel/pipeline._rank_share) and
+gather every rank's list after. The multi-process entries
+(count_fasta_multihost_supermer, count_fasta_multihost_supermer_streaming
+and, in extension mode, _multihost_supermer_ext_streaming) run the same
+step on each process's own records of a FASTA file
+(parallel/multihost.read_my_shard) from read id offset its first record's
+index, and return the rank's own share (the heavy entries of its own
+bucket set last) with the global histogram, equal per rank to the JAX
+multi-process entries. Their streams batch the rank's own reads, the batch
+count agreed by all-reduce MAX (a rank that runs out feeds empty batches),
+the assignment fixed on batch 0 as above.
+
 The slice adds no device kernel: the path launches the key build (the
 m-mer words of the destination scan, the k-mer words), the radix sort and
 the fused count, and in streaming the run merge and the weighted run-length
@@ -66,13 +78,15 @@ from ..config import KmerConfig
 from ..io import fasta as fasta_io
 from ..io import supermer as supermer_io
 from ..ops import keybuild, minimizer, radix_sort, wire
-from ..pipeline import KmerList, host_histogram, resolve_device
-from ..runtime.scheduler import iter_read_batches
+from ..pipeline import KmerList, host_histogram, merge_ext_partials, resolve_device
+from ..runtime.timer import stage
 from . import dispatch, exchange
 from . import group as group_mod
 from . import pipeline as sharded
 
 __all__ = [
+    "count_fasta_multihost_supermer",
+    "count_fasta_multihost_supermer_streaming",
     "count_reads_supermer",
     "count_reads_supermer_ext",
     "count_reads_supermer_exchange",
@@ -266,23 +280,6 @@ def split_stream(
 # The driver, in the stages chip_smoke.py times one by one.
 
 
-def _all_reduce_host(values: np.ndarray, op, dev, group) -> np.ndarray:
-    """One all-reduce of int64 host values; the result on the host."""
-    t = torch.from_numpy(np.asarray(values, dtype=np.int64).copy())
-    t = t.to(group_mod.collective_device(dev, group))
-    dist.all_reduce(t, op=op, group=group)
-    return t.cpu().numpy()
-
-
-def _rank_flat(codes: np.ndarray, lengths: np.ndarray, cfg: KmerConfig, group):
-    """This rank's share of the partition, flattened: (flat codes, flat
-    valid, the share's read lengths, the global index of its first read)."""
-    c, lens, first = sharded._shard_reads(codes, lengths, dist.get_world_size(group))[
-        dist.get_rank(group)]
-    flat_codes, flat_valid = fasta_io.flatten_for_device(c, lens, cfg.k, cfg.pad_multiple)
-    return flat_codes, flat_valid, lens, first
-
-
 def _plan(dest: np.ndarray, flat_valid: np.ndarray, cfg: KmerConfig, assign,
           classify: bool, dev, group) -> tuple[np.ndarray, np.ndarray]:
     """(types, assign): the global bucket sizes by one all-reduce, the
@@ -292,7 +289,7 @@ def _plan(dest: np.ndarray, flat_valid: np.ndarray, cfg: KmerConfig, assign,
     num_shards = dist.get_world_size(group)
     num_buckets = sharded._num_buckets(cfg, num_shards)
     sizes = np.bincount(dest[flat_valid.astype(bool)], minlength=num_buckets)
-    sizes = _all_reduce_host(sizes, dist.ReduceOp.SUM, dev, group)
+    sizes = sharded._all_reduce_host(sizes, dist.ReduceOp.SUM, dev, group)
     types = np.zeros(num_buckets, np.int32)
     if classify and cfg.classifier == "heavy_hitter":
         types = dispatch.classify(sizes, cfg.heavy_ratio)
@@ -329,7 +326,8 @@ def _segments(streams, cfg: KmerConfig, dev, group, min_dims=(0, 1)):
     ext = len(streams[0]) == 4
     cmax = max(s[0].shape[0] for s in streams)
     smax = max(s[1].shape[0] for s in streams)
-    cmax, smax = _all_reduce_host(np.array([cmax, smax]), dist.ReduceOp.MAX, dev, group)
+    cmax, smax = sharded._all_reduce_host(np.array([cmax, smax]), dist.ReduceOp.MAX,
+                                          dev, group)
     gran = int(np.lcm(16, cfg.pad_multiple))
     block_len = -(-max(int(cmax) + 16, gran, min_dims[0]) // gran) * gran
     lmax = max(int(smax), 1, min_dims[1])
@@ -397,46 +395,59 @@ class _Step:
 
 def _supermer_step(codes, lengths, cfg: KmerConfig, group, dev, *, assign=None,
                    read_id_offset: int = 0, min_dims=(0, 1)) -> _Step:
-    """One pass of the route on this rank's share of (codes, lengths), with
-    the collectives every rank runs whether or not its share holds reads.
-    `assign` fixes the bucket -> rank assignment (streaming, after batch 0);
-    extension mode has no classifier, as in the JAX package."""
+    """One pass of the route on this rank's own reads (codes, lengths), read
+    ids from read_id_offset, with the collectives every rank runs whether or
+    not it holds reads. `assign` fixes the bucket -> rank assignment
+    (streaming, after batch 0); extension mode has no classifier, as in the
+    JAX package."""
     ext = cfg.extension
     num_shards = dist.get_world_size(group)
-    flat_codes, flat_valid, lens, first = _rank_flat(codes, lengths, cfg, group)
-    dest = host_destinations(flat_codes, cfg.k, cfg.m,
-                             sharded._num_buckets(cfg, num_shards), dev)
-    types, assign = _plan(dest, flat_valid, cfg, assign, not ext, dev, group)
-    heavy = None
-    if (types == dispatch.HEAVY).any():
-        flat_valid, per_shard = heavy_precount(flat_codes, flat_valid, dest, types,
-                                               assign, cfg.k, num_shards, dev)
-        heavy = _allgather_entry_lists(per_shard, group, dev)
-    streams = _encode(flat_codes, flat_valid, assign[dest], cfg, num_shards, lens,
-                      read_id_offset + first, ext)
-    del flat_codes, flat_valid, dest
-    send, block_len, lmax = _segments(streams, cfg, dev, group, min_dims)
-    del streams
-    recv, _, _ = exchange.all_to_all_exchange(send, [send.shape[2]] * num_shards, group)
-    del send
-    words, cnt, keep, pay = _count_received(recv, cfg, block_len, lmax)
+    with stage("pack", dev):
+        lens = np.asarray(lengths).astype(np.int32)
+        flat_codes, flat_valid = fasta_io.flatten_for_device(codes, lens, cfg.k,
+                                                             cfg.pad_multiple)
+        dest = host_destinations(flat_codes, cfg.k, cfg.m,
+                                 sharded._num_buckets(cfg, num_shards), dev)
+        types, assign = _plan(dest, flat_valid, cfg, assign, not ext, dev, group)
+        heavy = None
+        if (types == dispatch.HEAVY).any():
+            flat_valid, per_shard = heavy_precount(flat_codes, flat_valid, dest, types,
+                                                   assign, cfg.k, num_shards, dev)
+            heavy = _allgather_entry_lists(per_shard, group, dev)
+        streams = _encode(flat_codes, flat_valid, assign[dest], cfg, num_shards, lens,
+                          read_id_offset, ext)
+        del flat_codes, flat_valid, dest
+        send, block_len, lmax = _segments(streams, cfg, dev, group, min_dims)
+        del streams
+    with stage("step", dev):
+        recv, _, _ = exchange.all_to_all_exchange(send, [send.shape[2]] * num_shards,
+                                                  group)
+        del send
+        words, cnt, keep, pay = _count_received(recv, cfg, block_len, lmax)
     return _Step(words, cnt, keep, pay, heavy, assign, (block_len, lmax))
+
+
+def _step_ext_rows(step: _Step):
+    """An extension-mode step's kept rows and occurrences
+    (parallel/pipeline._ext_rows)."""
+    return sharded._ext_rows(step.words, step.cnt, step.keep, *step.payloads, False)
 
 
 def _supermer_one_shot(codes, lengths, cfg: KmerConfig, group, device,
                        read_id_offset: int = 0, min_dims=(0, 1)):
+    """The one-shot entries on the global reads: the rank's share through
+    one step, then every rank's list in rank order (the heavy entries after
+    it, as one ascending list) and its histogram, on every rank."""
     dev = group_mod.rank_device(device)
-    step = _supermer_step(codes, lengths, cfg, group, dev,
-                          read_id_offset=read_id_offset, min_dims=min_dims)
+    mine, lens, first = sharded._rank_share(codes, lengths, group)
+    step = _supermer_step(mine, lens, cfg, group, dev,
+                          read_id_offset=read_id_offset + first, min_dims=min_dims)
     if cfg.extension:
-        rid_s, pos_s = step.payloads
-        return sharded._gather_ext_result(step.words, step.cnt, step.keep, rid_s,
-                                          pos_s, cfg, group, False)
-    kmerlist = sharded._gather_kmerlist(step.words, step.cnt, step.keep, cfg, group,
-                                        False)
+        kmerlist = sharded._gather_ext(*_step_ext_rows(step), cfg.k, group, dev)
+        return kmerlist, host_histogram(kmerlist.counts, cfg.upper)
+    kmerlist = sharded._gather_list(
+        sharded._rank_list(step.words, step.cnt, step.keep, cfg, False), group, dev)
     if step.heavy is not None:
-        # One ascending list of every rank's entries, after the whole
-        # gathered list, as in the JAX package.
         kmerlist = _append_heavy_entries(kmerlist, _sum_entry_lists(step.heavy), cfg)
     return kmerlist, host_histogram(kmerlist.counts, cfg.upper)
 
@@ -546,25 +557,127 @@ def count_reads_supermer_streaming(
     if async_depth is not None and async_depth < 1:
         raise ValueError(f"async_depth must be at least 1, got {async_depth}")
     dev = group_mod.rank_device(device)
+    kmerlist = _supermer_streaming(sharded._share_batches(codes, lengths, batch_bases, group),
+                                   cfg, group, dev)
+    return sharded._every_rank(kmerlist, cfg, group, dev)
+
+
+def _supermer_streaming(batches, cfg: KmerConfig, group, dev) -> KmerList:
+    """The streaming driver on the rank's batches, (codes, lengths, first
+    read) of its own reads in each, as many on every rank
+    (parallel/pipeline._share_batches, _own_batches). Returns the rank's
+    share of the filtered list, its heavy entries merged in."""
     rank = dist.get_rank(group)
     cfg_pre = dataclasses.replace(cfg, unfiltered=True)
     assign = None
     dims = (0, 1)
     parts, heavy = [], []
-    for b_codes, b_lengths in iter_read_batches(codes, lengths, batch_bases):
+    for b_codes, b_lengths, _ in batches:
         step = _supermer_step(b_codes, b_lengths, cfg_pre, group, dev, assign=assign,
                               min_dims=dims)
         assign = step.assign
         dims = tuple(max(a, b) for a, b in zip(dims, step.dims))
         if step.heavy is not None and step.heavy[rank][0].shape[0]:
             heavy.append(step.heavy[rank])
-        idx = torch.nonzero(step.keep).squeeze(1)
-        parts.append(([w[idx].cpu() for w in step.words], step.cnt[idx].cpu()))
+        with stage("result", dev):
+            idx = torch.nonzero(step.keep).squeeze(1)
+            parts.append(([w[idx].cpu() for w in step.words], step.cnt[idx].cpu()))
         del step, idx
-    if assign is None:  # no reads: every rank saw no batch
-        return (KmerList(np.zeros((0, cfg.words), np.uint32), np.zeros(0, np.int32),
-                         cfg.k), np.zeros(cfg.upper + 1, np.int32))
+    if assign is None:  # no reads: no rank saw a batch
+        return sharded._empty_list(cfg)
     if heavy:
         parts.append(_heavy_run(heavy))
     words, total, keep = sharded._merge_partials(parts, cfg, dev)
-    return sharded._gather_result(words, total, keep, cfg, group, False)
+    return sharded._rank_list(words, total, keep, cfg, False)
+
+
+# --------------------------------------------------------------------------
+# The multi-process entries: each process counts its own records of a FASTA
+# file and keeps its own share of the result (hysortk_tpu's
+# count_fasta_multihost_supermer, count_fasta_multihost_supermer_streaming,
+# _multihost_supermer_ext_streaming).
+
+
+def count_fasta_multihost_supermer(fasta_path: str, cfg: KmerConfig, group=None,
+                                   device="cuda"):
+    """Multi-process supermer routing: this process's records of the FASTA
+    (parallel/multihost.read_my_shard) -> supermer dispatch -> the exchange
+    -> local count. The wire between ranks is the reference's supermer
+    format (~2 bits/base + 4 B/supermer, src/kmerops.cpp:1096-1148).
+    Extension mode adds the {len, pos, rid} run headers, read ids counted
+    from the index of the process's first record (the reference's
+    MPI_Exscan of read counts, src/kmerops.cpp:66).
+
+    Returns (this rank's KmerList[Ext], the global histogram)."""
+    from . import multihost
+
+    codes, lengths, rid_offset = multihost.read_my_records(fasta_path, group)
+    dev = group_mod.rank_device(device)
+    step = _supermer_step(codes, lengths, cfg, group, dev, read_id_offset=rid_offset)
+    if cfg.extension:
+        kmerlist = sharded._ext_list(*_step_ext_rows(step), cfg.k)
+    else:
+        kmerlist = sharded._rank_list(step.words, step.cnt, step.keep, cfg, False)
+        if step.heavy is not None:  # the rank's own entries, after its list
+            kmerlist = _append_heavy_entries(kmerlist, step.heavy[dist.get_rank(group)],
+                                             cfg)
+    return kmerlist, sharded._global_histogram(kmerlist.counts, cfg.upper, dev, group)
+
+def count_fasta_multihost_supermer_streaming(fasta_path: str, cfg: KmerConfig,
+                                             batch_bases: int = 1 << 26, group=None,
+                                             device="cuda"):
+    """Bounded-memory multi-process supermer counting: each process streams
+    its own records through the exchange in batches of batch_bases (the
+    reference's fixed-size supermer rounds across ranks,
+    src/kmerops.cpp:587-643). Unfiltered partial lists stay on the rank
+    (the batch-0 assignment fixes who owns a key), heavy buckets pre-count
+    per batch and join the rank's final merge as one extra run, [L, U]
+    applies to the merged totals. Extension mode goes to
+    _multihost_supermer_ext_streaming.
+
+    Returns (this rank's KmerList[Ext], the global histogram)."""
+    from . import multihost
+
+    if cfg.routing != "supermer":
+        raise ValueError(f"count_fasta_multihost_supermer_streaming needs "
+                         f"routing='supermer', got {cfg.routing!r}")
+    if cfg.extension:
+        return _multihost_supermer_ext_streaming(fasta_path, cfg, batch_bases, group,
+                                                 device)
+    codes, lengths, _ = multihost.read_my_records(fasta_path, group)
+    dev = group_mod.rank_device(device)
+    batches = sharded._own_batches(codes, lengths, batch_bases, dev, group)
+    kmerlist = _supermer_streaming(batches, cfg, group, dev)
+    return kmerlist, sharded._global_histogram(kmerlist.counts, cfg.upper, dev, group)
+
+def _multihost_supermer_ext_streaming(fasta_path: str, cfg: KmerConfig,
+                                      batch_bases: int, group=None, device="cuda"):
+    """Bounded-memory extension-mode supermer routing across processes: each
+    batch of the process's own reads ships supermer segments with their
+    {len, pos, rid} run headers and counts UNFILTERED on the owner; the
+    rank's per-batch occurrence partials merge on the host under the global
+    [L, U] (merge_ext_partials). The assignment is fixed on batch 0, so a
+    key keeps its owner across batches; read ids count from the process's
+    first record and each batch advances them by its reads. No classifier,
+    as in the one-shot extension mode.
+
+    Returns (this rank's KmerListExt, the global histogram)."""
+    from . import multihost
+
+    codes, lengths, first = multihost.read_my_records(fasta_path, group)
+    dev = group_mod.rank_device(device)
+    cfg_pre = dataclasses.replace(cfg, unfiltered=True)
+    assign = None
+    dims = (0, 1)
+    partials = []
+    for b_codes, b_lengths, rid in sharded._own_batches(codes, lengths, batch_bases, dev,
+                                                        group, first):
+        step = _supermer_step(b_codes, b_lengths, cfg_pre, group, dev, assign=assign,
+                              read_id_offset=rid, min_dims=dims)
+        assign = step.assign
+        dims = tuple(max(a, b) for a, b in zip(dims, step.dims))
+        partials.append(sharded._ext_list(*_step_ext_rows(step), cfg.k))
+        del step
+    with stage("merge", dev):
+        merged = merge_ext_partials(partials, cfg.lower, cfg.upper, cfg.k, cfg.words)
+    return merged, sharded._global_histogram(merged.counts, cfg.upper, dev, group)

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 
 def _proc_status_kb(field: str) -> Optional[int]:
@@ -75,13 +76,19 @@ def hbm_headroom_bytes(device, safety: float = 0.9) -> Optional[int]:
 
 
 def gathered_memory_report() -> str:
-    """This process's RSS / peak / MemFree, in the layout of the reference's
-    get_mem_gb gather + root print (src/memcheck.cpp:60-106). One process:
-    runs across processes are not ported yet."""
-    rss, peak = get_rss_gb(), get_peak_rss_gb()
-    free = get_free_memory_kb() / 1024 / 1024
-    return (
-        "-- memory --\n"
-        f"  proc 0: rss {rss:.2f} GB, peak {peak:.2f} GB, free {free:.2f} GB\n"
-        f"  total rss {rss:.2f} GB across 1 procs"
-    )
+    """Every process's RSS / peak / MemFree, in the layout of the
+    reference's get_mem_gb gather + root print (src/memcheck.cpp:60-106):
+    one row per rank of a torch.distributed group of more than one rank (one
+    all_gather_object, the same text on every rank), else this process's."""
+    row = (get_rss_gb(), get_peak_rss_gb(), get_free_memory_kb() / 1024 / 1024)
+    rows = [row]
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        rows = [None] * dist.get_world_size()
+        dist.all_gather_object(rows, row)
+    lines = [
+        f"  proc {i}: rss {r[0]:.2f} GB, peak {r[1]:.2f} GB, free {r[2]:.2f} GB"
+        for i, r in enumerate(rows)
+    ]
+    lines.append(f"  total rss {sum(r[0] for r in rows):.2f} GB across "
+                 f"{len(rows)} procs")
+    return "-- memory --\n" + "\n".join(lines)

@@ -833,6 +833,12 @@ def _run_count_job(kind: str, data, cfg, job: dict):
     from .parallel import pipeline as sharded
 
     device = job["device"]
+    if kind.startswith("count_fasta_multihost"):
+        from .parallel import multihost, supermer_route
+
+        entry = getattr(multihost, kind, None) or getattr(supermer_route, kind)
+        batch = (job["batch_bases"],) if kind.endswith("streaming") else ()
+        return entry(job["fasta"], cfg, *batch, device=device)
     if kind == "count_flat_sharded":
         return sharded.count_flat_sharded(data["codes"], data["valid"], cfg,
                                           device=device)
@@ -882,6 +888,12 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
                            read_id_offset; optional capacity (every range
                            route starts from it) and headroom (the device
                            memory headroom the facade sees, in bytes)
+      count_fasta_multihost, count_fasta_multihost_streaming,
+      count_fasta_multihost_ext, count_fasta_multihost_ext_streaming,
+      count_fasta_multihost_supermer, count_fasta_multihost_supermer_streaming
+                           (no inputs) fasta (a path), cfg, device;
+                           batch_bases for the streaming kinds: the rank's
+                           own share
       exchange             (inputs: send_<rank>, counts_<rank>)
       cli                  argv (run under WORLD_SIZE / RANK / LOCAL_RANK of
                            the spawned group, output to <name>.<rank>.txt)
@@ -904,7 +916,7 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
     from .runtime import memcheck
 
     for job in jobs:
-        data = np.load(job["inputs"])
+        data = np.load(job["inputs"]) if job.get("inputs") else None
         out = {}
         path = os.path.join(out_dir, f"{job['name']}.{rank}")
         kind = job["kind"]

@@ -1,12 +1,14 @@
 """The port's command line (python -m hysortk_tpu_torch.cli) against the
 JAX package's (hysortk_tpu.cli, --single-device) on the CPU: the same output
-lines and the same histogram text, one-shot and streaming; and across 2
-gloo ranks (as under torchrun) against the JAX CLI's multi-device run. (The
-JAX one-shot facade takes its sharded path under the tests' 8 virtual
-devices and writes its lines in another order, so the lines compare
-sorted.)"""
+lines and the same histogram text, one-shot and streaming; across 2 gloo
+ranks (as under torchrun) against the JAX CLI's multi-device run; and as a
+multi-process run joined at --coordinator, in-process on one rank and as 2
+processes, each writing its own share to <rank>.out. (The JAX one-shot
+facade takes its sharded path under the tests' 8 virtual devices and writes
+its lines in another order, so the lines compare sorted.)"""
 
 import os
+import socket
 import subprocess
 import sys
 
@@ -73,6 +75,18 @@ def test_cli_matches_jax_cli(fasta, tmp_path, capsys, k, stream):
     assert got == oracle.oracle_filtered(reads, k, 2, 50)
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# With the multi-process flags, the modes the in-process one-rank run takes.
+COORDINATOR_MODES = {"--coordinator": [],
+                     "--num-processes": ["--stream-batch-bases", "700"],
+                     "--process-id": ["--extension"]}
+
+
 @pytest.mark.parametrize("flags", [
     ["--extension"], ["--combiner"], ["--routing", "supermer"],
     ["--routing", "minimizer"], ["--classifier", "plain"],
@@ -81,16 +95,38 @@ def test_cli_matches_jax_cli(fasta, tmp_path, capsys, k, stream):
     ["--extension", "--stream-batch-bases", "700"],
 ])
 def test_unported_paths_exit_nonzero(fasta, tmp_path, capsys, monkeypatch, flags):
-    """Flags of paths that are not ported end the run with an error.
+    """Every path is ported now: no flag ends the run with an error.
     --combiner, --classifier, --routing minimizer, --routing supermer and
-    --dispatcher round_robin are ported (they steer the sharded path): on
-    one device they change nothing, and the output file and histogram are
-    those of the run without them, as the JAX CLI gives on one device;
-    --routing supermer with --single-device is an error, as there.
-    --extension is ported: one-shot it
-    goes through count_reads_ext, with --stream-batch-bases through
+    --dispatcher round_robin steer the sharded path: on one device they
+    change nothing, and the output file and histogram are those of the run
+    without them, as the JAX CLI gives on one device; --routing supermer
+    with --single-device is an error, as there. --extension one-shot goes
+    through count_reads_ext, with --stream-batch-bases through
     count_reads_streaming_ext, and the output and the validated counts are
-    those of the run without it."""
+    those of the run without it. The multi-process flags join a group at
+    --coordinator and count: here one process, in this one (one-shot,
+    streamed or in extension mode, by the flag), whose 0.out and histogram
+    are those of the run without them; two processes are
+    test_cli_coordinator_two_processes."""
+    if flags[0] in COORDINATOR_MODES:
+        import torch.distributed as dist
+
+        mode = COORDINATOR_MODES[flags[0]]
+        outs = []
+        for extra in ([], ["--coordinator", f"127.0.0.1:{_free_port()}",
+                           "--num-processes", "1", "--process-id", "0"]):
+            out_dir = tmp_path / ("with" if extra else "without")
+            assert cli.main([fasta[0], str(out_dir), *BOUNDS, "--device", "cpu",
+                             "--validate", *mode, *extra]) == 0
+            text = capsys.readouterr()
+            assert "validate OK" in text.out
+            assert ("1 processes (gloo)" in text.out) == bool(extra)
+            lines = sorted(_read(out_dir / "0.out").splitlines())
+            outs.append((lines, _histogram(text.out)))
+        assert outs[0] == outs[1] and outs[0][0]
+        assert "[proc 0] " in text.out and "stages s: read_shard" in text.out
+        assert not dist.is_initialized()  # the CLI leaves the group it joined
+        return
     if flags[0] in ("--combiner", "--classifier", "--routing", "--dispatcher"):
         outs = []
         for extra in ([], flags):
@@ -106,11 +142,6 @@ def test_unported_paths_exit_nonzero(fasta, tmp_path, capsys, monkeypatch, flags
                 cli.main([fasta[0], "--device", "cpu", "--single-device", *flags])
             assert exc.value.code == 2
             assert "--single-device" in capsys.readouterr().err
-        return
-    if flags[0] != "--extension":
-        assert cli.main([fasta[0], "--device", "cpu", *flags]) != 0
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and flags[0] in err
         return
     import hysortk_tpu_torch
     from hysortk_tpu_torch import pipeline
@@ -202,7 +233,9 @@ def test_cli_across_two_ranks_matches_jax_cli(fasta, tmp_path, capsys, flags):
     the same flags (extension mode, sharded streaming, both, a routing):
     rank 0 writes the one output file, whose lines equal the JAX file's
     sorted, and prints the histogram, equal to the JAX CLI's; rank 1 prints
-    neither.
+    neither. Across ranks the CLI's timer is synchronized, so every span
+    waits at a barrier: both ranks enter the write span, rank 0 alone
+    writes.
     """
     _two_ranks_match_jax_cli(fasta, tmp_path, capsys, flags)
 
@@ -223,7 +256,7 @@ def _two_ranks_match_jax_cli(fasta, tmp_path, capsys, flags):
         ours = f.read()
     with open(tmp_path / "cli.1.txt") as f:
         assert "#count" not in f.read()
-    assert "2 ranks" in ours
+    assert "2 ranks" in ours and "  write_output: " in ours
     assert sorted(os.listdir(out_dir)) == ["0.out"]
     assert jcli.main(args[:1] + [str(tmp_path / "jax")] + args[1:] + flags) == 0
     theirs = capsys.readouterr().out
@@ -235,14 +268,73 @@ def _two_ranks_match_jax_cli(fasta, tmp_path, capsys, flags):
 
 
 def test_cli_across_ranks_refuses_unported_modes(tmp_path, fasta, monkeypatch, capsys):
-    """The JAX multi-process flags are not ported: the CLI under
-    WORLD_SIZE > 1 exits 2 before it joins a group. The supermer routing
-    is: on 2 ranks in extension mode (one-shot, through the facade) it
+    """No mode is refused across ranks now. With WORLD_SIZE=2 in the
+    environment (as torchrun sets it), --coordinator still takes the
+    multi-process run: two processes join there, each writes its share, and
+    the union of 0.out and 1.out is the oracle's list. The supermer routing
+    on 2 torchrun ranks in extension mode (one-shot, through the facade)
     gives the JAX CLI's output and histogram."""
-    with monkeypatch.context() as m:
-        m.setenv("WORLD_SIZE", "2")
-        assert cli.main([fasta[0], "--device", "cpu", "--coordinator",
-                         "localhost:1234"]) == 2
-        assert "not ported yet" in capsys.readouterr().err
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    _two_processes(fasta, tmp_path / "coordinator", [])
+    monkeypatch.delenv("WORLD_SIZE")
     _two_ranks_match_jax_cli(fasta, tmp_path, capsys,
                              ["--routing", "supermer", "--extension"])
+
+
+def _two_processes(fasta, out_dir, flags) -> str:
+    """The CLI as two processes joined at --coordinator, each validating its
+    share; rank 0's standard output. The shares are disjoint and their
+    union is the oracle's list."""
+    path, reads = fasta
+    port = _free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hysortk_tpu_torch.cli", path, str(out_dir), *BOUNDS,
+         "--device", "cpu", "--validate", "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", "2", "--process-id", str(r), *flags],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=240)
+            assert proc.returncode == 0, err[-3000:]
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    assert "validate OK" in outs[0] and "2 processes (gloo)" in outs[0]
+    assert "#count" not in outs[1] and "[proc 1] " in outs[0]
+    assert sorted(os.listdir(out_dir)) == ["0.out", "1.out"]
+    shares = []
+    for r in range(2):
+        lines = _read(out_dir / f"{r}.out").splitlines()
+        shares.append({line.split(b"\t")[0]: int(line.split(b"\t")[1]) for line in lines})
+    assert shares[0] and shares[1] and not set(shares[0]) & set(shares[1])
+    want = oracle.oracle_filtered(reads, 31, 2, 50)
+    assert {km.decode(): c for share in shares for km, c in share.items()} == want
+    return outs[0]
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--stream-batch-bases", "700"], ["--extension"], ["--routing", "minimizer"],
+    ["--routing", "supermer"],
+    ["--routing", "supermer", "--extension", "--stream-batch-bases", "700"],
+], ids=["default", "stream", "extension", "minimizer", "supermer",
+        "supermer_extension_stream"])
+def test_cli_coordinator_two_processes(fasta, tmp_path, capsys, flags):
+    """python -m hysortk_tpu_torch.cli as two processes joined at
+    --coordinator (gloo on the CPU): each reads its own records, validates
+    its share against the oracle and writes it to <rank>.out; rank 0
+    prints the global histogram, equal to the JAX CLI's, and every rank's
+    stage line in rank order."""
+    ours = _two_processes(fasta, tmp_path / "port", flags)
+    assert ours.index("[proc 0] ") < ours.index("[proc 1] ")
+    assert "across 2 procs" in ours
+    path = fasta[0]
+    jflags = [f for f in flags if f not in ("--routing", "supermer", "minimizer")]
+    assert jcli.main([path, str(tmp_path / "jax"), "-k", "31", "-m", "17", *BOUNDS,
+                      "--single-device", *jflags]) == 0
+    assert _histogram(ours) == _histogram(capsys.readouterr().out)

@@ -150,6 +150,7 @@ def test_import_leaves_jax_out():
             "assert 'hysortk_tpu_torch.parallel.spawn' in names, names\n"
             "assert 'hysortk_tpu_torch.ops.minimizer' in names, names\n"
             "assert 'hysortk_tpu_torch.parallel.supermer_route' in names, names\n"
+            "assert 'hysortk_tpu_torch.parallel.multihost' in names, names\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'hysortk_tpu' not in sys.modules, 'hysortk_tpu imported'\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -198,3 +198,68 @@ def test_profiling_on_cpu(tmp_path):
             torch.arange(1000).sum()
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
     assert 0 <= profiling.device_seconds(lambda: torch.arange(1000).sum(), iters=2) < 1
+
+
+# --------------------------------------------------------------------------
+# The gathers across ranks: two gloo ranks in one spawn.
+
+LATE = 0.5  # seconds rank 1 comes late to a synchronized span
+
+
+def _runtime_ranks_job(rank: int, out_dir: str) -> None:
+    import json
+    import os
+
+    out = io.StringIO()
+    log = logger.Logger(out, rank=rank)
+    log.log(f"rank {rank} line 1")
+    log.log(f"rank {rank} line 2")
+    log.flush("label")
+    report = memcheck.gathered_memory_report()
+    t = timer.Timer(synchronized=True)
+    if rank == 1:
+        time.sleep(LATE)
+    t0 = time.perf_counter()
+    with t.span("together"):
+        entered = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"runtime.{rank}.json"), "w") as f:
+        json.dump(dict(log=out.getvalue(), report=report, entered=entered,
+                       span=t.last("together")), f)
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    import json
+
+    from hysortk_tpu_torch.parallel.spawn import spawn_ranks
+
+    d = tmp_path_factory.mktemp("runtime_ranks")
+    spawn_ranks(_runtime_ranks_job, 2, (str(d),), workdir=str(d), device="cpu",
+                timeout=120)
+    return [json.loads((d / f"runtime.{r}.json").read_text()) for r in range(2)]
+
+
+def test_logger_flush_gathers_every_rank_in_rank_order(two_ranks):
+    assert two_ranks[0]["log"] == (
+        "## label\n[proc 0] rank 0 line 1\n[proc 0] rank 0 line 2\n"
+        "[proc 1] rank 1 line 1\n[proc 1] rank 1 line 2\n")
+    assert two_ranks[1]["log"] == ""  # rank 0 prints for every rank
+
+
+def test_gathered_memory_report_has_a_row_per_rank(two_ranks):
+    for r in two_ranks:
+        lines = r["report"].splitlines()
+        assert lines[0] == "-- memory --" and len(lines) == 4
+        assert lines[1].startswith("  proc 0: rss ")
+        assert lines[2].startswith("  proc 1: rss ")
+        rss = [float(re.search(r"rss ([\d.]+) GB", line).group(1)) for line in lines[1:3]]
+        total = float(re.search(r"total rss ([\d.]+) GB across 2 procs", lines[3]).group(1))
+        assert abs(total - sum(rss)) <= 0.011
+
+
+def test_synchronized_timer_span_waits_at_a_barrier(two_ranks):
+    """Rank 1 comes LATE seconds late: rank 0's span starts only once
+    rank 1 has come (a barrier), and the span itself times only its body."""
+    assert two_ranks[0]["entered"] >= LATE * 0.8
+    assert two_ranks[1]["entered"] < LATE * 0.8
+    assert all(r["span"] < LATE * 0.8 for r in two_ranks)
