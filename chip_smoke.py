@@ -7,7 +7,9 @@
 the CUDA toolkit; the kernels are built from hysortk_tpu_torch/csrc into
 build/kernels/ at first use. Phases, each printing its findings:
 
-  0  the card (nvidia-smi name and power limit), versions, kernel build time
+  0  the card (nvidia-smi name and power limit), versions, kernel build time;
+     the host library's build time (csrc/host_io.cpp into build/host/),
+     compiler and thread count
   1  each kernel against its plain PyTorch version on the card, exactly
      equal, timed with CUDA events: synthetic cases (top-bit keys,
      duplicates, sentinel tails, poly-A-length runs, runs of unequal fill),
@@ -31,8 +33,13 @@ build/kernels/ at first use. Phases, each printing its findings:
      read_dna_buffer -> kmer_count(K=31, L=2, U=50, device="cuda") ->
      print_kmer_histogram -> write_output_file; every kernel's launch
      count must rise, and the result must equal the plain functions
-     composed on the same CUDA tensors; then the same call stage by stage
-     with a synchronize after each, for the stage times
+     composed on the same CUDA tensors, and the host stages must have
+     called the port's own host library (from build/host/); then the same
+     call stage by stage with a synchronize after each, for the stage
+     times; then each of the host library's six functions (FASTA strip,
+     2-bit pack, key decode, output lines, supermer run boundaries, run
+     gather) on phase 2's reads and result, exactly equal to its numpy
+     plain version, both timed
   3  a FASTA under 10 kB through the facade on the card against the
      pure-Python oracle
   4  bounded-memory streaming of phase 2's reads through
@@ -40,7 +47,12 @@ build/kernels/ at first use. Phases, each printing its findings:
      batches of 2^24 bases (host-held partials), (b) device_compact in
      batches of 2^22 bases (device-resident runs, consolidation cycles, the
      final device merge); each result equal to phase 2's, both streaming
-     kernels launched in both runs
+     kernels launched in both runs; then the out-of-memory drains under
+     device_compact and HYSORTK_DEVICE_RESIDENT_GROUP=8, a per-process
+     memory fraction leaving 64 MiB above what the allocator holds at the
+     entry of (c) the first consolidation cycle (batches of 2^22) and (d)
+     the final device merge (batches of 2^24): each logs its drain
+     warning, finishes on the host and equals phase 2
   5  python -m hysortk_tpu_torch.cli on phase 3's FASTA, streaming, against
      the oracle
   6  phase 2's call again with HYSORTK_FUSED_SORT=1 (the key build fused
@@ -240,6 +252,7 @@ def phase0_device():
     import torch
 
     from hysortk_tpu_torch import _build
+    from hysortk_tpu_torch.io import native
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -258,6 +271,14 @@ def phase0_device():
         for line in f:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("phase0 ptxas:", line.strip())
+    t0 = time.perf_counter()
+    host_path = native.library_path()
+    cxx = _build.find_cxx()
+    log(f"phase0 host library build+load {time.perf_counter() - t0:.3f} s -> "
+        f"{os.path.relpath(host_path, ROOT)}; compiler {cxx}: "
+        f"{_build.compiler_version(cxx)}; flags {' '.join(_build.HOST_FLAGS)}; "
+        f"{torch.get_num_threads()} threads (torch.get_num_threads(), "
+        f"os.cpu_count() {os.cpu_count()})")
     return smi
 
 
@@ -1101,6 +1122,7 @@ def phase2_slice(workdir: str, rng):
 
     import hysortk_tpu_torch as ht
     from hysortk_tpu_torch import _build
+    from hysortk_tpu_torch.io import native
 
     fasta = os.path.join(workdir, "reads.fa")
     t0 = time.perf_counter()
@@ -1108,6 +1130,7 @@ def phase2_slice(workdir: str, rng):
     log(f"phase2 wrote {N_READS} reads x {READ_LEN} bases "
         f"({os.path.getsize(fasta)} B FASTA) in {time.perf_counter() - t0:.3f} s")
 
+    native.reset_calls()
     t0 = time.perf_counter()
     codes, lengths = ht.read_dna_buffer(fasta)
     log(f"phase2 read_dna_buffer {int(codes.size)} bases, {lengths.size} reads "
@@ -1115,11 +1138,6 @@ def phase2_slice(workdir: str, rng):
     cfg = slice_config()
     n_kmers = int(np.maximum(lengths - K + 1, 0).sum())
 
-    from hysortk_tpu_torch.io import native
-
-    # The host pack sets most of the wall time of a call.
-    log(f"phase2 pack_codes_2bit runs "
-        f"{'the native library' if native.available() else 'numpy'}")
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1149,6 +1167,15 @@ def phase2_slice(workdir: str, rng):
         lines = f.read().count(b"\n")
     if lines != len(kl):
         raise AssertionError(f"{out_path} has {lines} lines, list has {len(kl)}")
+    # The host stages went through the port's own library.
+    host_calls = dict(native.calls)
+    host_lib = os.path.relpath(native.library_path(), ROOT)
+    log(f"phase2 host route: the port's library {host_lib}, calls {json.dumps(host_calls)}")
+    unused = [name for name in ("strip_and_pack", "pack_2bit", "format_output")
+              if host_calls[name] == 0]
+    if unused or not host_lib.startswith(os.path.join("build", "host") + os.sep):
+        raise AssertionError(f"phase 2 did not run the port's host library ({host_lib}): "
+                             f"no call of {unused}")
 
     pk, phist = plain_count_reads(codes, lengths, cfg)
     if not (np.array_equal(kl.keys, pk.keys) and np.array_equal(kl.counts, pk.counts)
@@ -1162,6 +1189,77 @@ def phase2_slice(workdir: str, rng):
         f"histogram mode at count {int(np.argmax(hist))}; "
         f"peak device memory {peak / 2**30:.3f} GiB")
     return codes, lengths, launches, (kl, hist), peak, best
+
+
+def phase2_host_functions(workdir: str, codes, lengths, one_shot) -> None:
+    """Each function of the port's host library against its numpy plain
+    version on phase 2's reads and result, exactly equal, with both times
+    (host clock: the library's mean of three calls after one, the plain
+    version's one call)."""
+    import torch
+
+    from hysortk_tpu_torch.io import fasta as fasta_io
+    from hysortk_tpu_torch.io import native, supermer, writer
+    from hysortk_tpu_torch.ops import kmer
+    from hysortk_tpu_torch.parallel import pipeline as sharded
+    from hysortk_tpu_torch.parallel import supermer_route as sr
+
+    cfg = slice_config()
+    kl, _ = one_shot
+    fasta = os.path.join(workdir, "reads.fa")
+    raw_args = fasta_io.read_record_bytes(fasta, fasta_io.load_or_build_fai(fasta))
+    n = -(-(int(codes.size) + 16) // cfg.pad_multiple) * cfg.pad_multiple
+    buf = np.zeros(n, dtype=np.uint8)
+    buf[: codes.size] = codes
+    flat, valid = fasta_io.flatten_for_device(codes, lengths, K, cfg.pad_multiple)
+    # Destinations as a four-rank supermer route gives them: minimizer
+    # buckets, dealt to the ranks in turn.
+    dest = (sr.host_destinations(flat, K, M, sharded._num_buckets(cfg, 4), "cuda")
+            % 4).astype(np.int32)
+    max_kmers = supermer.MAX_SUPERMER_LEN - K + 1
+    starts, kmers_, _ = native.run_boundaries(valid, dest, max_kmers)
+    bases = kmers_ + K - 1
+    out_off = np.zeros(bases.size, np.int64)
+    np.cumsum(bases[:-1], out=out_off[1:])
+    total = int(bases.sum())
+    counts32 = kl.counts.astype(np.int32)
+    cases = (
+        ("strip_and_pack", f"{int(raw_args[0].size)} B of FASTA, {lengths.size} records",
+         lambda: native.strip_and_pack(*raw_args),
+         lambda: fasta_io.strip_and_pack_plain(*raw_args)),
+        ("pack_2bit", f"{n} codes", lambda: native.pack_2bit(buf),
+         lambda: supermer.pack_codes_2bit_plain(buf)),
+        ("decode_keys", f"{len(kl)} keys", lambda: native.decode_keys(kl.keys, K),
+         lambda: kmer.decode_keys_plain(kl.keys, K)),
+        ("format_output", f"{len(kl)} rows",
+         lambda: native.format_output(kl.keys, counts32, K),
+         lambda: writer.format_output_plain(kl.keys, counts32, K)),
+        ("run_boundaries", f"{int(valid.size)} positions, {starts.size} runs",
+         lambda: native.run_boundaries(valid, dest, max_kmers),
+         lambda: supermer.run_boundaries_plain(valid, dest, max_kmers)),
+        ("gather_runs", f"{starts.size} runs, {total} bases",
+         lambda: native.gather_runs(flat, starts, bases, out_off, total),
+         lambda: supermer.gather_runs_plain(flat, starts, bases, out_off, total)),
+    )
+    for name, what, fn, plain in cases:
+        got = fn()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            got = fn()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        t0 = time.perf_counter()
+        want = plain()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(got, bytes):
+            same = got == want
+        else:
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            same = all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in pairs)
+        if not same:
+            raise AssertionError(f"host library {name} differs from its plain version")
+        log(f"phase2 host {name} ({what}): library {ms:.1f} ms on "
+            f"{torch.get_num_threads()} threads, plain {plain_ms:.1f} ms, equal")
+        del got, want
 
 
 def phase2_stages(codes, lengths, cfg) -> None:
@@ -1363,6 +1461,103 @@ def phase4_streaming(codes, lengths, one_shot, one_shot_peak, errs, profile):
             profile_streaming(lambda: ht.count_reads_streaming(
                 codes, lengths, cfg, batch_bases, device="cuda"), f"phase4{tag}")
     return out["a"]
+
+
+class MemoryCapWithin(Recorder):
+    """A Recorder whose calls run under a per-process memory fraction that
+    leaves `margin` bytes above what the allocator holds at the call's entry
+    (its cache emptied first), so that a call which needs more raises
+    torch.cuda.OutOfMemoryError from the allocator; the fraction is back to
+    the whole card when the call returns or raises."""
+
+    def __init__(self, module, name: str, margin: int):
+        super().__init__(module, name)
+        self.margin = margin
+        self.caps = []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(0).total_memory
+        cap = torch.cuda.memory_reserved() + self.margin
+        self.caps.append(cap)
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            return super().__call__(*args, **kwargs)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+
+
+def phase4_drains(codes, lengths, one_shot) -> None:
+    """The streaming scheduler's out-of-memory drains on the card:
+    phase 2's reads under device_compact with HYSORTK_DEVICE_RESIDENT_GROUP=8,
+    (c) in 17 batches of 2^22, where the first consolidation cycle runs
+    under a memory fraction too small for it, and (d) in batches of 2^24
+    (fewer than eight: no cycle), where the final device merge does. Each
+    must log its drain warning, finish on the host and equal phase 2."""
+    import dataclasses
+    import logging
+
+    import torch
+
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch.runtime import scheduler
+
+    cfg = dataclasses.replace(slice_config(), device_compact=True)
+    cases = (
+        ("c", 1 << 22, "_consolidate_device_runs",
+         "device-resident consolidation ran out of device memory"),
+        ("d", 1 << 24, "_merge_device_resident",
+         "device-resident merge ran out of device memory"),
+    )
+    logged = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            logged.append(record.getMessage())
+
+    handler = Catch(logging.WARNING)
+    stream_log = logging.getLogger("hysortk_tpu_torch.stream")
+    stream_log.addHandler(handler)
+    os.environ["HYSORTK_DEVICE_RESIDENT_GROUP"] = "8"
+    try:
+        for tag, batch_bases, capped, warning in cases:
+            logged.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with contextlib.ExitStack() as stack:
+                # In this order: the cap wraps the cycle counter in (c).
+                cycles = stack.enter_context(
+                    Recorder(scheduler, "_consolidate_device_runs"))
+                cap = stack.enter_context(MemoryCapWithin(scheduler, capped, 64 << 20))
+                host_merge = stack.enter_context(Recorder(scheduler, "merge_partial_lists"))
+                t0 = time.perf_counter()
+                kl, hist = ht.count_reads_streaming(codes, lengths, cfg, batch_bases,
+                                                    device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            want, want_hist = one_shot
+            if not (np.array_equal(kl.keys, want.keys)
+                    and np.array_equal(kl.counts, want.counts)
+                    and np.array_equal(hist, want_hist)):
+                raise AssertionError(f"drain run 4({tag}) differs from phase 2's result")
+            if not any(warning in w for w in logged):
+                raise AssertionError(f"drain run 4({tag}) logged no drain warning: {logged}")
+            if cap.calls != 1 or host_merge.calls != 1:
+                raise AssertionError(
+                    f"drain run 4({tag}): {cap.calls} capped calls of {capped}, "
+                    f"{host_merge.calls} host-list merges (want 1 and 1)")
+            log(f"phase4{tag} drain: {capped} under a cap of {cap.caps[0] / 2**30:.3f} GiB "
+                f"raised torch.cuda.OutOfMemoryError; warning logged ({warning}); "
+                f"{cycles.calls} consolidation cycles begun, finished by a host-list merge; "
+                f"wall {wall:.4f} s, peak device memory {peak / 2**30:.3f} GiB; "
+                f"{len(kl)} k-mers equal to phase 2's")
+    finally:
+        os.environ.pop("HYSORTK_DEVICE_RESIDENT_GROUP", None)
+        stream_log.removeHandler(handler)
+        torch.cuda.set_per_process_memory_fraction(1.0)
 
 
 def profile_streaming(run, what: str) -> None:
@@ -2310,6 +2505,7 @@ def phase11_stages(codes, lengths, cfg, range_traffic) -> None:
     import torch
 
     from hysortk_tpu_torch.io import fasta as fasta_io
+    from hysortk_tpu_torch.io import native
     from hysortk_tpu_torch.ops import keybuild, radix_sort
     from hysortk_tpu_torch.parallel import dispatch, exchange
     from hysortk_tpu_torch.parallel import pipeline as sharded
@@ -2325,6 +2521,7 @@ def phase11_stages(codes, lengths, cfg, range_traffic) -> None:
         return out
 
     dev = torch.device("cuda", torch.cuda.current_device())
+    native.reset_calls()
     for _ in range(2):
         stages.clear()
         exchange.reset_traffic()
@@ -2361,6 +2558,10 @@ def phase11_stages(codes, lengths, cfg, range_traffic) -> None:
               lambda: sharded._gather_result(words_s, cnt, keep, cfg, None, False))
         del words_s, cnt, keep
     log(f"phase11a stages of one supermer call, second of two, ms: {'; '.join(stages)}")
+    if not all(native.calls[name] for name in ("run_boundaries", "gather_runs", "pack_2bit")):
+        raise AssertionError(f"phase 11(a)'s encoder and pack did not run the host "
+                             f"library: calls {native.calls}")
+    log(f"phase11a host library calls in the two calls: {json.dumps(native.calls)}")
     log(f"phase11a wire: {supermers} supermers, {payload} B of supermer payload "
         f"(2 bits a base + 4 B a supermer), {exchange.traffic['bytes_sent']} B sent "
         f"(segments padded to {block_len} bases, lmax {lmax}); the range route's "
@@ -2504,9 +2705,13 @@ def free_port() -> int:
 
 def run_cli_processes(fasta: str, out_dir: str, n: int, flags: list) -> tuple[str, list]:
     """python -m hysortk_tpu_torch.cli as n processes joined at --coordinator
-    on this host, all on this card: rank 0's standard output and each
-    process's wall, start to exit."""
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    on this host, all on this card, each with its share of the host's cores
+    as torch's thread count (which the host library takes): rank 0's
+    standard output and each process's wall, start to exit."""
+    import torch
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS=str(max(1, torch.get_num_threads() // n)))
     port = free_port()
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
@@ -2634,11 +2839,13 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch_root)
     try:
         codes, lengths, launches, one_shot, peak, best_wall = phase2_slice(workdir, rng)
+        phase2_host_functions(workdir, codes, lengths, one_shot)
         torch.cuda.empty_cache()
         times = phase1_main_path(codes, lengths, errs)
         fasta, reads = phase3_small(workdir, rng)
         stream_launches, stream_times = phase4_streaming(
             codes, lengths, one_shot, peak, errs, "--profile" in sys.argv[1:])
+        phase4_drains(codes, lengths, one_shot)
         phase5_cli(workdir, fasta, reads)
         torch.cuda.empty_cache()
         fused_launches, fused_wall = phase6_fused_sort(codes, lengths, one_shot)

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels; hold their launch counts.
+"""Build and load the hand-written CUDA kernels and the host library; hold
+the kernels' launch counts.
 
 The kernels' sources are csrc/*.cu and the headers csrc/*.cuh that they
 share. At first use they are compiled by nvcc
@@ -8,6 +9,14 @@ ctypes, so the build needs the CUDA toolkit and nothing of PyTorch's
 headers. The library goes to build/kernels/<hash>/ beside the
 package, keyed by a hash of the sources and the flags, and is reused while
 neither changes. A failed build raises.
+
+The host library (csrc/host_io.cpp: the FASTA parse, the 2-bit pack, the
+supermer encoder's loops, the output formatter; bound in io/native.py) is
+plain C++17 on std::thread, built at first use by the host's C++ compiler
+($CXX, else g++, else c++) into build/host/<hash>/. Its hash covers the
+source, the flags, the compiler's version line and the machine, because
+build/ can travel with a working tree to another host. A failed build
+raises with the compiler's errors.
 
 `launches` counts, per kernel wrapper, the calls that launched the kernel on
 a device. Only the wrappers touch it, at their launch; `reset_launches`
@@ -19,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -35,6 +45,13 @@ NVCC_FLAGS = (
     "-split-compile", "0",
 )
 _LIB_NAME = "libhysortk_kernels.so"
+
+HOST_SOURCE = os.path.join(_CSRC_DIR, "host_io.cpp")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "host")
+# No -march=native and no OpenMP: the library must run on whatever host
+# the tree is copied to, with the compiler's runtime alone.
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
+_HOST_LIB_NAME = "libhysortk_host.so"
 
 launches = {
     "keybuild": 0, "radix_sort": 0, "fused_count": 0,
@@ -126,6 +143,66 @@ def library_path() -> str:
         raise RuntimeError(
             f"nvcc failed (exit {failed[0]}):\n{errors[:4000]}\n...\n{log[-4000:]}"
         )
+    os.replace(tmp_path, lib_path)
+    return lib_path
+
+
+def find_cxx() -> str:
+    """The host C++ compiler: $CXX when set (as given: a missing one fails
+    the build), else g++, else c++ on PATH."""
+    if os.environ.get("CXX"):
+        return os.environ["CXX"]
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler: $CXX is unset and neither g++ nor c++ "
+                       "is on PATH; the host library cannot be built")
+
+
+def compiler_version(cxx: str) -> str:
+    """The first line of `cxx --version`; raises if the compiler does not
+    run."""
+    try:
+        proc = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                              timeout=60)
+    except (OSError, subprocess.SubprocessError) as exc:
+        raise RuntimeError(f"C++ compiler {cxx!r} does not run: {exc}") from exc
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} --version failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-2000:]}")
+    return (proc.stdout.splitlines() or [""])[0].strip()
+
+
+def host_library_path() -> str:
+    """Path of the host library built from csrc/host_io.cpp (built if
+    absent), under HOST_BUILD_DIR/<hash>/ with the compiler's output beside
+    it as build.log."""
+    cxx = find_cxx()
+    version = compiler_version(cxx)
+    digest = hashlib.sha256(
+        "\0".join([*HOST_FLAGS, version, platform.machine()]).encode())
+    with open(HOST_SOURCE, "rb") as f:
+        digest.update(f.read())
+    out_dir = os.path.join(HOST_BUILD_DIR, digest.hexdigest()[:16])
+    lib_path = os.path.join(out_dir, _HOST_LIB_NAME)
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp_path = f"{lib_path}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp_path, HOST_SOURCE],
+                              capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as exc:
+        raise RuntimeError(f"{cxx} could not build {HOST_SOURCE}: {exc}") from exc
+    log = f"{cxx} ({version})\n{proc.stdout}{proc.stderr}"
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(log)
+    if proc.returncode != 0:
+        if os.path.exists(tmp_path):
+            os.remove(tmp_path)
+        raise RuntimeError(
+            f"{cxx} failed (exit {proc.returncode}) on {HOST_SOURCE}:\n{log[-4000:]}")
     os.replace(tmp_path, lib_path)
     return lib_path
 

@@ -1,0 +1,263 @@
+// Host-side hot loops of hysortk_tpu_torch, a C ABI shared library bound with
+// ctypes (io/native.py): FASTA newline strip + 2-bit code, the 2-bit wire
+// pack, packed-key decode, output formatting, and the supermer encoder's run
+// decomposition and run gather.
+//
+// The port's own copy of native/host_io.cpp (the JAX package's library),
+// with the same entry points and results. The loops run on std::thread
+// workers instead of OpenMP, so the library needs nothing beyond the C++
+// standard library and builds wherever a C++17 compiler does
+// (hysortk_tpu_torch/_build.host_library_path). The worker count is the
+// caller's (hk_set_threads; the loader passes torch.get_num_threads() before
+// every call), so ranks that share a host's cores split them instead of each
+// taking all. No result depends on the worker count.
+//
+// Reference loops: ASCII -> 2-bit (DnaSeq::compress, src/dnaseq.cpp:9-80),
+// FASTA strip (FastaIndex::getmydna, src/fastaindex.cpp:248-293), key decode
+// (Kmer::GetString, include/kmer.hpp:147-163), supermer boundaries
+// (SupermerEncoder, src/kmerops.cpp:1096-1148), output lines
+// (src/hysortk.cpp:138-164). Each has a numpy plain version in the package
+// (io/fasta, io/supermer, io/writer, ops/kmer) that the tests hold it to.
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <cstring>
+#include <system_error>
+#include <thread>
+#include <vector>
+
+namespace {
+
+std::atomic<int> g_threads{1};
+
+// body(lo, hi) over [0, n) in chunks of `chunk` items, taken in turn by up
+// to g_threads workers (the caller's thread is one of them). Serial when one
+// chunk covers everything. If the system refuses a thread, the workers that
+// did start finish the chunks.
+template <class Body>
+void parallel_for(int64_t n, int64_t chunk, Body body) {
+  if (n <= 0) return;
+  chunk = std::max<int64_t>(chunk, 1);
+  const int64_t chunks = (n + chunk - 1) / chunk;
+  const int64_t workers =
+      std::min<int64_t>(g_threads.load(std::memory_order_relaxed), chunks);
+  if (workers <= 1) {
+    body(0, n);
+    return;
+  }
+  std::atomic<int64_t> next{0};
+  auto work = [&]() {
+    for (;;) {
+      const int64_t c = next.fetch_add(1, std::memory_order_relaxed);
+      if (c >= chunks) return;
+      const int64_t lo = c * chunk;
+      body(lo, std::min(lo + chunk, n));
+    }
+  };
+  std::vector<std::thread> pool;
+  pool.reserve(workers - 1);
+  for (int64_t t = 1; t < workers; ++t) {
+    try {
+      pool.emplace_back(work);
+    } catch (const std::system_error &) {
+      break;
+    }
+  }
+  work();
+  for (auto &th : pool) th.join();
+}
+
+// Contiguous chunks, about four a worker: static scheduling for loops whose
+// items cost the same.
+int64_t even_chunk(int64_t n) {
+  const int64_t parts = 4 * (int64_t)g_threads.load(std::memory_order_relaxed);
+  return std::max<int64_t>((n + parts - 1) / parts, 4096);
+}
+
+// ASCII -> 2-bit code, A/a=0 C/c=1 G/g=2 T/t=3, everything else 0.
+struct CodeLut {
+  uint8_t code[256];
+  CodeLut() {
+    std::memset(code, 0, sizeof(code));
+    code['C'] = code['c'] = 1;
+    code['G'] = code['g'] = 2;
+    code['T'] = code['t'] = 3;
+  }
+};
+const CodeLut g_lut;
+
+const char kBases[4] = {'A', 'C', 'G', 'T'};
+
+}  // namespace
+
+extern "C" {
+
+// Worker count of the calls that follow (at least 1).
+void hk_set_threads(int32_t n) {
+  g_threads.store(n < 1 ? 1 : n, std::memory_order_relaxed);
+}
+
+// Strip line breaks of FASTA records and code them in one pass.
+// raw: the byte range read from the file; record r's sequence starts at
+// raw_off[r] (relative to raw) and has seq_len[r] bases laid out in lines of
+// line_bases[r] bases every line_width[r] bytes. The output is the
+// concatenated code stream; out_off[r] is each record's output offset.
+void hk_strip_and_pack(const uint8_t *raw, const int64_t *raw_off,
+                       const int64_t *seq_len, const int64_t *line_bases,
+                       const int64_t *line_width, const int64_t *out_off,
+                       int64_t nrecs, uint8_t *out) {
+  // Records differ in length: small chunks, taken in turn.
+  parallel_for(nrecs, 8, [&](int64_t lo, int64_t hi) {
+    for (int64_t r = lo; r < hi; ++r) {
+      const int64_t lb = line_bases[r] > 0 ? line_bases[r] : seq_len[r];
+      const int64_t lw = line_width[r] > 0 ? line_width[r] : lb + 1;
+      const uint8_t *src = raw + raw_off[r];
+      uint8_t *dst = out + out_off[r];
+      int64_t remaining = seq_len[r];
+      while (remaining > 0) {
+        const int64_t take = remaining < lb ? remaining : lb;
+        for (int64_t i = 0; i < take; ++i) dst[i] = g_lut.code[src[i]];
+        dst += take;
+        src += lw;
+        remaining -= take;
+      }
+    }
+  });
+}
+
+// Packed canonical keys -> ASCII. keys is row-major (n, w) uint32; out gets
+// n*k chars (no separators).
+void hk_decode_keys(const uint32_t *keys, int64_t n, int32_t w, int32_t k,
+                    char *out) {
+  parallel_for(n, even_chunk(n), [&](int64_t lo, int64_t hi) {
+    for (int64_t i = lo; i < hi; ++i) {
+      const uint32_t *key = keys + i * w;
+      char *dst = out + i * k;
+      for (int32_t j = 0; j < k; ++j) {
+        const uint32_t word = key[j >> 4];
+        dst[j] = kBases[(word >> (2 * (15 - (j & 15)))) & 3u];
+      }
+    }
+  });
+}
+
+// 2-bit wire pack: 16 base codes per uint32 word, base b at bit shift
+// 30 - 2*(b%16) (the host side of ops/wire.py; the density of the
+// reference's supermer payload, src/kmerops.cpp:1096-1107). n must be a
+// multiple of 16 (callers zero-pad).
+void hk_pack_2bit(const uint8_t *codes, int64_t n, uint32_t *out) {
+  const int64_t words = n / 16;
+  parallel_for(words, even_chunk(words), [&](int64_t lo, int64_t hi) {
+    for (int64_t wi = lo; wi < hi; ++wi) {
+      const uint8_t *c = codes + wi * 16;
+      uint32_t v = 0;
+      for (int j = 0; j < 16; ++j) v |= (uint32_t)(c[j] & 3u) << (30 - 2 * j);
+      out[wi] = v;
+    }
+  });
+}
+
+// Render "kmer\tcount\n" lines for the output writer. counts are int32.
+// Returns the number of bytes written; out must have n * (k + 12) capacity.
+// Two passes over the same row chunks (four a worker): the first sums each
+// chunk's bytes (the count's digits are the only variable width), a
+// sequential scan places the chunks, the second fills them. The chunking
+// moves only where a chunk starts, so the bytes are the same for any worker
+// count.
+int64_t hk_format_output(const uint32_t *keys, const int32_t *counts,
+                         int64_t n, int32_t w, int32_t k, char *out) {
+  if (n == 0) return 0;
+  int64_t nchunks = 4 * (int64_t)g_threads.load(std::memory_order_relaxed);
+  if (nchunks > n) nchunks = n;
+  const int64_t rows_per = (n + nchunks - 1) / nchunks;
+  nchunks = (n + rows_per - 1) / rows_per;
+  std::vector<int64_t> chunk_off(nchunks + 1, 0);
+  parallel_for(nchunks, 1, [&](int64_t c_lo, int64_t c_hi) {
+    for (int64_t c = c_lo; c < c_hi; ++c) {
+      const int64_t lo = c * rows_per;
+      const int64_t hi = std::min(lo + rows_per, n);
+      int64_t b = 0;
+      for (int64_t i = lo; i < hi; ++i) {
+        int32_t v = counts[i];
+        int32_t d = 1;  // c <= 0 renders as the single digit '0'
+        while (v >= 10) { v /= 10; ++d; }
+        b += (int64_t)k + 2 + d;
+      }
+      chunk_off[c + 1] = b;
+    }
+  });
+  for (int64_t c = 0; c < nchunks; ++c) chunk_off[c + 1] += chunk_off[c];
+  parallel_for(nchunks, 1, [&](int64_t c_lo, int64_t c_hi) {
+    for (int64_t c = c_lo; c < c_hi; ++c) {
+      const int64_t lo = c * rows_per;
+      const int64_t hi = std::min(lo + rows_per, n);
+      int64_t pos = chunk_off[c];
+      for (int64_t i = lo; i < hi; ++i) {
+        const uint32_t *key = keys + i * w;
+        for (int32_t j = 0; j < k; ++j) {
+          const uint32_t word = key[j >> 4];
+          out[pos++] = kBases[(word >> (2 * (15 - (j & 15)))) & 3u];
+        }
+        out[pos++] = '\t';
+        char tmp[12];
+        int32_t cval = counts[i], len = 0;
+        if (cval <= 0) tmp[len++] = '0';
+        while (cval > 0) { tmp[len++] = (char)('0' + cval % 10); cval /= 10; }
+        while (len > 0) out[pos++] = tmp[--len];
+        out[pos++] = '\n';
+      }
+    }
+  });
+  return chunk_off[nchunks];
+}
+
+// Supermer run decomposition of the flat k-mer stream (the reference's
+// SupermerEncoder boundary rule, src/kmerops.cpp:1096-1148): a run is a
+// maximal stretch of consecutive valid k-mer starts sharing a destination,
+// split every max_kmers starts (the 250-base cap). One sequential pass, as
+// each boundary depends on the previous position; fills out_start (flat
+// index of the run's first k-mer), out_kmers and out_dest; returns the run
+// count. The output buffers must hold one entry per valid position.
+int64_t hk_run_boundaries(const uint8_t *valid, const int32_t *dest,
+                          int64_t n, int64_t max_kmers,
+                          int64_t *out_start, int64_t *out_kmers,
+                          int32_t *out_dest) {
+  int64_t runs = 0;
+  int64_t prev = -2;        // last valid flat position
+  int64_t run_pos = 0;      // k-mers since the UNCAPPED run's start
+  int32_t cur_dest = -1;
+  for (int64_t i = 0; i < n; ++i) {
+    if (!valid[i]) continue;
+    const int32_t d = dest[i];
+    const bool new_run = (i != prev + 1) || (d != cur_dest);
+    if (new_run) run_pos = 0;
+    if (new_run || (run_pos % max_kmers) == 0) {
+      out_start[runs] = i;
+      out_kmers[runs] = 0;
+      out_dest[runs] = d;
+      ++runs;
+    }
+    ++out_kmers[runs - 1];
+    ++run_pos;
+    prev = i;
+    cur_dest = d;
+  }
+  return runs;
+}
+
+// Concatenate the per-run code slices codes[start .. start+bases) at the
+// given output offsets (the caller prefix-sums the lengths): the gather
+// behind the per-destination supermer streams
+// (io/supermer.encode_supermer_streams).
+void hk_gather_runs(const int8_t *codes, const int64_t *starts,
+                    const int64_t *bases, const int64_t *out_off,
+                    int64_t n_runs, int8_t *out) {
+  parallel_for(n_runs, 1024, [&](int64_t lo, int64_t hi) {
+    for (int64_t r = lo; r < hi; ++r) {
+      std::memcpy(out + out_off[r], codes + starts[r], (size_t)bases[r]);
+    }
+  });
+}
+
+}  // extern "C"

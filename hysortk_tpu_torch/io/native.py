@@ -1,94 +1,103 @@
-"""ctypes bindings for the native host-IO library (native/host_io.cpp).
+"""ctypes bindings for the port's host library (csrc/host_io.cpp).
 
-The wrapper of hysortk_tpu/io/native.py, loading the same library, cut to
-the entry points the port's paths use: strip and pack of FASTA records, the
-2-bit pack, key decode, output formatting, and the supermer encoder's run
-decomposition and run gather (io/supermer.py).
+The C++ loops of the host hot paths: strip and code of FASTA records, the
+2-bit wire pack, key decode, output formatting, and the supermer encoder's
+run decomposition and run gather (io/supermer.py). The library is the
+port's own, built at first use by `_build.host_library_path` (std::thread,
+no OpenMP); a failed build raises. Every call first hands the library
+`torch.get_num_threads()` as its worker count, so ranks that share a host's
+cores (spawned ranks run one thread each) split them.
 
-Loads (building on first use if a toolchain is present) the OpenMP-parallel
-C++ implementations of the host hot loops; every entry point has a numpy
-fallback with identical semantics, so the package works without a compiler
-and tests can compare the two.
+Each function has a numpy plain version beside its caller
+(`fasta.strip_and_pack_plain`, `supermer.pack_codes_2bit_plain`,
+`kmer.decode_keys_plain`, `writer.format_output_plain`,
+`supermer.run_boundaries_plain`, `supermer.gather_runs_plain`) with the
+same results. The callers take the native route while `available()` is
+true, which it always is; tests patch it to take the plain versions.
+
+`calls` counts each function's calls into the library; `reset_calls`
+clears it before a run whose use of the library is to be shown.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 import threading
-from typing import Optional
 
 import numpy as np
+import torch
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libhysortk_host.so"))
+from .. import _build
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_tried = False
+_lib: ctypes.CDLL | None = None
+_path: str | None = None
+
+calls = {
+    "strip_and_pack": 0, "pack_2bit": 0, "decode_keys": 0,
+    "format_output": 0, "run_boundaries": 0, "gather_runs": 0,
+}
 
 
-def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+def reset_calls() -> None:
+    for name in calls:
+        calls[name] = 0
+
+
+def library_path() -> str:
+    """Path of the loaded library (building and loading it first)."""
+    _load()
+    return _path
+
+
+def _load() -> ctypes.CDLL:
+    global _lib, _path
     with _lock:
-        if _tried:
-            return _lib
-        _tried = True
-        if not os.path.exists(_LIB_PATH):
-            try:
-                subprocess.run(
-                    ["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            except (OSError, subprocess.SubprocessError):
-                return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
-            return None
-
-        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-        u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
-        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-
-        try:
-            lib.hk_strip_and_pack.argtypes = [
-                u8p, i64p, i64p, i64p, i64p, i64p, ctypes.c_int64, u8p,
-            ]
-            lib.hk_decode_keys.argtypes = [
-                u32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_char_p,
-            ]
-            lib.hk_pack_2bit.argtypes = [u8p, ctypes.c_int64, u32p]
-            lib.hk_format_output.argtypes = [
-                u32p, i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_char_p,
-            ]
-            lib.hk_format_output.restype = ctypes.c_int64
-            i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
-            lib.hk_run_boundaries.argtypes = [
-                u8p, i32p, ctypes.c_int64, ctypes.c_int64,
-                i64p, i64p, i32p,
-            ]
-            lib.hk_run_boundaries.restype = ctypes.c_int64
-            lib.hk_gather_runs.argtypes = [
-                i8p, i64p, i64p, i64p, ctypes.c_int64, i8p,
-            ]
-        except AttributeError:
-            # Stale prebuilt .so missing a symbol: degrade to the numpy
-            # fallbacks (the module contract) instead of raising out of
-            # every native entry point.
-            return None
-        _lib = lib
+        if _lib is None:
+            path = _build.host_library_path()
+            _lib = _bind(ctypes.CDLL(path))
+            _path = path
         return _lib
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    lib.hk_set_threads.argtypes = [i32]
+    lib.hk_set_threads.restype = None
+    lib.hk_strip_and_pack.argtypes = [u8p, i64p, i64p, i64p, i64p, i64p, i64, u8p]
+    lib.hk_strip_and_pack.restype = None
+    lib.hk_decode_keys.argtypes = [u32p, i64, i32, i32, u8p]
+    lib.hk_decode_keys.restype = None
+    lib.hk_pack_2bit.argtypes = [u8p, i64, u32p]
+    lib.hk_pack_2bit.restype = None
+    lib.hk_format_output.argtypes = [u32p, i32p, i64, i32, i32, u8p]
+    lib.hk_format_output.restype = i64
+    lib.hk_run_boundaries.argtypes = [u8p, i32p, i64, i64, i64p, i64p, i32p]
+    lib.hk_run_boundaries.restype = i64
+    lib.hk_gather_runs.argtypes = [i8p, i64p, i64p, i64p, i64, i8p]
+    lib.hk_gather_runs.restype = None
+    return lib
+
+
+def _enter(name: str) -> ctypes.CDLL:
+    """The library, its worker count set to torch's thread count, with the
+    call counted."""
+    lib = _load()
+    lib.hk_set_threads(torch.get_num_threads())
+    calls[name] += 1
+    return lib
+
+
 def available() -> bool:
-    return _load() is not None
+    """Whether callers take the native routes: always (the library is built
+    at first use, and a failed build raises). The seam tests patch to take
+    the numpy plain versions instead."""
+    return True
 
 
 def strip_and_pack(
@@ -97,96 +106,96 @@ def strip_and_pack(
     seq_len: np.ndarray,
     line_bases: np.ndarray,
     line_width: np.ndarray,
-) -> Optional[np.ndarray]:
-    lib = _load()
-    if lib is None:
-        return None
+) -> np.ndarray:
+    """FASTA records' bases as 2-bit codes (uint8), line breaks stripped;
+    record r starts at raw[raw_off[r]] and has seq_len[r] bases in lines of
+    line_bases[r] bases every line_width[r] bytes."""
     raw = np.ascontiguousarray(raw, dtype=np.uint8)
     raw_off = np.ascontiguousarray(raw_off, dtype=np.int64)
     seq_len = np.ascontiguousarray(seq_len, dtype=np.int64)
     line_bases = np.ascontiguousarray(line_bases, dtype=np.int64)
     line_width = np.ascontiguousarray(line_width, dtype=np.int64)
-    out_off = np.concatenate([[0], np.cumsum(seq_len)[:-1]]).astype(np.int64)
+    n = seq_len.size
+    if not raw_off.size == line_bases.size == line_width.size == n:
+        raise ValueError("strip_and_pack: per-record arrays differ in length")
+    if n:
+        # The byte after each record's last base, by the loop's own geometry
+        # (an empty record reads nothing, wherever it points).
+        lb = np.where(line_bases > 0, line_bases, seq_len)
+        lw = np.where(line_width > 0, line_width, lb + 1)
+        full_lines = np.maximum(-(-seq_len // np.maximum(lb, 1)) - 1, 0)
+        end = np.where(seq_len > 0, raw_off + full_lines * (lw - lb) + seq_len, 0)
+        if (seq_len < 0).any() or (raw_off < 0).any() or int(end.max()) > raw.size:
+            raise ValueError("strip_and_pack: a record reaches past the raw bytes")
+    out_off = np.zeros(n, dtype=np.int64)
+    np.cumsum(seq_len[:-1], out=out_off[1:])
     out = np.empty(int(seq_len.sum()), dtype=np.uint8)
-    lib.hk_strip_and_pack(
-        raw, raw_off, seq_len, line_bases, line_width, out_off,
-        seq_len.size, out,
+    _enter("strip_and_pack").hk_strip_and_pack(
+        raw, raw_off, seq_len, line_bases, line_width, out_off, n, out,
     )
     return out
 
 
-def pack_2bit(codes: np.ndarray) -> Optional[np.ndarray]:
+def pack_2bit(codes: np.ndarray) -> np.ndarray:
     """16 base codes per uint32 wire word; len(codes) % 16 == 0."""
-    lib = _load()
-    if lib is None:
-        return None
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    if codes.size % 16:
+        raise ValueError(f"pack_2bit: {codes.size} codes, not a multiple of 16")
     out = np.empty(codes.size // 16, dtype=np.uint32)
-    lib.hk_pack_2bit(codes, codes.size, out)
+    _enter("pack_2bit").hk_pack_2bit(codes, codes.size, out)
     return out
 
 
-def decode_keys(keys: np.ndarray, k: int) -> Optional[np.ndarray]:
-    lib = _load()
-    if lib is None:
-        return None
+def decode_keys(keys: np.ndarray, k: int) -> np.ndarray:
+    """(N, W) uint32 packed keys -> (N,) length-k ASCII bytes."""
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     n, w = keys.shape
-    buf = ctypes.create_string_buffer(n * k)
-    lib.hk_decode_keys(keys, n, w, k, buf)
-    return np.frombuffer(buf, dtype=np.uint8).view(f"S{k}").reshape(n).copy() \
-        if n else np.zeros(0, dtype=f"S{k}")
+    if not 0 < k <= 16 * w:
+        raise ValueError(f"decode_keys: k={k} does not fit {w} words")
+    out = np.empty(n * k, dtype=np.uint8)
+    _enter("decode_keys").hk_decode_keys(keys, n, w, k, out)
+    return out.view(f"S{k}")
 
 
 def format_output_into(
     keys: np.ndarray, counts: np.ndarray, k: int, out: np.ndarray
-) -> Optional[int]:
+) -> int:
     """Render `kmer\\tcount\\n` rows into a caller-provided uint8 buffer
-    (capacity >= n*(k+12)); returns the byte count, or None without the
-    library. Zero-copy: the writer hands `memoryview(out)[:nbytes]`
-    straight to file.write — no zeroing, no bytes duplication (the
-    create_string_buffer version memset + copied ~1.4 GB per 2^24 rows)."""
-    lib = _load()
-    if lib is None:
-        return None
+    (capacity >= n*(k+12)); returns the byte count. The writer hands
+    `memoryview(out)[:nbytes]` straight to file.write: no zeroing and no
+    bytes copy."""
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     counts = np.ascontiguousarray(counts, dtype=np.int32)
     n, w = keys.shape
-    assert out.dtype == np.uint8 and out.size >= n * (k + 12)
-    nbytes = lib.hk_format_output(
-        keys, counts, n, w, k, out.ctypes.data_as(ctypes.c_char_p)
-    )
-    return int(nbytes)
+    if not 0 < k <= 16 * w or counts.shape != (n,):
+        raise ValueError("format_output: keys, counts and k do not agree")
+    if out.dtype != np.uint8 or not out.flags.c_contiguous or out.size < n * (k + 12):
+        raise ValueError("format_output: the buffer is too small")
+    return int(_enter("format_output").hk_format_output(keys, counts, n, w, k, out))
 
 
-def format_output(keys: np.ndarray, counts: np.ndarray, k: int) -> Optional[bytes]:
-    n = keys.shape[0]
-    out = np.empty(n * (k + 12), dtype=np.uint8)
-    nbytes = format_output_into(keys, counts, k, out)
-    if nbytes is None:
-        return None
-    return out[:nbytes].tobytes()
+def format_output(keys: np.ndarray, counts: np.ndarray, k: int) -> bytes:
+    out = np.empty(keys.shape[0] * (k + 12), dtype=np.uint8)
+    return out[: format_output_into(keys, counts, k, out)].tobytes()
 
 
 def run_boundaries(
     valid: np.ndarray, dest: np.ndarray, max_kmers: int
-) -> Optional[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """Native supermer run decomposition (hk_run_boundaries): one
-    sequential pass against numpy's ~8 full-array passes. Returns
-    (run_start_flat, run_kmers, run_dest) or None without the library."""
-    lib = _load()
-    if lib is None:
-        return None
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Supermer run decomposition in one sequential pass (numpy's takes
+    about eight full-array passes). Returns (run_start_flat, run_kmers,
+    run_dest)."""
     valid_u8 = np.ascontiguousarray(valid, dtype=np.uint8)
     dest_i32 = np.ascontiguousarray(dest, dtype=np.int32)
     n = valid_u8.size
-    cap = max(int(valid_u8.sum()), 1)
+    if dest_i32.size < n or max_kmers < 1:
+        raise ValueError("run_boundaries: dest shorter than valid, or max_kmers < 1")
+    cap = max(int(np.count_nonzero(valid_u8)), 1)
     out_start = np.empty(cap, dtype=np.int64)
     out_kmers = np.empty(cap, dtype=np.int64)
     out_dest = np.empty(cap, dtype=np.int32)
-    runs = lib.hk_run_boundaries(
-        valid_u8, dest_i32, n, int(max_kmers),
-        out_start, out_kmers, out_dest,
+    runs = _enter("run_boundaries").hk_run_boundaries(
+        valid_u8, dest_i32, n, int(max_kmers), out_start, out_kmers, out_dest,
     )
     return out_start[:runs], out_kmers[:runs], out_dest[:runs]
 
@@ -197,18 +206,21 @@ def gather_runs(
     bases: np.ndarray,
     out_off: np.ndarray,
     total: int,
-) -> Optional[np.ndarray]:
-    """Native per-run slice concatenation (hk_gather_runs)."""
-    lib = _load()
-    if lib is None:
-        return None
+) -> np.ndarray:
+    """codes[starts[r] : starts[r] + bases[r]] at out[out_off[r]:] for every
+    run r (int8, `total` long)."""
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    bases = np.ascontiguousarray(bases, dtype=np.int64)
+    out_off = np.ascontiguousarray(out_off, dtype=np.int64)
+    if not starts.size == bases.size == out_off.size:
+        raise ValueError("gather_runs: per-run arrays differ in length")
+    if starts.size and (
+        (bases < 0).any() or (starts < 0).any() or (out_off < 0).any()
+        or int((starts + bases).max()) > codes.size
+        or int((out_off + bases).max()) > total
+    ):
+        raise ValueError("gather_runs: a run reaches past its buffer")
     out = np.empty(total, dtype=np.int8)
-    lib.hk_gather_runs(
-        np.ascontiguousarray(codes, dtype=np.int8),
-        np.ascontiguousarray(starts, dtype=np.int64),
-        np.ascontiguousarray(bases, dtype=np.int64),
-        np.ascontiguousarray(out_off, dtype=np.int64),
-        starts.size,
-        out,
-    )
+    _enter("gather_runs").hk_gather_runs(codes, starts, bases, out_off, starts.size, out)
     return out

@@ -13,26 +13,29 @@ import os
 
 import numpy as np
 
+from ..ops.kmer import decode_keys_plain
 from ..pipeline import KmerList
 
 
 def format_output_lines(kmerlist: KmerList) -> bytes:
-    """Render `kmer\\tcount\\n` lines (native C++ fast path, numpy fallback)."""
+    """Render `kmer\\tcount\\n` lines (the host library's formatter)."""
     if len(kmerlist) == 0:
         return b""
     from . import native
 
-    if native.available():
-        out = native.format_output(
-            kmerlist.keys, kmerlist.counts.astype(np.int32), kmerlist.k
-        )
-        if out is not None:
-            return out
-    decoded = kmerlist.decoded()
-    counts = kmerlist.counts
-    parts = []
-    for kmer, cnt in zip(decoded, counts):
-        parts.append(kmer + b"\t" + str(int(cnt)).encode())
+    fmt = native.format_output if native.available() else format_output_plain
+    return fmt(kmerlist.keys, kmerlist.counts.astype(np.int32), kmerlist.k)
+
+
+def format_output_plain(keys: np.ndarray, counts: np.ndarray, k: int) -> bytes:
+    """The plain version of `native.format_output`: one Python line a
+    k-mer."""
+    if keys.shape[0] == 0:
+        return b""
+    parts = [
+        kmer + b"\t" + str(int(cnt)).encode()
+        for kmer, cnt in zip(decode_keys_plain(keys, k), counts)
+    ]
     return b"\n".join(parts) + b"\n"
 
 
@@ -41,11 +44,11 @@ def write_output_file(
     chunk_rows: int = 1 << 22,
 ) -> str:
     """Write `<outdir>/<shard>.out` in row chunks through one reused
-    format buffer: each chunk renders with the OpenMP-parallel native
-    formatter (native/host_io.cpp hk_format_output) and goes to the file
-    as a memoryview — no per-chunk allocation or bytes copy, and peak
-    buffer memory stays ~chunk_rows x (k+12) B instead of the whole file
-    (multi-GB at genome scale). Reference writes per-rank files
+    format buffer: each chunk renders with the host library's formatter
+    (csrc/host_io.cpp hk_format_output, on torch's thread count) and goes
+    to the file as a memoryview — no per-chunk allocation or bytes copy,
+    and peak buffer memory stays ~chunk_rows x (k+12) B instead of the
+    whole file (multi-GB at genome scale). Reference writes per-rank files
     concurrently (src/hysortk.cpp:138-164); single-shard runs rely on
     this thread parallelism instead."""
     from . import native

@@ -141,16 +141,21 @@ def decode_keys(keys: np.ndarray, k: int) -> np.ndarray:
     """(N, W) uint32 packed keys -> (N,) array of length-k ASCII bytes objects.
 
     Inverse of the packing above; equivalent to reference Kmer::GetString
-    (include/kmer.hpp:147-163) modulo the 32- vs 64-bit word layout.
+    (include/kmer.hpp:147-163) modulo the 32- vs 64-bit word layout. From
+    4096 keys on in the host library (io/native.py).
     """
     keys = np.asarray(keys, dtype=np.uint32)
-    n = keys.shape[0]
     from ..io import native
 
-    if n >= 4096 and native.available():
-        out = native.decode_keys(keys, k)
-        if out is not None:
-            return out
+    if keys.shape[0] >= 4096 and native.available():
+        return native.decode_keys(keys, k)
+    return decode_keys_plain(keys, k)
+
+
+def decode_keys_plain(keys: np.ndarray, k: int) -> np.ndarray:
+    """The plain version of `native.decode_keys`: one numpy column a base."""
+    keys = np.asarray(keys, dtype=np.uint32)
+    n = keys.shape[0]
     chars = np.empty((n, k), dtype=np.uint8)
     for i in range(k):
         w, j = divmod(i, 16)

@@ -40,7 +40,7 @@ def test_pack_decode_matches_jax(monkeypatch, k):
 
     packed = supermer.pack_codes_2bit(buf)
     assert np.array_equal(packed, jsupermer.pack_codes_2bit(buf))
-    with monkeypatch.context() as m:  # the numpy fallback packs alike
+    with monkeypatch.context() as m:  # the numpy plain version packs alike
         m.setattr(native, "available", lambda: False)
         assert np.array_equal(supermer.pack_codes_2bit(buf), packed)
     assert (packed >= 0x80000000).any()
@@ -161,8 +161,7 @@ def _lists(k, n, seed):
 @pytest.mark.parametrize("native_lib", [True, False])
 @pytest.mark.parametrize("k,n", [(31, 5000), (17, 3), (55, 0)])
 def test_writers_byte_identical(tmp_path, monkeypatch, k, n, native_lib):
-    """Also without the native host library, whose numpy fallbacks run
-    wherever native/ does not build."""
+    """Also on the numpy plain versions of the host library's formatter."""
     if not native_lib:
         monkeypatch.setattr(native, "available", lambda: False)
     ours, theirs = _lists(k, n, k + n)
