@@ -34,12 +34,14 @@ build/kernels/ at first use. Phases, each printing its findings:
      print_kmer_histogram -> write_output_file; every kernel's launch
      count must rise, and the result must equal the plain functions
      composed on the same CUDA tensors, and the host stages must have
-     called the port's own host library (from build/host/); then the same
-     call stage by stage with a synchronize after each, for the stage
-     times; then each of the host library's six functions (FASTA strip,
-     2-bit pack, key decode, output lines, supermer run boundaries, run
-     gather) on phase 2's reads and result, exactly equal to its numpy
-     plain version, both timed
+     called the port's own host library (from build/host/); read_dna_buffer
+     stage by stage (.fai build and write, .fai parse, partition,
+     read_records) and again on the written .fai, each equal to the first;
+     then the same count stage by stage with a synchronize after each, for
+     the stage times; then each of the host library's seven functions
+     (.fai scan, FASTA strip, 2-bit pack, key decode, output lines, supermer
+     run boundaries, run gather) on phase 2's reads and result, exactly
+     equal to its numpy plain version, both timed
   3  a FASTA under 10 kB through the facade on the card against the
      pure-Python oracle
   4  bounded-memory streaming of phase 2's reads through
@@ -62,9 +64,12 @@ build/kernels/ at first use. Phases, each printing its findings:
      fused count on phase 2's device batch: sorted words equal to the radix
      sort's, kept k-mers equal to phase 2's
   8  extension mode ((ReadId, PosInRead) per occurrence): kmer_count with
-     extension=True on phase 2's reads, its device outputs equal to the plain
-     composition on the same CUDA tensors; count_reads_streaming_ext on the
-     first 2^24 bases in batches of 2^22 with a read id offset, equal to the
+     extension=True on phase 2's reads, with a sample of its occurrences
+     read back from the reads; the same call stage by stage (wire pack +
+     H2D, device pipeline, gather + D2H + flat result, beside the former
+     host flatten, whose read ids and positions equal the device's), its
+     device outputs equal to the plain composition on the same CUDA
+     tensors; count_reads_streaming_ext on the first 2^24 bases in batches of 2^22 with a read id offset, equal to the
      one-shot extension result on the same reads; phase 3's FASTA through
      the facade and the CLI (--extension, one-shot and streamed) against an
      oracle of kmer -> (count, {(rid, pos)})
@@ -124,8 +129,8 @@ build/kernels/ at first use. Phases, each printing its findings:
      union of the
      shares equals the reference's lines (so the shares are disjoint) and
      the printed histogram the reference's; per rank its wall, its stage
-     times (read shard, pack, step, merge, result, write), its peak device
-     memory and its kernels' launches
+     times (read shard and its index part, pack, step, merge, result,
+     write), its peak device memory and its kernels' launches
 
 Any failure raises (exit code 1); a rank's failure fails its spawn. Without
 a CUDA device the script exits 1 before printing any result. The last three
@@ -1134,7 +1139,8 @@ def phase2_slice(workdir: str, rng):
     t0 = time.perf_counter()
     codes, lengths = ht.read_dna_buffer(fasta)
     log(f"phase2 read_dna_buffer {int(codes.size)} bases, {lengths.size} reads "
-        f"in {time.perf_counter() - t0:.3f} s")
+        f"in {time.perf_counter() - t0:.3f} s (the .fai built and written)")
+    phase2_read_stages(fasta, codes, lengths)
     cfg = slice_config()
     n_kmers = int(np.maximum(lengths - K + 1, 0).sum())
 
@@ -1171,7 +1177,7 @@ def phase2_slice(workdir: str, rng):
     host_calls = dict(native.calls)
     host_lib = os.path.relpath(native.library_path(), ROOT)
     log(f"phase2 host route: the port's library {host_lib}, calls {json.dumps(host_calls)}")
-    unused = [name for name in ("strip_and_pack", "pack_2bit", "format_output")
+    unused = [name for name in ("fai_build", "strip_and_pack", "pack_2bit", "format_output")
               if host_calls[name] == 0]
     if unused or not host_lib.startswith(os.path.join("build", "host") + os.sep):
         raise AssertionError(f"phase 2 did not run the port's host library ({host_lib}): "
@@ -1191,6 +1197,58 @@ def phase2_slice(workdir: str, rng):
     return codes, lengths, launches, (kl, hist), peak, best
 
 
+def phase2_read_stages(fasta: str, codes, lengths) -> None:
+    """read_dna_buffer stage by stage (.fai build and write, .fai parse,
+    partition, read_records), then once more on the written .fai (the
+    parse route), each equal to the first read."""
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch.io import fasta as fasta_io
+
+    t = {}
+    t0 = time.perf_counter()
+    built = fasta_io.generate_fai(fasta, fasta + ".fai")
+    t[".fai build + write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = fasta_io.parse_fai(fasta + ".fai")
+    t[".fai parse"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bounds = fasta_io.partition_bounds(index, 1)
+    t["partition (1 shard)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bounds4 = fasta_io.partition_bounds(index, 4)
+    t["partition (4 shards)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = fasta_io.read_records(fasta, index[bounds[0]:bounds[1]])
+    t["read_records"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = ht.read_dna_buffer(fasta)
+    t["read_dna_buffer on the .fai"] = time.perf_counter() - t0
+    cols = ("length", "offset", "linebases", "linewidth")
+    if not (all(np.array_equal(getattr(built, c), getattr(index, c)) for c in cols)
+            and built.names_blob == index.names_blob and len(index) == lengths.size):
+        raise AssertionError("the parsed .fai differs from the built one")
+    if int(np.diff(bounds4).min()) <= 0 or bounds4[-1] != lengths.size:
+        raise AssertionError(f"4-shard partition {bounds4.tolist()} is not a tiling")
+    for c, ln in (got, again):
+        if not (np.array_equal(c, codes) and np.array_equal(ln, lengths)):
+            raise AssertionError("a staged read differs from read_dna_buffer's")
+    log(f"phase2 read_dna_buffer stages ({len(index)} records, "
+        f"{os.path.getsize(fasta)} B of FASTA), s: "
+        + "; ".join(f"{name} {sec:.4f}" for name, sec in t.items()))
+
+
+def plain_fai(data):
+    """native.fai_build's result by its plain version: the columns and name
+    bounds of fasta.fai_columns_plain, the text of FaiIndex.to_bytes."""
+    from hysortk_tpu_torch.io import fasta as fasta_io
+
+    cols, lo, hi = fasta_io.fai_columns_plain(data)
+    offsets = np.concatenate([[0], np.cumsum(hi - lo)])
+    names = data[fasta_io.segment_positions(lo, hi - lo)].tobytes()
+    text = fasta_io.FaiIndex(names, offsets, *cols).to_bytes()
+    return cols, lo, hi, np.frombuffer(text, dtype=np.uint8)
+
+
 def phase2_host_functions(workdir: str, codes, lengths, one_shot) -> None:
     """Each function of the port's host library against its numpy plain
     version on phase 2's reads and result, exactly equal, with both times
@@ -1207,6 +1265,8 @@ def phase2_host_functions(workdir: str, codes, lengths, one_shot) -> None:
     cfg = slice_config()
     kl, _ = one_shot
     fasta = os.path.join(workdir, "reads.fa")
+    with open(fasta, "rb") as f:
+        fasta_bytes = np.frombuffer(f.read(), dtype=np.uint8)
     raw_args = fasta_io.read_record_bytes(fasta, fasta_io.load_or_build_fai(fasta))
     n = -(-(int(codes.size) + 16) // cfg.pad_multiple) * cfg.pad_multiple
     buf = np.zeros(n, dtype=np.uint8)
@@ -1224,6 +1284,8 @@ def phase2_host_functions(workdir: str, codes, lengths, one_shot) -> None:
     total = int(bases.sum())
     counts32 = kl.counts.astype(np.int32)
     cases = (
+        ("fai_build", f"{int(fasta_bytes.size)} B of FASTA, {lengths.size} records",
+         lambda: native.fai_build(fasta_bytes), lambda: plain_fai(fasta_bytes)),
         ("strip_and_pack", f"{int(raw_args[0].size)} B of FASTA, {lengths.size} records",
          lambda: native.strip_and_pack(*raw_args),
          lambda: fasta_io.strip_and_pack_plain(*raw_args)),
@@ -1760,7 +1822,7 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
     from hysortk_tpu_torch import _build, pipeline, testing
     from hysortk_tpu_torch.io import fasta as fasta_io
     from hysortk_tpu_torch.io import writer
-    from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort
+    from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort, wire
     from hysortk_tpu_torch.ops import kmer as kmer_ops
 
     cfg = dataclasses.replace(slice_config(), extension=True)
@@ -1781,8 +1843,9 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
     if not (same_list(kl, one_shot[0]) and np.array_equal(hist, one_shot[1])):
         raise AssertionError("extension counts differ from phase 2's")
     n_occ = int(kl.counts.sum())
-    sizes = np.fromiter((p.size for p in kl.pos), dtype=np.int64, count=len(kl))
-    if not (np.array_equal(sizes, kl.counts) and len(kl.rid) == len(kl)):
+    sizes = np.diff(kl.offsets)
+    if not (np.array_equal(sizes, kl.counts) and len(kl.rid) == len(kl)
+            and kl.occ_rid.shape == kl.occ_pos.shape == (n_occ,)):
         raise AssertionError("occurrence lists do not match the counts")
     # Every occurrence of a sample of k-mers, read back from the reads.
     read_codes = codes[: lengths.size * READ_LEN].reshape(-1, READ_LEN)
@@ -1802,31 +1865,42 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
     ext_one_shot = (kl, hist)
     del kl, sizes
 
-    # (b) the device outputs against the plain composition, same tensors.
+    # (b) the one-shot call's stages, then its device outputs against the
+    # plain composition on the same tensors.
     t0 = time.perf_counter()
-    flat, valid, rid, pos = fasta_io.flatten_for_device_ext(
-        codes, lengths, cfg.k, cfg.pad_multiple)
-    t_flatten = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    dev = [torch.from_numpy(a).cuda() for a in
-           (flat, valid, rid, pos.view(np.int32))]
+    packed, lens, n = pipeline.wire_batch(codes, lengths, cfg, "cuda")
     torch.cuda.synchronize()
-    t_h2d = time.perf_counter() - t0
-    del flat, valid, rid, pos
+    t_wire = time.perf_counter() - t0
     t0 = time.perf_counter()
+    dev = list(wire.decode_block_ext(packed, lens, cfg.k, n, 0))
     words, cnt, keep, rid_s, pos_s = pipeline._count_device_ext(
         *dev, cfg.k, cfg.lower, cfg.upper)
     torch.cuda.synchronize()
     t_device = time.perf_counter() - t0
+    del packed, lens
     t0 = time.perf_counter()
     assembled = pipeline.assemble_ext_result(words, cnt, keep, rid_s, pos_s, cfg)
     t_assemble = time.perf_counter() - t0
     if not same_list(assembled, one_shot[0]):
         raise AssertionError("the assembled extension list differs from phase 2's")
     del assembled
-    log(f"phase8b stages of the one-shot extension call: host flatten "
-        f"{t_flatten:.4f} s, H2D {t_h2d:.4f} s, device pipeline {t_device:.4f} s, "
-        f"gather + D2H + occurrence lists {t_assemble:.4f} s")
+    # The host flatten that fed this call before (two np.repeat over every
+    # slot), for comparison: its read ids and positions are the device's.
+    t0 = time.perf_counter()
+    flat, valid, rid, pos = fasta_io.flatten_for_device_ext(
+        codes, lengths, cfg.k, cfg.pad_multiple)
+    t_flatten = time.perf_counter() - t0
+    at = torch.from_numpy(valid).cuda()
+    if not (flat.shape[0] == n
+            and torch.equal(dev[2][at].cpu(), torch.from_numpy(rid[valid]))
+            and torch.equal(dev[3][at].cpu(), torch.from_numpy(pos[valid].view(np.int32)))):
+        raise AssertionError("the device's read ids and positions differ from the "
+                             "host flatten's")
+    del flat, valid, rid, pos, at
+    log(f"phase8b stages of the one-shot extension call: wire pack + H2D "
+        f"{t_wire:.4f} s, device pipeline (decode, key build, sort, count) "
+        f"{t_device:.4f} s, gather + D2H + flat result {t_assemble:.4f} s; the "
+        f"former host flatten alone {t_flatten:.4f} s")
     marked = keybuild.canonical_keys_plain(dev[0], dev[1], cfg.k)
     p_words, (p_rid, p_pos) = radix_sort.sort_words_plain(marked, dev[2:])
     p_cnt, p_keep = fused_count.run_length_count_filter_plain(
@@ -1864,13 +1938,12 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
     peak = torch.cuda.max_memory_allocated()
     if not (same_list(got, want) and np.array_equal(got_hist, want_hist)):
         raise AssertionError("streamed extension counts differ from one-shot")
-    sizes = np.fromiter((r.size for r in got.rid), dtype=np.int64, count=len(got))
-    if not np.array_equal(sizes, got.counts):
+    if not np.array_equal(np.diff(got.offsets), got.counts):
         raise AssertionError("streamed occurrence lists do not match the counts")
     step = 64
     if sample_ext(got, step) != sample_ext(want, step):
         raise AssertionError("streamed occurrences differ from one-shot")
-    if min(int(got.rid[j][0]) for j in range(0, len(got), step)) < rid0:
+    if int(got.occ_rid.min()) < rid0:
         raise AssertionError("the read id offset was lost")
     log(f"phase8c count_reads_streaming_ext {int(sub_codes.size)} bases in batches "
         f"of {EXT_STREAM_BATCH}, read_id_offset {rid0}: {len(got)} k-mers, keys, counts "
@@ -2123,16 +2196,6 @@ STREAM_BATCH = 1 << 24  # phase 4(a)'s batches: four of phase 2's reads
 CORE_KERNELS = ("keybuild", "radix_sort", "fused_count")
 
 
-def flat_occurrences(kl) -> tuple[np.ndarray, np.ndarray]:
-    """An extension-mode list's (rid, pos) occurrences end to end, in list
-    order: flat arrays where the list carries them (`flat_rid`, `flat_pos`,
-    set by load_phase10_result), else its per-k-mer arrays concatenated."""
-    if hasattr(kl, "flat_rid"):
-        return kl.flat_rid, kl.flat_pos
-    return (np.concatenate([np.zeros(0, np.int32), *kl.rid]),
-            np.concatenate([np.zeros(0, np.uint32), *kl.pos]))
-
-
 def ext_occurrence_rows(kl):
     """Every occurrence of an extension-mode list as (key words, rid, pos)
     columns on the card, sorted (the plain sort, which no launch count
@@ -2144,9 +2207,9 @@ def ext_occurrence_rows(kl):
     counts = torch.from_numpy(kl.counts.astype(np.int64)).cuda()
     keys = torch.from_numpy(np.ascontiguousarray(kl.keys).view(np.int32)).cuda()
     keys = torch.repeat_interleave(keys, counts, dim=0)
-    rid, pos = flat_occurrences(kl)
     cols = [keys[:, i].contiguous() for i in range(keys.shape[1])]
-    cols += [torch.from_numpy(rid).cuda(), torch.from_numpy(pos.view(np.int32)).cuda()]
+    cols += [torch.from_numpy(kl.occ_rid).cuda(),
+             torch.from_numpy(kl.occ_pos.view(np.int32)).cuda()]
     return radix_sort.sort_words_plain(cols)[0]
 
 
@@ -2218,8 +2281,7 @@ def phase10_rank(rank: int, jobs: list, out_dir: str) -> None:
         if rank == 0:
             out = dict(keys=kl.keys, counts=kl.counts, hist=hist)
             if isinstance(kl, ht.KmerListExt):
-                out.update(rid=np.concatenate([np.zeros(0, np.int32), *kl.rid]),
-                           pos=np.concatenate([np.zeros(0, np.uint32), *kl.pos]))
+                out.update(rid=kl.occ_rid, pos=kl.occ_pos)
             np.savez(os.path.join(out_dir, f"{job['tag']}.npz"), **out)
         del kl, hist
         stats["backend"] = dist.get_backend()
@@ -2234,11 +2296,8 @@ def load_phase10_result(path: str):
     res = dict(np.load(path))
     if "rid" not in res:
         return ht.KmerList(res["keys"], res["counts"], K), res["hist"]
-    # The occurrences stay flat (flat_occurrences reads them so): the
-    # comparison needs no per-k-mer arrays.
-    kl = ht.KmerListExt(res["keys"], res["counts"], K)
-    kl.flat_rid, kl.flat_pos = res["rid"], res["pos"]
-    return kl, res["hist"]
+    return ht.KmerListExt.from_flat(res["keys"], res["counts"], K, res["rid"],
+                                    res["pos"]), res["hist"]
 
 
 def log_phase10(tag: str, what: str, ranks: list[dict], n_kept: int,

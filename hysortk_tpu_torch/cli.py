@@ -198,7 +198,7 @@ def _run(args, p, cfg, sharded: bool, multiproc: bool) -> int:
         if multiproc:
             # The index of this rank's records only: the count reads them.
             records, _ = multihost.my_records(args.fasta, None)
-            n_reads, n_bases = len(records), sum(r.length for r in records)
+            n_reads, n_bases = len(records), int(records.length.sum())
         else:
             codes, lengths = read_dna_buffer(args.fasta)
             n_reads, n_bases = lengths.size, codes.size

@@ -1,6 +1,7 @@
 """ctypes bindings for the port's host library (csrc/host_io.cpp).
 
-The C++ loops of the host hot paths: strip and code of FASTA records, the
+The C++ loops of the host hot paths: the FASTA index scan, strip and code
+of FASTA records, the
 2-bit wire pack, key decode, output formatting, and the supermer encoder's
 run decomposition and run gather (io/supermer.py). The library is the
 port's own, built at first use by `_build.host_library_path` (std::thread,
@@ -9,7 +10,7 @@ no OpenMP); a failed build raises. Every call first hands the library
 cores (spawned ranks run one thread each) split them.
 
 Each function has a numpy plain version beside its caller
-(`fasta.strip_and_pack_plain`, `supermer.pack_codes_2bit_plain`,
+(`fasta.fai_columns_plain`, `fasta.strip_and_pack_plain`, `supermer.pack_codes_2bit_plain`,
 `kmer.decode_keys_plain`, `writer.format_output_plain`,
 `supermer.run_boundaries_plain`, `supermer.gather_runs_plain`) with the
 same results. The callers take the native route while `available()` is
@@ -34,7 +35,7 @@ _lib: ctypes.CDLL | None = None
 _path: str | None = None
 
 calls = {
-    "strip_and_pack": 0, "pack_2bit": 0, "decode_keys": 0,
+    "fai_build": 0, "strip_and_pack": 0, "pack_2bit": 0, "decode_keys": 0,
     "format_output": 0, "run_boundaries": 0, "gather_runs": 0,
 }
 
@@ -69,6 +70,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     i32, i64 = ctypes.c_int32, ctypes.c_int64
     lib.hk_set_threads.argtypes = [i32]
     lib.hk_set_threads.restype = None
+    lib.hk_fai_build.argtypes = [u8p, i64, i64, i64p, i64p, i64p, u8p, i64p]
+    lib.hk_fai_build.restype = i64
     lib.hk_strip_and_pack.argtypes = [u8p, i64p, i64p, i64p, i64p, i64p, i64, u8p]
     lib.hk_strip_and_pack.restype = None
     lib.hk_decode_keys.argtypes = [u32p, i64, i32, i32, u8p]
@@ -98,6 +101,28 @@ def available() -> bool:
     at first use, and a failed build raises). The seam tests patch to take
     the numpy plain versions instead."""
     return True
+
+
+def fai_build(
+    data: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """A FASTA's .fai index by one scan of its bytes: ((4, n) int64 columns
+    length, offset, linebases, linewidth; name_lo, name_hi, each record's
+    name as the byte range [name_lo, name_hi) of data, empty where the
+    header has none; the .fai file's bytes as uint8). Two calls: the first
+    counts the records, the second fills."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    lib = _enter("fai_build")
+    text_len = np.zeros(1, dtype=np.int64)
+    none = np.zeros(0, dtype=np.int64)
+    n = lib.hk_fai_build(data, data.size, 0, none, none, none,
+                         np.zeros(0, dtype=np.uint8), text_len)
+    cols = np.empty((4, n), dtype=np.int64)
+    name_lo = np.empty(n, dtype=np.int64)
+    name_hi = np.empty(n, dtype=np.int64)
+    text = np.empty(data.size + 85 * n, dtype=np.uint8)
+    lib.hk_fai_build(data, data.size, n, cols, name_lo, name_hi, text, text_len)
+    return cols, name_lo, name_hi, text[: int(text_len[0])]
 
 
 def strip_and_pack(

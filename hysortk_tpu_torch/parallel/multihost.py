@@ -11,7 +11,7 @@ FASTA (src/fastaindex.cpp:102-200), keeps only the k-mers it owns and writes
     (parallel/group.init; NCCL where every rank of the host has a card of its
     own, else gloo), one device a process;
   * read_my_shard                  <-> getpartition + Scatterv: every process
-    parses the small .fai itself (io/fasta.partition_records) and reads only
+    parses the small .fai itself (io/fasta.partition_bounds) and reads only
     its own records;
   * the count_fasta_multihost* entries run the per-rank drivers of
     parallel/pipeline.py (parallel/supermer_route.py for routing="supermer")
@@ -23,8 +23,9 @@ FASTA (src/fastaindex.cpp:102-200), keeps only the k-mers it owns and writes
 Every rank runs the same collectives whether or not it holds reads: with
 fewer records than processes the last ranks read none and count nothing. Per
 rank, each result equals the JAX multi-process entry's for that process
-(extension mode by as_dict()). The stages (read_shard here; pack, step,
-merge, result in the drivers) are timed inside runtime/timer.record_stages.
+(extension mode by as_dict()). The stages (read_shard here, with its
+read_index part; pack, step, merge, result in the drivers) are timed inside
+runtime/timer.record_stages.
 """
 
 from __future__ import annotations
@@ -95,26 +96,31 @@ def initialize_distributed(
     return group_mod.init(None, process_id, num_processes, dev, local_world, store=store)
 
 
-def my_records(fasta_path: str, group) -> tuple[list, int]:
-    """This rank's records of the FASTA's base-balanced partition and the
-    global index of its first (0 where it has none). Rank 0 builds a
-    missing .fai while the others wait at a barrier (every rank passes it,
-    whether or not the index was there), so that no rank reads an index
-    another is still writing."""
-    if dist.get_rank(group) == 0:
-        fasta_io.load_or_build_fai(fasta_path)
+def my_records(fasta_path: str, group) -> tuple[fasta_io.FaiIndex, int]:
+    """This rank's slice of the FASTA's index (its records of the
+    base-balanced partition) and the global index of its first record (0
+    where it has none). Rank 0 builds a missing .fai while the others wait
+    at a barrier (every rank passes it, whether or not the index was
+    there), so that no rank reads an index another is still writing; every
+    other rank, and rank 0 where the file was there, then parses it once."""
+    rank = dist.get_rank(group)
+    index = None
+    if rank == 0 and not os.path.exists(fasta_path + ".fai"):
+        index = fasta_io.load_or_build_fai(fasta_path)
     dist.barrier(group)
-    records = fasta_io.load_or_build_fai(fasta_path)
-    parts = fasta_io.partition_records(records, dist.get_world_size(group))
-    mine = parts[dist.get_rank(group)]
-    return [records[i] for i in mine], (mine[0] if mine else 0)
+    if index is None:
+        index = fasta_io.load_or_build_fai(fasta_path)
+    bounds = fasta_io.partition_bounds(index, dist.get_world_size(group))
+    lo, hi = int(bounds[rank]), int(bounds[rank + 1])
+    return index[lo:hi], (lo if hi > lo else 0)
 
 
 def read_my_records(fasta_path: str, group=None):
     """(codes, lengths, global index of the first read) of this rank's
     records (read_my_shard with the read-id offset)."""
     with stage("read_shard"):
-        records, first = my_records(fasta_path, group)
+        with stage("read_index"):
+            records, first = my_records(fasta_path, group)
         codes, lengths = fasta_io.read_records(fasta_path, records)
     return codes, lengths, first
 

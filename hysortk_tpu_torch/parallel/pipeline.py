@@ -83,7 +83,6 @@ from ..pipeline import (
     host_histogram,
     kept_occurrences,
     merge_ext_partials,
-    split_occurrences,
 )
 from ..runtime.scheduler import iter_read_batches, read_batch_spans
 from ..runtime.timer import stage
@@ -988,17 +987,15 @@ def _ext_rows(words, cnt, keep, rid_s, pos_s, mixed: bool):
 
 def _ext_list(rows: np.ndarray, occ: torch.Tensor, k: int) -> KmerListExt:
     """(key words, count) rows and their (rid, pos) occurrence rows, in the
-    same order, as one KmerListExt."""
+    same order, as one KmerListExt over flat occurrences (the counts'
+    prefix sums are its offsets)."""
     with stage("result"):
         occ = occ.cpu().numpy()
-        counts = np.ascontiguousarray(rows[:, -1])
-        starts = np.zeros(counts.size, dtype=np.int64)
-        np.cumsum(counts[:-1], out=starts[1:])
-        pos_runs, rid_runs = split_occurrences(
-            starts, counts, np.ascontiguousarray(occ[:, 1]).view(np.uint32),
-            np.ascontiguousarray(occ[:, 0]))
-    return KmerListExt(keys=np.ascontiguousarray(rows[:, :-1]).view(np.uint32),
-                       counts=counts, k=k, pos=pos_runs, rid=rid_runs)
+        return KmerListExt.from_flat(
+            np.ascontiguousarray(rows[:, :-1]).view(np.uint32),
+            np.ascontiguousarray(rows[:, -1]), k,
+            np.ascontiguousarray(occ[:, 0]),
+            np.ascontiguousarray(occ[:, 1]).view(np.uint32))
 
 
 def _gather_ext(rows: np.ndarray, occ: torch.Tensor, k: int, group, dev) -> KmerListExt:

@@ -11,10 +11,11 @@ Device-level profiling uses torch.profiler traces (runtime/profiling.py)
 instead of the reference's manual Wtime hooks.
 
 `stage` spans mark the counting paths' stages (the sharded drivers' pack,
-step, merge and result, the multi-process entries' read_shard). They cost
-nothing unless a caller asks: inside `record_stages()` each span adds its
-seconds, ended by a synchronize of its device, to the dict that the block
-yields, per process.
+step, merge and result, the multi-process entries' read_shard and its
+read_index). They cost nothing unless a caller asks: inside
+`record_stages()` each span adds its seconds, ended by a synchronize of its
+device, to the dict that the block yields, per process, in the order the
+spans were entered (a span inside another comes after it).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ def stage(name: str, device=None):
         yield
         return
     seconds = _recording
+    seconds.setdefault(name, 0.0)
     t0 = time.perf_counter()
     try:
         yield

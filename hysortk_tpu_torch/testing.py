@@ -954,7 +954,5 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
                        combiner_passes=np.int64(calls["_shard_body_range_combiner"]),
                        calls=np.array([calls[n] for n in COUNTED], dtype=np.int64))
             if isinstance(kl, KmerListExt):
-                empty = np.zeros(0, np.int32)
-                out.update(occ_rid=np.concatenate([empty, *kl.rid]),
-                           occ_pos=np.concatenate([empty.view(np.uint32), *kl.pos]))
+                out.update(occ_rid=kl.occ_rid, occ_pos=kl.occ_pos)
         np.savez(path + ".npz", **out)

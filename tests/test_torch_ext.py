@@ -240,3 +240,147 @@ def test_ext_on_cuda_matches_cpu(k):
                                                    device="cuda")
     assert _build.launches["radix_sort"] == before["radix_sort"] + batches
     _assert_same(streamed, want)
+
+
+# ---------------------------------------------------------------------------
+# Flat occurrence storage
+
+
+@pytest.mark.parametrize("offset", [0, 17])
+def test_count_reads_ext_read_id_offset_matches_jax(offset):
+    """The wire-fed one-shot call: read ids from the device's scan of the
+    read lengths, counted from read_id_offset, as the JAX host flatten
+    gives them."""
+    reads = _reads(40 + offset)
+    codes, lengths = fasta_io.reads_to_codes(reads)
+    cfg, jcfg = _cfgs(31)
+    got = pipeline.count_reads_ext(codes, lengths, cfg, offset, device="cpu")
+    want = jpipeline.count_reads_ext(codes, lengths, jcfg, read_id_offset=offset)
+    _assert_same(got, want)
+    assert got[0].as_dict() == _oracle_ext(reads, 31, 2, 50, offset)
+    assert int(got[0].occ_rid.min()) >= offset
+
+
+def test_count_reads_ext_builds_no_host_flatten(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("flatten_for_device_ext was called")
+
+    monkeypatch.setattr(fasta_io, "flatten_for_device_ext", refuse)
+    codes, lengths = fasta_io.reads_to_codes(_reads(5))
+    cfg, jcfg = _cfgs(31)
+    got = pipeline.count_reads_ext(codes, lengths, cfg, 3, device="cpu")
+    monkeypatch.undo()
+    _assert_same(got, jpipeline.count_reads_ext(codes, lengths, jcfg, read_id_offset=3))
+
+
+def test_occurrences_are_views_of_the_flat_storage():
+    codes, lengths = fasta_io.reads_to_codes(_reads(6))
+    cfg, _ = _cfgs(31)
+    kl, _ = pipeline.count_reads_ext(codes, lengths, cfg, device="cpu")
+    n_occ = int(kl.counts.sum())
+    assert kl.occ_rid.dtype == np.int32 and kl.occ_pos.dtype == np.uint32
+    assert kl.offsets.dtype == np.int64 and kl.offsets.shape == (len(kl) + 1,)
+    assert kl.offsets[0] == 0 and kl.offsets[-1] == n_occ == kl.occ_rid.size
+    assert np.array_equal(np.diff(kl.offsets), kl.counts)
+    for j in (0, len(kl) // 2, len(kl) - 1):
+        assert np.shares_memory(kl.pos[j], kl.occ_pos)
+        assert np.shares_memory(kl.rid[j], kl.occ_rid)
+        a, b = kl.offsets[j], kl.offsets[j + 1]
+        assert np.array_equal(kl.pos[j], kl.occ_pos[a:b])
+        assert np.array_equal(kl.rid[-len(kl) + j], kl.occ_rid[a:b])
+    assert len(kl.pos) == len(kl.rid) == len(kl)
+    assert [p.size for p in kl.pos] == kl.counts.tolist()
+    sub = kl.pos[1::3]
+    assert len(sub) == len(range(1, len(kl), 3))
+    assert all(np.shares_memory(p, kl.occ_pos) for p in sub if p.size)
+    with pytest.raises(IndexError):
+        kl.pos[len(kl)]
+
+
+def test_list_and_flat_constructors_agree():
+    codes, lengths = fasta_io.reads_to_codes(_reads(7))
+    cfg, _ = _cfgs(31)
+    kl, _ = pipeline.count_reads_ext(codes, lengths, cfg, 4, device="cpu")
+    lists = pipeline.KmerListExt(kl.keys, kl.counts, kl.k,
+                                 pos=[p.copy() for p in kl.pos],
+                                 rid=[r.astype(np.int64) for r in kl.rid])
+    flat = pipeline.KmerListExt.from_flat(kl.keys, kl.counts, kl.k,
+                                          kl.occ_rid.copy(), kl.occ_pos.copy())
+    assert lists.as_dict() == flat.as_dict() == kl.as_dict()
+    assert lists.occ_rid.dtype == np.int32 and lists.occ_pos.dtype == np.uint32
+    assert np.array_equal(lists.offsets, flat.offsets)
+    assert lists.pos == kl.pos and lists.rid == kl.rid
+    with pytest.raises(ValueError):
+        pipeline.KmerListExt(kl.keys, kl.counts, kl.k)
+
+
+def _partial(reads, cfg, rid0):
+    codes, lengths = fasta_io.reads_to_codes(reads)
+    return pipeline.count_reads_ext(codes, lengths, cfg, rid0, device="cpu")[0]
+
+
+@pytest.mark.parametrize("k", [15, 31, 55])
+@pytest.mark.parametrize("kind", ["empty", "single", "all_filtered", "overlapping"])
+def test_merge_ext_partials_cases_match_jax(kind, k):
+    """The flat merge against the JAX merge of the same partials: none,
+    one, partials whose merged totals all fall outside [L, U], partials that
+    share most keys; at one key word (k=15), two (the packed-key order) and
+    four (np.lexsort)."""
+    cfg, _ = _cfgs(k, unfiltered=True)
+    base = _reads(k + 1, n=14, lo=k, hi=140, repeat=0)
+    empty_p = _partial([], cfg, 0)
+    if kind == "empty":
+        parts = [empty_p, empty_p]
+    elif kind == "single":
+        parts = [empty_p, _partial(base + base[:4], cfg, 0)]
+    elif kind == "all_filtered":
+        parts = [_partial(base, cfg, 0), _partial(base, cfg, 100), empty_p]
+    else:
+        parts = [_partial(base + base[:5], cfg, 0), empty_p,
+                 _partial(base[3:] + base[:2], cfg, 200), _partial(base, cfg, 400)]
+    lower, upper = (5, 9) if kind == "all_filtered" else (2, 6)
+    jparts = [jpipeline.KmerListExt(keys=p.keys, counts=p.counts, k=k,
+                                    pos=list(p.pos), rid=list(p.rid)) for p in parts]
+    words = cfg.words
+    got = pipeline.merge_ext_partials(parts, lower, upper, k, words)
+    want = jpipeline.merge_ext_partials(jparts, lower, upper, k, words)
+    assert got.keys.shape == want.keys.shape and got.keys.shape[1] == words
+    assert np.array_equal(got.keys, want.keys)
+    assert np.array_equal(got.counts, want.counts) and got.counts.dtype == np.int32
+    assert got.as_dict() == want.as_dict()
+    assert np.array_equal(np.diff(got.offsets), got.counts)
+    assert (len(got) == 0) == (kind in ("empty", "all_filtered"))
+    if kind == "all_filtered":
+        assert got.offsets.tolist() == [0] and got.occ_rid.size == 0
+
+
+@pytest.mark.parametrize("k", [31, 55])
+def test_streaming_ext_merge_matches_jax_at_widths(k):
+    """count_reads_streaming_ext in several batches (whole reads; batch
+    partials overlap in keys) against the JAX stream: two key words and
+    four."""
+    reads = _reads(50 + k, n=40, lo=k - 5, hi=160, repeat=16)
+    codes, lengths = fasta_io.reads_to_codes(reads)
+    cfg, jcfg = _cfgs(k, upper=20)
+    assert len(scheduler.read_batch_spans(lengths, 900)) >= 3
+    got = scheduler.count_reads_streaming_ext(codes, lengths, cfg, 900,
+                                              read_id_offset=11, device="cpu")
+    want = jsched.count_reads_streaming_ext(codes, lengths, jcfg, 900,
+                                            read_id_offset=11)
+    _assert_same(got, want)
+    assert len(got[0]) > 0
+
+
+def test_key_order_is_lexsort_order():
+    """The packed-key sort gives np.lexsort's stable unsigned order
+    (top-bit words, ties across entries) at one and two words, and the
+    group heads where the key changes."""
+    rng = np.random.default_rng(3)
+    for w in (1, 2, 3):
+        keys = rng.integers(0, 4, (5000, w)).astype(np.uint32) * np.uint32(0x7FFFFFFF)
+        want = np.lexsort(tuple(keys[:, i] for i in range(w - 1, -1, -1)))
+        order, head = pipeline._key_order(keys)
+        assert np.array_equal(order, want)
+        keys_s = keys[want]
+        assert np.array_equal(head[1:], (keys_s[1:] != keys_s[:-1]).any(axis=1))
+        assert head[0] and head.sum() == len(np.unique(keys, axis=0))

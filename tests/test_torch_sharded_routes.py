@@ -93,6 +93,8 @@ SCENARIOS = [
      dict(batch_bases=600, read_id_offset=7)),
     ("ext_stream_kmer_hash", 2, "random", dict(EXT, routing="kmer_hash"), SEXT_STREAM,
      dict(batch_bases=600)),
+    ("ext_stream_k55", 2, "long", dict(K55, extension=True), SEXT_STREAM,
+     dict(batch_bases=1500, read_id_offset=3)),
     ("ext", 4, "random", EXT, SEXT, {}),
     ("ext_one_read", 4, "one_read", dict(EXT, lower=1, upper=10), SEXT, {}),
     ("ext_kmer_hash", 4, "random", dict(EXT, routing="kmer_hash"), SEXT, {}),
