@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's main path once on one GPU and check it.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py
 
-(--profile adds a torch.profiler breakdown of each streaming run.) Run from the repository root on a machine with an sm_90 card (H100) and
+Run from the repository root on a machine with an sm_90 card (H100) and
 the CUDA toolkit; the kernels are built from hysortk_tpu_torch/csrc into
 build/kernels/ at first use. Phases, each printing its findings:
 
@@ -32,13 +32,18 @@ build/kernels/ at first use. Phases, each printing its findings:
      150-base reads at ~16x coverage (2^26 bases), written as FASTA, then
      read_dna_buffer -> kmer_count(K=31, L=2, U=50, device="cuda") ->
      print_kmer_histogram -> write_output_file; every kernel's launch
-     count must rise, and the result must equal the plain functions
-     composed on the same CUDA tensors, and the host stages must have
-     called the port's own host library (from build/host/); read_dna_buffer
+     count must rise, each call's histogram must come from the device
+     (pipeline.device_histogram), and the result must equal the plain
+     functions composed on the same CUDA tensors, and the host stages must
+     have called the port's own host library (from build/host/); read_dna_buffer
      stage by stage (.fai build and write, .fai parse, partition,
      read_records) and again on the written .fai, each equal to the first;
      then the same count stage by stage with a synchronize after each, for
-     the stage times; then each of the host library's seven functions
+     the stage times (pack into pinned staging, which must be pinned; H2D;
+     decode; keybuild; sort; count; compaction + D2H; the device histogram,
+     equal to host_histogram), each device stage also by CUDA events, and
+     the device-busy share of the one-shot call (those events' sum over the
+     best wall); then each of the host library's seven functions
      (.fai scan, FASTA strip, 2-bit pack, key decode, output lines, supermer
      run boundaries, run gather) on phase 2's reads and result, exactly
      equal to its numpy plain version, both timed
@@ -49,7 +54,8 @@ build/kernels/ at first use. Phases, each printing its findings:
      batches of 2^24 bases (host-held partials), (b) device_compact in
      batches of 2^22 bases (device-resident runs, consolidation cycles, the
      final device merge); each result equal to phase 2's, both streaming
-     kernels launched in both runs; then the out-of-memory drains under
+     kernels launched in both runs, each run's stream/* spans and device
+     idle share from a torch.profiler trace; then the out-of-memory drains under
      device_compact and HYSORTK_DEVICE_RESIDENT_GROUP=8, a per-process
      memory fraction leaving 64 MiB above what the allocator holds at the
      entry of (c) the first consolidation cycle (batches of 2^22) and (d)
@@ -94,7 +100,8 @@ build/kernels/ at first use. Phases, each printing its findings:
      spawned ranks; (e) on two ranks at 2^24 bases: minimizer with
      round_robin and the combiner, kmer_hash, kmer_hash with extension
      mode. Each result exactly equal to its reference after sorting by key
-     (extension mode: every occurrence as sorted (key, rid, pos) rows); per
+     (extension mode: every occurrence as sorted (key, rid, pos) rows); no
+     run calls the host flatten (every extension route feeds the wire); per
      rank the wall, the peak device memory, the step passes, the bytes sent
      and the kernels' launches
  11  supermer routing (parallel/supermer_route.py: destination scan,
@@ -1118,7 +1125,7 @@ def plain_count_reads(codes_np, lengths_np, cfg):
     cnt, keep = fused_count.run_length_count_filter_plain(
         words, cfg.lower, cfg.upper
     )
-    kl = pipeline.compact_keys(words, cnt, keep, cfg.k)
+    kl = pipeline.compact_keys(words, cnt, pipeline.kept_slots(keep), cfg.k, cfg.upper)
     return kl, pipeline.host_histogram(kl.counts, cfg.upper)
 
 
@@ -1126,7 +1133,7 @@ def phase2_slice(workdir: str, rng):
     import torch
 
     import hysortk_tpu_torch as ht
-    from hysortk_tpu_torch import _build
+    from hysortk_tpu_torch import _build, pipeline
     from hysortk_tpu_torch.io import native
 
     fasta = os.path.join(workdir, "reads.fa")
@@ -1146,6 +1153,7 @@ def phase2_slice(workdir: str, rng):
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    pipeline.reset_calls()
     t0 = time.perf_counter()
     kl, hist = ht.kmer_count(codes, lengths, cfg, device="cuda")
     first_s = time.perf_counter() - t0
@@ -1159,13 +1167,18 @@ def phase2_slice(workdir: str, rng):
     for name in ONE_SHOT_KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
+    if pipeline.calls["device_histogram"] != 4:
+        raise AssertionError(f"{pipeline.calls['device_histogram']} device histograms "
+                             f"in four calls: the histogram did not come from the device")
+    log("phase2 histogram check: each of the four calls computed its histogram on the "
+        "device (pipeline.device_histogram)")
     peak = torch.cuda.max_memory_allocated()
     best = min(walls)
     log(f"phase2 kmer_count first call {first_s:.4f} s; steady "
         f"{', '.join(f'{w:.4f}' for w in walls)} s; best {best:.4f} s = "
         f"{n_kmers / best:.1f} k-mers/s ({n_kmers} k-mers)")
 
-    phase2_stages(codes, lengths, cfg)
+    phase2_stages(codes, lengths, cfg, best)
 
     text = ht.print_kmer_histogram(hist)
     out_path = ht.write_output_file(kl, os.path.join(workdir, "out"))
@@ -1324,36 +1337,82 @@ def phase2_host_functions(workdir: str, codes, lengths, one_shot) -> None:
         del got, want
 
 
-def phase2_stages(codes, lengths, cfg) -> None:
-    """The one-shot call stage by stage, a synchronize after each."""
+def phase2_stages(codes, lengths, cfg, best_wall: float) -> None:
+    """The one-shot call stage by stage, a synchronize after each: each
+    stage's host wall and, where it only queues device work, its device
+    time by CUDA events (not for the compaction, whose events would span
+    its host copy out of the bounce buffer). The device-busy share of the
+    call: those events' sum over the best wall of the one-shot call, and
+    the device's kernels and copies in a torch.profiler trace of one call
+    over that call's wall. Checks that the feed's staging is pinned and
+    that the histogram is the device's."""
     import torch
 
+    import hysortk_tpu_torch as ht
     from hysortk_tpu_torch import pipeline
-    from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort
+    from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort, wire
 
     stages = []
+    device_ms = []
 
-    def timed(name, fn):
+    def timed(name, fn, on_device=True):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        start.record()
         out = fn()
+        end.record()
         torch.cuda.synchronize()
-        stages.append(f"{name} {(time.perf_counter() - t0) * 1e3:.1f}")
+        wall = (time.perf_counter() - t0) * 1e3
+        if on_device:
+            device_ms.append(start.elapsed_time(end))
+            stages.append(f"{name} {wall:.1f} (device {device_ms[-1]:.1f})")
+        else:
+            stages.append(f"{name} {wall:.1f}")
         return out
 
+    dev = torch.device("cuda")
+    n = -(-(int(codes.size) + 16) // cfg.pad_multiple) * cfg.pad_multiple
     for _ in range(2):
         stages.clear()
-        codes_d, valid_d = timed("host feed (pad, pack, H2D, decode)", lambda:
-                                 pipeline.device_batch(codes, lengths, cfg, "cuda"))
+        device_ms.clear()
+        staged = timed("pack into pinned", lambda: pipeline.stage_wire(
+            codes, lengths, n, dev), on_device=False)
+        if not all(t.is_pinned() for t in staged):
+            raise AssertionError("the feed's staging is not pinned")
+        packed, lens = timed("H2D", lambda: tuple(
+            t.to(dev, non_blocking=True) for t in staged))
+        del staged
+        codes_d, valid_d = timed("decode", lambda: wire.decode_block(packed, lens, cfg.k, n))
+        del packed, lens
         marked = timed("keybuild", lambda: keybuild.canonical_keys_fused(
             codes_d, valid_d, cfg.k))
         words = timed("radix sort", lambda: radix_sort.sort_words(marked)[0])
         cnt, keep = timed("fused count", lambda: fused_count.run_length_count_filter(
             words, cfg.lower, cfg.upper))
-        kl = timed("compaction + D2H", lambda: pipeline.compact_keys(
-            words, cnt, keep, cfg.k))
-        timed("host histogram", lambda: pipeline.host_histogram(kl.counts, cfg.upper))
-        del codes_d, valid_d, marked, words, cnt, keep, kl
+
+        def compaction():
+            idx = pipeline.kept_slots(keep)
+            return pipeline.compact_keys(words, cnt, idx, cfg.k, cfg.upper), idx
+
+        kl, idx = timed("compaction + D2H", compaction, on_device=False)
+        before = pipeline.calls["device_histogram"]
+        hist = timed("device histogram", lambda: pipeline.device_histogram(
+            cnt, idx, cfg.upper))
+        if pipeline.calls["device_histogram"] != before + 1 or not np.array_equal(
+                hist, pipeline.host_histogram(kl.counts, cfg.upper)):
+            raise AssertionError("the device histogram differs from host_histogram")
+        del codes_d, valid_d, marked, words, cnt, keep, idx, kl
+    busy = sum(device_ms)
     log(f"phase2 stages of the one-shot call, second of two, ms: {'; '.join(stages)}")
+    log(f"phase2 feed staged in pinned memory (is_pinned), histogram from "
+        f"device_histogram equal to host_histogram")
+    traced_busy, traced_wall = profile_call(lambda: ht.kmer_count(
+        codes, lengths, cfg, device="cuda"), "phase2 one-shot")
+    log(f"phase2 device-busy share of the one-shot call: CUDA events of the stages "
+        f"but the compaction {busy:.1f} ms over the best wall {best_wall * 1e3:.1f} ms = "
+        f"{100 * busy / (best_wall * 1e3):.1f}%; torch.profiler {traced_busy:.1f} ms "
+        f"busy over {traced_wall:.1f} ms = {100 * traced_busy / traced_wall:.1f}% "
+        f"(idle {100 * (1 - traced_busy / traced_wall):.1f}%)")
 
 
 # --------------------------------------------------------------------------
@@ -1428,7 +1487,7 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def phase4_streaming(codes, lengths, one_shot, one_shot_peak, errs, profile):
+def phase4_streaming(codes, lengths, one_shot, one_shot_peak, errs):
     """Both streaming configurations on phase 2's reads, each equal to the
     one-shot result. Returns the launch counts of run (a) and the two
     streaming kernels' measurements on its final merge's inputs."""
@@ -1519,9 +1578,8 @@ def phase4_streaming(codes, lengths, one_shot, one_shot_peak, errs, profile):
         )
         out[tag] = (launches, times)
         del r, rows
-        if profile:
-            profile_streaming(lambda: ht.count_reads_streaming(
-                codes, lengths, cfg, batch_bases, device="cuda"), f"phase4{tag}")
+        profile_call(lambda: ht.count_reads_streaming(
+            codes, lengths, cfg, batch_bases, device="cuda"), f"phase4{tag}")
     return out["a"]
 
 
@@ -1622,9 +1680,10 @@ def phase4_drains(codes, lengths, one_shot) -> None:
         torch.cuda.set_per_process_memory_fraction(1.0)
 
 
-def profile_streaming(run, what: str) -> None:
-    """One streaming call under torch.profiler: where its wall time goes by
-    the scheduler's stage spans, and its device time by kernel."""
+def profile_call(run, what: str) -> tuple[float, float]:
+    """One call under torch.profiler: where its wall time goes by the
+    scheduler's stage spans (a streaming call's), and its device time by
+    kernel. Returns (device busy ms, wall ms under the profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1660,6 +1719,7 @@ def profile_streaming(run, what: str) -> None:
     for e in sorted(kernels, key=device_us, reverse=True)[:10]:
         log(f"{what} profile device {e.key[:60]}: {device_us(e) / 1e3:.2f} ms "
             f"over {e.count} calls")
+    return busy_ms, wall_ms
 
 
 # --------------------------------------------------------------------------
@@ -1761,7 +1821,7 @@ def phase7_roll(codes, lengths, one_shot):
     radix_words, _ = radix_sort.sort_words(marked)
     require_equal("roll sort against the radix sort", max_abs_err(words, radix_words))
     del radix_words
-    kl = pipeline.compact_keys(words, cnt, keep, cfg.k)
+    kl = pipeline.compact_keys(words, cnt, pipeline.kept_slots(keep), cfg.k, cfg.upper)
     if not same_list(kl, one_shot[0]):
         raise AssertionError("path B differs from phase 2's result")
     del words, cnt, keep
@@ -2232,7 +2292,9 @@ def require_same_ext(what: str, got, want, want_rows=None) -> None:
 def phase10_call(entry: str, codes, lengths, fields: dict, args: tuple = (),
                  kwargs: dict | None = None) -> dict:
     """One call of a sharded entry under fresh counters (sharded_run_stats)
-    with its step passes counted and the streaming final merge timed."""
+    with its step passes counted, the streaming final merge timed and the
+    calls of the extension-mode host flatteners (the feed of the bucketed
+    routes before the wire) counted."""
     import contextlib
     from unittest import mock
 
@@ -2240,6 +2302,7 @@ def phase10_call(entry: str, codes, lengths, fields: dict, args: tuple = (),
 
     import hysortk_tpu_torch as ht
     from hysortk_tpu_torch import testing
+    from hysortk_tpu_torch.io import fasta as fasta_io
     from hysortk_tpu_torch.parallel import pipeline as sharded
 
     cfg = ht.KmerConfig(**fields)
@@ -2254,11 +2317,21 @@ def phase10_call(entry: str, codes, lengths, fields: dict, args: tuple = (),
         merge_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
+    flattens = []
+
+    def counted(mod, name):
+        real = getattr(mod, name)
+        return mock.patch.object(
+            mod, name, lambda *a, **k: flattens.append(name) or real(*a, **k))
+
     with contextlib.ExitStack() as stack:
         calls = testing.call_counters(stack, sharded)
         stack.enter_context(mock.patch.object(sharded, "_merge_partials", timed_merge))
+        stack.enter_context(counted(fasta_io, "flatten_for_device_ext"))
+        stack.enter_context(counted(sharded, "build_ext_blocks"))
         stats = sharded_run_stats(lambda: getattr(sharded, entry)(
             codes, lengths, cfg, *args, **(kwargs or {})), 1)
+    stats["host_flattens"] = len(flattens)
     stats["passes"] = sum(n for name, n in calls.items() if "_shard_body" in name)
     stats["calls"] = dict(calls)
     stats["merge_ms"] = merge_ms
@@ -2413,6 +2486,8 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
                     f"batches of {STREAM_BATCH}", [a], len(one_shot[0]), stream_needed)
         torch.cuda.empty_cache()
         c = phase10_call("count_reads_sharded_ext", codes, lengths, ext)
+        if c["host_flattens"]:
+            raise AssertionError("phase 10(c) one rank ran the host flatten")
         got = c.pop("result")
         t0 = time.perf_counter()
         require_same_ext("phase 10(c) one rank", got, ext_one_shot)
@@ -2462,9 +2537,16 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
              (), {}, one_shot, CORE_KERNELS),
         ],
     }
+    def no_host_flatten(tag, stats):
+        flattens = [st["host_flattens"] for st in stats]
+        if any(flattens):
+            raise AssertionError(f"phase 10({tag}) ran the host flatten {flattens} times")
+        log(f"phase10{tag} host flatten calls per rank: {flattens}")
+
     # The reference of three runs: its sorted occurrence rows once.
     sub_rows = ext_occurrence_rows(ext_sub_one_shot[0])
-    run_spawned(workdir, 10, spawns, inputs, ext_sub_one_shot, sub_rows)
+    run_spawned(workdir, 10, spawns, inputs, ext_sub_one_shot, sub_rows,
+                no_host_flatten)
     del sub_rows
     log(f"phase10 {time.perf_counter() - t_phase:.1f} s in all")
 
@@ -2903,7 +2985,7 @@ def main() -> int:
         times = phase1_main_path(codes, lengths, errs)
         fasta, reads = phase3_small(workdir, rng)
         stream_launches, stream_times = phase4_streaming(
-            codes, lengths, one_shot, peak, errs, "--profile" in sys.argv[1:])
+            codes, lengths, one_shot, peak, errs)
         phase4_drains(codes, lengths, one_shot)
         phase5_cli(workdir, fasta, reads)
         torch.cuda.empty_cache()

@@ -76,7 +76,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_strip_and_pack.restype = None
     lib.hk_decode_keys.argtypes = [u32p, i64, i32, i32, u8p]
     lib.hk_decode_keys.restype = None
-    lib.hk_pack_2bit.argtypes = [u8p, i64, u32p]
+    lib.hk_pack_2bit.argtypes = [u8p, i64, u32p, i64]
     lib.hk_pack_2bit.restype = None
     lib.hk_format_output.argtypes = [u32p, i32p, i64, i32, i32, u8p]
     lib.hk_format_output.restype = i64
@@ -161,13 +161,25 @@ def strip_and_pack(
     return out
 
 
-def pack_2bit(codes: np.ndarray) -> np.ndarray:
-    """16 base codes per uint32 wire word; len(codes) % 16 == 0."""
-    codes = np.ascontiguousarray(codes, dtype=np.uint8)
-    if codes.size % 16:
-        raise ValueError(f"pack_2bit: {codes.size} codes, not a multiple of 16")
-    out = np.empty(codes.size // 16, dtype=np.uint32)
-    _enter("pack_2bit").hk_pack_2bit(codes, codes.size, out)
+def pack_2bit(codes: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
+    """16 base codes per uint32 wire word. Without `out`, len(codes) % 16
+    == 0 and the words are returned; with `out` (uint32 or int32, C
+    contiguous, at least ceil(len(codes) / 16) words), the codes are packed
+    into it and every word past them is zero-filled, a partial last word
+    included. int8 and uint8 codes are read in place, never copied."""
+    if codes.dtype in (np.int8, np.uint8) and codes.flags.c_contiguous:
+        codes = codes.reshape(-1).view(np.uint8)
+    else:
+        codes = np.ascontiguousarray(codes, dtype=np.uint8).reshape(-1)
+    if out is None:
+        if codes.size % 16:
+            raise ValueError(f"pack_2bit: {codes.size} codes, not a multiple of 16")
+        out = np.empty(codes.size // 16, dtype=np.uint32)
+    elif (out.dtype not in (np.uint32, np.int32) or out.ndim != 1
+          or not out.flags.c_contiguous or out.size * 16 < codes.size):
+        raise ValueError(f"pack_2bit: {codes.size} codes do not fit the output buffer")
+    words = out.view(np.uint32)
+    _enter("pack_2bit").hk_pack_2bit(codes, codes.size, words, words.size)
     return out
 
 

@@ -219,8 +219,25 @@ def pack_codes_2bit(codes: np.ndarray) -> np.ndarray:
     from . import native
 
     if codes.size % 16 == 0 and native.available():
-        return native.pack_2bit(codes.astype(np.uint8, copy=False))
+        return native.pack_2bit(codes)
     return pack_codes_2bit_plain(codes)
+
+
+def pack_codes_2bit_into(codes: np.ndarray, out: np.ndarray) -> np.ndarray:
+    """`pack_codes_2bit` of codes zero-padded to out's length x 16, written
+    into `out` ((W,) uint32 or int32, W >= ceil(len(codes) / 16)): the
+    codes are read in place and no padded copy of them is made."""
+    from . import native
+
+    if native.available():
+        return native.pack_2bit(codes, out)
+    words = out.view(np.uint32)
+    packed = pack_codes_2bit_plain(codes)
+    if packed.size > words.size:
+        raise ValueError(f"pack: {codes.size} codes do not fit {words.size} words")
+    words[: packed.size] = packed
+    words[packed.size:] = 0
+    return out
 
 
 def pack_codes_2bit_plain(codes: np.ndarray) -> np.ndarray:

@@ -80,6 +80,7 @@ from ..ops.kmer import widen
 from ..pipeline import (
     KmerList,
     KmerListExt,
+    feed_wire,
     host_histogram,
     kept_occurrences,
     merge_ext_partials,
@@ -653,11 +654,10 @@ def _pack_shard(codes: np.ndarray, lens: np.ndarray, block_len: int,
                 lmax: int) -> tuple[np.ndarray, np.ndarray]:
     """One shard in wire format: (block_len/16,) uint32 words, (lmax,)
     int32 zero-padded read lengths."""
-    c = np.zeros(block_len, dtype=np.int8)
-    c[: codes.shape[0]] = codes
+    words = supermer_io.pack_codes_2bit_into(codes, np.empty(block_len // 16, np.uint32))
     l = np.zeros(lmax, dtype=np.int32)
     l[: lens.shape[0]] = lens
-    return supermer_io.pack_codes_2bit(c), l
+    return words, l
 
 
 def distribute_reads_packed(
@@ -689,18 +689,17 @@ def distribute_reads_packed(
 def _rank_wire(codes: np.ndarray, lengths: np.ndarray, cfg: KmerConfig, group,
                dev, min_dims: tuple[int, int] = (0, 1)):
     """The rank's reads as its block in wire format, on the device: (packed
-    words, read lengths, block_len). The dims are the most of any rank (one
-    all-reduce MAX, as the JAX multi-process entries all-gather them; for
-    shares of one partition, what a mesh computes from every shard), pinned
-    from below by min_dims, as the JAX streaming callers do."""
+    words, read lengths, block_len), fed through pipeline.feed_wire (pinned
+    staging on CUDA). The dims are the most of any rank (one all-reduce MAX,
+    as the JAX multi-process entries all-gather them; for shares of one
+    partition, what a mesh computes from every shard), pinned from below by
+    min_dims, as the JAX streaming callers do."""
     with stage("pack", dev):
-        lens = np.asarray(lengths).astype(np.int32)
-        dims = _wire_dims([(codes, lens, 0)], cfg, *min_dims)
+        lengths = np.asarray(lengths)
+        dims = _wire_dims([(codes, lengths, 0)], cfg, *min_dims)
         block_len, lmax = (int(d) for d in
                            _all_reduce_host(dims, dist.ReduceOp.MAX, dev, group))
-        packed, lens = _pack_shard(codes, lens, block_len, lmax)
-        return (torch.from_numpy(packed.view(np.int32)).to(dev),
-                torch.from_numpy(lens).to(dev), block_len)
+        return (*feed_wire(codes, lengths, block_len, dev, lmax), block_len)
 
 
 def _share_batches(codes: np.ndarray, lengths: np.ndarray, batch_bases: int, group):
@@ -928,7 +927,9 @@ def build_ext_blocks(
     min_block_len: int = 0,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
     """Per-shard equal-size (codes, valid, rid, pos) blocks for extension
-    mode: (S, block_len) int8, bool, int32, uint32, and block_len."""
+    mode: (S, block_len) int8, bool, int32, uint32, and block_len: the JAX
+    package's feed of its bucketed extension routes. The port's routes take
+    the wire (`_count_rank_ext`); this stays for the parity tests."""
     blocks = [
         fasta_io.flatten_for_device_ext(c, l, cfg.k, cfg.pad_multiple,
                                         read_id_offset + first)
@@ -1018,14 +1019,14 @@ def count_reads_sharded_ext(
     min_dims: tuple[int, int] = (0, 1),
 ) -> tuple[KmerListExt, np.ndarray]:
     """Extension mode across the ranks of `group`: every k-mer's (read id,
-    position) occurrences; read ids count from read_id_offset. Under range
+    position) occurrences; read ids count from read_id_offset. Under every
     routing the feed is the 2-bit wire and (rid, pos) are derived on the
-    device from the read lengths (ops/wire.decode_block_ext); the bucketed
-    routings take flat blocks (build_ext_blocks), as in the JAX package.
-    min_dims pins (block_len, lmax) from below (the streaming caller's
-    ext_stream_dims). Every rank returns the whole (KmerListExt,
-    histogram). routing="supermer" goes to
-    supermer_route.count_reads_supermer_ext."""
+    device from the read lengths (ops/wire.decode_block_ext); the JAX
+    package feeds the bucketed routings flat blocks (build_ext_blocks),
+    which gives the same result. min_dims pins
+    (block_len, lmax) from below (the streaming caller's ext_stream_dims).
+    Every rank returns the whole (KmerListExt, histogram).
+    routing="supermer" goes to supermer_route.count_reads_supermer_ext."""
     if cfg.routing == "supermer":
         from . import supermer_route
 
@@ -1038,36 +1039,21 @@ def count_reads_sharded_ext(
     return kl, host_histogram(kl.counts, cfg.upper)
 
 
-def _ext_block(codes, lengths, cfg: KmerConfig, read_id_offset: int, min_block_len: int,
-               dev, group):
-    """The rank's reads as one extension-mode block (build_ext_blocks of one
-    shard), padded to the longest block of any rank (one all-reduce MAX):
-    (codes, valid, rid, pos) on the device, and block_len."""
-    with stage("pack", dev):
-        sc, sv, sr, sp, block_len = build_ext_blocks(codes, lengths, cfg, 1,
-                                                     read_id_offset, min_block_len)
-        (longest,) = _all_reduce_host([block_len], dist.ReduceOp.MAX, dev, group)
-        pad = (0, int(longest) - block_len)
-        blocks = (np.pad(a[0], pad) for a in (sc, sv, sr, sp.view(np.int32)))
-        return tuple(torch.from_numpy(a).to(dev) for a in blocks) + (int(longest),)
-
-
 def _count_rank_ext(codes, lengths, cfg: KmerConfig, group, dev, read_id_offset: int,
                     min_dims):
     """Extension mode on the rank's own reads, read ids from read_id_offset
-    (every routing but supermer): its share as _ext_rows."""
+    (every routing but supermer): its block over the wire, (rid, pos)
+    derived on the device from the read lengths; its share as _ext_rows."""
     num_shards = dist.get_world_size(group)
+    packed, lens, block_len = _rank_wire(codes, lengths, cfg, group, dev, min_dims)
+    inputs = wire.decode_block_ext(packed, lens, cfg.k, block_len, read_id_offset)
+    del packed, lens
+    capacity = _factor_capacity(block_len, num_shards, cfg)
     if cfg.routing == "range":
-        packed, lens, block_len = _rank_wire(codes, lengths, cfg, group, dev, min_dims)
-        inputs = wire.decode_block_ext(packed, lens, cfg.k, block_len, read_id_offset)
-        del packed, lens
         body = _shard_body_ext_range
-        capacity = _next_pow2(_factor_capacity(block_len, num_shards, cfg))
+        capacity = _next_pow2(capacity)
     else:
-        *inputs, block_len = _ext_block(codes, lengths, cfg, read_id_offset,
-                                        min_dims[0], dev, group)
         body = _shard_body_ext_bucketed
-        capacity = _factor_capacity(block_len, num_shards, cfg)
     with stage("step", dev):
         (words, cnt, keep, rid_s, pos_s, _), _ = run_with_capacity_retry(
             lambda cap: body(*inputs, cfg=cfg, num_shards=num_shards, capacity=cap,

@@ -202,23 +202,133 @@ def _count_core(
     return words_s, cnt, keep
 
 
+# Calls of device_histogram, so that a run can show that its histogram was
+# computed on the device; reset_calls clears it.
+calls = {"device_histogram": 0}
+
+
+def reset_calls() -> None:
+    for name in calls:
+        calls[name] = 0
+
+
+def host_staging(shape, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """An empty host tensor for a copy to or from `dev`. Where dev is CUDA
+    it comes from torch's pinned host allocator, which caches page-locked
+    blocks and reuses one only once the copies recorded on it have
+    finished; on the CPU, ordinary memory (the CPU device's own route)."""
+    return torch.empty(shape, dtype=dtype, pin_memory=dev.type == "cuda")
+
+
+def to_host(t: torch.Tensor, dtype: torch.dtype | None = None) -> np.ndarray:
+    """A device tensor's values as an ordinary host array (of `dtype`, if
+    given). From CUDA they cross into a pinned bounce buffer
+    (`host_staging`) and are copied out of it by torch's threaded copy, so
+    no more than one result at a time is held page-locked, whatever a
+    stream of results adds up to."""
+    if t.device.type == "cpu":
+        return (t if dtype is None else t.to(dtype)).numpy()
+    stage = host_staging(t.shape, t.dtype, t.device)
+    stage.copy_(t)
+    return torch.empty(t.shape, dtype=dtype or t.dtype).copy_(stage).numpy()
+
+
+def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on `dev`: on CUDA copied into a pinned bounce buffer by
+    torch's threaded copy, then to the device, one array at a time."""
+    t = torch.from_numpy(a)
+    if dev.type == "cpu":
+        return t
+    stage = host_staging(t.shape, t.dtype, dev)
+    stage.copy_(t)
+    return stage.to(dev)
+
+
+def stage_wire(
+    codes: np.ndarray, lengths: np.ndarray, n: int, dev: torch.device, lmax: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The host half of `feed_wire`: the 2-bit wire in fresh staging
+    tensors (`host_staging`: pinned where dev is CUDA), the unpadded codes
+    packed straight into them: ((n/16,) int32 words, 16 codes a word and
+    zeros past the last code; (max(R, lmax),) int32 read lengths,
+    zero-padded). n % 16 == 0 and n >= len(codes) + 16 (the decode's spare
+    slots)."""
+    from .io import supermer as supermer_io
+
+    total = int(codes.size)
+    if n % 16 or n < total + 16:
+        raise ValueError(f"feed_wire: {n} slots for {total} bases (need a multiple of "
+                         f"16 with 16 to spare)")
+    packed = host_staging((n // 16,), torch.int32, dev)
+    supermer_io.pack_codes_2bit_into(codes, packed.numpy())
+    r = int(np.size(lengths))
+    lens = host_staging((max(r, lmax),), torch.int32, dev)
+    lens_np = lens.numpy()
+    lens_np[:r] = lengths
+    lens_np[r:] = 0
+    return packed, lens
+
+
+def feed_wire(
+    codes: np.ndarray, lengths: np.ndarray, n: int, dev: torch.device, lmax: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Host reads -> the 2-bit packed wire on `dev` (`stage_wire`'s words
+    and lengths), copied with non_blocking=True. Every call takes its own
+    staging, so a batch packed while the one before still copies cannot
+    overwrite it."""
+    packed, lens = stage_wire(codes, lengths, n, dev, lmax)
+    return packed.to(dev, non_blocking=True), lens.to(dev, non_blocking=True)
+
+
+def kept_slots(keep: torch.Tensor) -> torch.Tensor:
+    """The slots of the kept runs, ascending (one device sync)."""
+    return torch.nonzero(keep).squeeze(1)
+
+
 def compact_keys(
-    words: list[torch.Tensor], cnt: torch.Tensor, keep: torch.Tensor, k: int
+    words: list[torch.Tensor], cnt: torch.Tensor, idx: torch.Tensor, k: int, upper: int
 ) -> KmerList:
-    """Gather the kept rows on the device, then copy only those to the host."""
-    idx = torch.nonzero(keep).squeeze(1)
+    """The kept rows `idx` (kept_slots) gathered on the device; only they
+    cross to the host (`to_host`): the key words, and the counts at the
+    narrowest width the filter's `upper` fits (narrow_counts), widened to
+    int32 on the host."""
     keys = torch.stack([w[idx] for w in words], dim=-1)
     return KmerList(
-        keys=keys.cpu().numpy().view(np.uint32),
-        counts=cnt[idx].cpu().numpy(),
+        keys=to_host(keys).view(np.uint32),
+        counts=to_host(narrow_counts(cnt[idx], upper), torch.int32),
         k=k,
     )
 
 
-def pull_prefix(tensors, n: int) -> list[np.ndarray]:
-    """The first n elements of each device tensor, as host arrays: only the
-    prefix crosses to the host, not the padded tail."""
-    return [t[:n].cpu().numpy() for t in tensors]
+def device_histogram(cnt: torch.Tensor, keep_idx: torch.Tensor, upper: int) -> np.ndarray:
+    """`host_histogram` of the kept counts cnt[keep_idx], computed on the
+    device: (upper + 1,) int32, hist[c] the number of kept k-mers counted c;
+    only those upper + 1 integers cross to the host. A count above upper
+    (cfg.unfiltered's results) is clamped to upper + 1, a bin the slice
+    drops, so the bincount is sized by upper, never by the unfiltered
+    bound."""
+    calls["device_histogram"] += 1
+    kept = cnt[keep_idx].clamp(max=upper + 1)
+    return to_host(torch.bincount(kept, minlength=upper + 2)[: upper + 1].to(torch.int32))
+
+
+def kept_result(
+    words: list[torch.Tensor], cnt: torch.Tensor, keep: torch.Tensor, cfg: KmerConfig,
+    upper: int,
+) -> tuple[KmerList, np.ndarray]:
+    """A filtered device result at its final size on the host: the kept
+    rows (compact_keys; upper is the filter's bound) and their histogram
+    over [0, cfg.upper] (device_histogram)."""
+    idx = kept_slots(keep)
+    return compact_keys(words, cnt, idx, cfg.k, upper), device_histogram(cnt, idx, cfg.upper)
+
+
+def pull_prefix(tensors, n) -> list[np.ndarray]:
+    """The first n elements of each device tensor, as host arrays (n an int
+    or a 0-d device tensor, read here): only the prefix crosses to the
+    host, not the padded tail."""
+    n = int(n)
+    return [to_host(t[:n]) for t in tensors]
 
 
 def narrow_counts(cnt: torch.Tensor, upper: int) -> torch.Tensor:
@@ -248,30 +358,33 @@ def _count_device_packed(
 def _count_device_packed_compact(
     packed: torch.Tensor, lengths: torch.Tensor, k: int, n: int,
     lower: int, upper: int,
-) -> tuple[list[torch.Tensor], torch.Tensor, int]:
+) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Wire-fed step + on-device compaction: the kept (key, count) rows as
     an ascending prefix [0, n_kept) of (n,) tensors whose tail is the
     all-ones sentinel (counts 0), i.e. one sorted sentinel-padded run.
-    Returns (words, counts, n_kept).
+    Returns (words, counts, n_kept), n_kept a 0-d device tensor: nothing is
+    read on the host, so the caller's next batch can pack while this one
+    runs.
 
     The JAX package folds dropped slots to the sentinel and sorts once more;
-    the rows are already in key order here, so a mask gather keeps that
-    order and gives the same prefix."""
+    the rows are already in key order here, so a scatter of each kept row
+    to its rank among the kept (dropped rows to a spare slot n, cut off)
+    keeps that order and gives the same prefix."""
     words_s, cnt, keep = _count_device_packed(packed, lengths, k, n, lower, upper)
-    idx = torch.nonzero(keep).squeeze(1)
-    n_kept = int(idx.shape[0])
+    rank = torch.cumsum(keep, 0)
+    n_kept = rank[-1].clone()  # not a view: the ranks go with the call
+    dest = torch.where(keep, rank - 1, n)
     words = []
     for w in words_s:
-        out = torch.full_like(w, -1)
-        out[:n_kept] = w[idx]
-        words.append(out)
-    counts = torch.zeros_like(cnt)
-    counts[:n_kept] = cnt[idx]
-    return words, counts, n_kept
+        out = torch.full((n + 1,), -1, dtype=w.dtype, device=w.device)
+        words.append(out.scatter_(0, dest, w)[:n])
+    counts = torch.zeros(n + 1, dtype=cnt.dtype, device=cnt.device)
+    return words, counts.scatter_(0, dest, cnt)[:n], n_kept
 
 
 def host_histogram(counts: np.ndarray, upper: int) -> np.ndarray:
-    """hist[c] = number of kept kmers with frequency c (c in [0, upper])."""
+    """hist[c] = number of kept kmers with frequency c (c in [0, upper]).
+    The plain version of `device_histogram`; the sharded paths use it."""
     return np.bincount(
         np.asarray(counts, dtype=np.int64), minlength=upper + 1
     ).astype(np.int32)[: upper + 1]
@@ -287,29 +400,20 @@ def count_flat(
         torch.as_tensor(np.asarray(valid, dtype=bool)).to(dev),
         cfg.k, cfg.lower, cfg.upper,
     )
-    kmerlist = compact_keys(words, cnt, keep, cfg.k)
-    return kmerlist, host_histogram(kmerlist.counts, cfg.upper)
+    return kept_result(words, cnt, keep, cfg, cfg.upper)
 
 
 def wire_batch(
     codes: np.ndarray, lengths: np.ndarray, cfg: KmerConfig, device
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Host reads -> the 2-bit packed wire on the device: (packed words
-    (n/16,) int32, read lengths (R,) int32, n). Pads to cfg.pad_multiple
-    (at least 16 spare slots) and packs 2 bits/base on the host
-    (io/supermer.pack_codes_2bit): ~2 bits/base + 4 B/read cross to the
-    device."""
-    from .io import supermer as supermer_io
-
+    """Host reads -> the 2-bit packed wire on the device (`feed_wire`):
+    (packed words (n/16,) int32, read lengths (R,) int32, n), n the length
+    padded to cfg.pad_multiple with at least 16 spare slots: ~2 bits/base +
+    4 B/read cross to the device."""
     dev = resolve_device(device)
-    total = int(codes.size)
     pad = cfg.pad_multiple
-    n = -(-(total + 16) // pad) * pad
-    buf = np.zeros(n, dtype=np.int8)
-    buf[:total] = codes
-    packed = supermer_io.pack_codes_2bit(buf)
-    return (torch.from_numpy(packed.view(np.int32)).to(dev),
-            torch.from_numpy(np.asarray(lengths).astype(np.int32)).to(dev), n)
+    n = -(-(int(codes.size) + 16) // pad) * pad
+    return (*feed_wire(codes, lengths, n, dev), n)
 
 
 def device_batch(
@@ -328,7 +432,8 @@ def count_reads(
     device="cuda",
 ) -> tuple[KmerList, np.ndarray]:
     """Full single-device pipeline from host reads, fed over the 2-bit
-    packed wire (`device_batch`).
+    packed wire (`device_batch`); the result leaves the device at its final
+    size (`kept_result`), its histogram computed there.
 
     `cfg.device_compact` selects nothing here: the JAX count_reads uses it
     to compact on the device before the host copy, and `compact_keys`
@@ -338,8 +443,7 @@ def count_reads(
     words, cnt, keep = _count_core(
         codes_d, valid_d, cfg.k, cfg.lower, cfg.upper
     )
-    kmerlist = compact_keys(words, cnt, keep, cfg.k)
-    return kmerlist, host_histogram(kmerlist.counts, cfg.upper)
+    return kept_result(words, cnt, keep, cfg, cfg.upper)
 
 
 # --------------------------------------------------------------------------
@@ -405,19 +509,32 @@ def kept_occurrences(cnt, keep, rid_s, pos_s):
     return starts, counts, rid_s[slot], pos_s[slot]
 
 
+def _ext_list(words, kept, k: int) -> KmerListExt:
+    """The kept runs' keys and counts, and their occurrences gathered end to
+    end (kept_occurrences' output), as the list's flat storage: only those
+    cross to the host (`to_host`), into arrays the list owns."""
+    starts, counts, rid, pos = kept
+    keys = torch.stack([w[starts] for w in words], dim=-1)
+    return KmerListExt.from_flat(
+        to_host(keys).view(np.uint32), to_host(counts.to(torch.int32)), k,
+        to_host(rid), to_host(pos).view(np.uint32),
+    )
+
+
 def assemble_ext_result(words, cnt, keep, rid_s, pos_s, cfg: KmerConfig) -> KmerListExt:
     """Assembly of the extension step's device outputs: the kept keys and
     counts, and the kept runs' occurrences, gathered end to end on the
-    device (kept_occurrences), as the list's flat storage: only those cross
-    to the host (the JAX package copies both whole streams and slices them
-    there), into arrays the list owns."""
-    starts, counts, rid, pos = kept_occurrences(cnt, keep, rid_s, pos_s)
-    counts_np = counts.cpu().numpy()
-    keys = torch.stack([w[starts] for w in words], dim=-1)
-    return KmerListExt.from_flat(
-        keys.cpu().numpy().view(np.uint32), counts_np.astype(np.int32), cfg.k,
-        rid.cpu().numpy(), pos.cpu().numpy().view(np.uint32),
-    )
+    device (kept_occurrences); the JAX package copies both whole streams
+    and slices them on the host."""
+    return _ext_list(words, kept_occurrences(cnt, keep, rid_s, pos_s), cfg.k)
+
+
+def ext_result(words, cnt, keep, rid_s, pos_s, cfg: KmerConfig
+               ) -> tuple[KmerListExt, np.ndarray]:
+    """`assemble_ext_result` and the histogram of the kept counts over [0,
+    cfg.upper], computed on the device (device_histogram)."""
+    kept = kept_occurrences(cnt, keep, rid_s, pos_s)
+    return _ext_list(words, kept, cfg.k), device_histogram(cnt, kept[0], cfg.upper)
 
 
 def count_flat_ext(
@@ -435,8 +552,7 @@ def count_flat_ext(
         torch.as_tensor(np.asarray(pos).astype(np.uint32).view(np.int32)).to(dev),
         cfg.k, lower, upper,
     )
-    result = assemble_ext_result(*outs, cfg)
-    return result, host_histogram(result.counts, cfg.upper)
+    return ext_result(*outs, cfg)
 
 
 def count_reads_ext(
@@ -452,8 +568,7 @@ def count_reads_ext(
     packed, lens, n = wire_batch(codes, lengths, cfg, device)
     outs = _count_device_ext_packed(packed, lens, read_id_offset, cfg.k, n, lower, upper)
     del packed, lens
-    result = assemble_ext_result(*outs, cfg)
-    return result, host_histogram(result.counts, cfg.upper)
+    return ext_result(*outs, cfg)
 
 
 def _key_order(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -11,9 +11,10 @@ partial lists are merged in a final device pass: a merge of sorted runs
 (ops/merge.py) + a weighted run-length sum (ops/run_length_sum.py), the
 analogue of count_sorted_kmerlist, src/kmerops.cpp:1447-1476.
 
-The stages carry trace spans (`stream/pack`, `stream/upload`,
-`stream/count_batch`, `stream/consolidate`, `stream/final_merge`,
-runtime/profiling.annotate) that a torch.profiler trace sums by name.
+The stages carry trace spans (`stream/pack`: the pack into pinned staging
+and its copy to the device queued, `stream/count_batch`,
+`stream/consolidate`, `stream/final_merge`; runtime/profiling.annotate)
+that a torch.profiler trace sums by name.
 
 Partials are held on the host by default. Under cfg.device_compact they
 stay on the device as sorted sentinel-padded runs, folded together every
@@ -47,11 +48,14 @@ from ..pipeline import (
     _count_device_packed_compact,
     assemble_ext_result,
     compact_keys,
+    feed_wire,
     host_histogram,
+    kept_result,
+    kept_slots,
     merge_ext_partials,
-    narrow_counts,
     pull_prefix,
     resolve_device,
+    to_device,
 )
 from . import memcheck
 from .profiling import annotate
@@ -163,8 +167,6 @@ def count_reads_streaming_ext(
     applied to the merged totals only, the reference's EXT-indifferent
     bounded round loop (src/kmerops.cpp:906-1007). Peak device memory is set
     by batch_bases. Read ids count from read_id_offset across the batches."""
-    from ..io import supermer as supermer_io
-
     dev = resolve_device(device)
     snapped = snap_batch_to_pow2_flat(batch_bases, cfg.pad_multiple)
     if 0 < snapped <= batch_bases:
@@ -181,16 +183,9 @@ def count_reads_streaming_ext(
         n = target
         if b_codes.size + 16 > target:
             n = -(-(b_codes.size + 16) // cfg.pad_multiple) * cfg.pad_multiple
-        buf = np.zeros(n, dtype=np.int8)
-        buf[: b_codes.size] = b_codes
-        packed = supermer_io.pack_codes_2bit(buf)
-        lens = np.zeros(max(lmax, 1), dtype=np.int32)
-        lens[: b_lengths.size] = b_lengths
-        outs = _count_device_ext_packed(
-            torch.from_numpy(packed.view(np.int32)).to(dev),
-            torch.from_numpy(lens).to(dev),
-            rid_off, cfg.k, n, *_UNFILTERED,
-        )
+        packed, lens = feed_wire(b_codes, b_lengths, n, dev, max(lmax, 1))
+        outs = _count_device_ext_packed(packed, lens, rid_off, cfg.k, n, *_UNFILTERED)
+        del packed, lens
         partials.append(assemble_ext_result(*outs, cfg))
         rid_off += b_lengths.size
 
@@ -335,9 +330,13 @@ def count_reads_streaming(
     host-accumulated partials (chunked merge) otherwise, and when a device
     pass runs out of memory (torch.cuda.OutOfMemoryError, nothing wider: a
     failed kernel build or launch ends the run).
-    """
-    from ..io import supermer as supermer_io
 
+    Each batch is fed through `feed_wire` (pinned staging on CUDA). On the
+    device-resident route a batch's step reads nothing on the host, so the
+    host packs the next batch while the device counts this one; the kept
+    row counts are read only where a shape needs them (a drain, a
+    consolidation's union).
+    """
     dev = resolve_device(device)
     # Snap ANY requested budget onto a pow2 flat shape (<= the request, so
     # the memory bound holds): the same batches as the JAX package cuts.
@@ -395,35 +394,33 @@ def count_reads_streaming(
             # One read larger than the batch budget: rare one-off shape.
             n = -(-(b_codes.size + 16) // cfg.pad_multiple) * cfg.pad_multiple
         with annotate("stream/pack"):
-            buf = np.zeros(n, dtype=np.int8)
-            buf[: b_codes.size] = b_codes
-            packed = supermer_io.pack_codes_2bit(buf)
+            packed, lens = feed_wire(b_codes, b_lengths, n, dev)
         # Unfiltered per-batch pre-count. The upper bound here must be
         # unbounded (NOT cfg.upper, and not 65535): dropping a partial count
         # whose single-batch frequency exceeds any cap would silently
         # corrupt the merged totals; the final merge's [lower, upper]
         # filter is the only real bound.
-        with annotate("stream/upload"):
-            args = (
-                torch.from_numpy(packed.view(np.int32)).to(dev),
-                torch.from_numpy(np.asarray(b_lengths).astype(np.int32)).to(dev),
-                cfg.k, n, *_UNFILTERED,
-            )
+        args = (packed, lens, cfg.k, n, *_UNFILTERED)
+        del packed, lens
         if device_resident and n != target:
             # Oversized one-off batch breaks the uniform run length:
             # revert to host accumulation for the whole stream.
             device_resident = False
             _drain_device_partials()
         if not device_resident:
-            # Gather the kept rows on the device, copy only those out.
+            # Gather the kept rows on the device, copy only those out
+            # (through one pinned bounce buffer, reused batch to batch).
             with annotate("stream/count_batch"):
-                partial = compact_keys(*_count_device_packed(*args), cfg.k)
+                words, cnt, keep = _count_device_packed(*args)
+                partial = compact_keys(words, cnt, kept_slots(keep), cfg.k, _UNFILTERED[1])
+                del words, cnt, keep
             partial_keys.append(partial.keys)
             partial_cnts.append(partial.counts)
             continue
         with annotate("stream/count_batch"):
             keys, cnt, n_kept = _count_device_packed_compact(*args)
-        # Partials stay on the device; nothing crosses to the host.
+        # Partials stay on the device; nothing crosses to the host, and
+        # n_kept stays a device scalar.
         dev_words.append(keys)
         dev_cnts.append(cnt)
         dev_nks.append(n_kept)
@@ -465,11 +462,7 @@ def count_reads_streaming(
     if dev_words:
         try:
             with annotate("stream/final_merge"):
-                keys_np, cnts_np = _merge_device_resident(
-                    dev_words, dev_cnts, cfg, target
-                )
-            result = KmerList(keys_np, cnts_np, cfg.k)
-            return result, host_histogram(result.counts, cfg.upper)
+                return _merge_device_resident(dev_words, dev_cnts, cfg, target)
         except torch.cuda.OutOfMemoryError:
             # The merge did not fit the device after all (the budget rule
             # missed): copy the compacted partials out and finish host-side.
@@ -487,26 +480,12 @@ def count_reads_streaming(
         )
 
     with annotate("stream/final_merge"):
-        keys_np, cnts_np = merge_partial_lists(
+        keys_np, cnts_np, hist = merge_partial_lists(
             partial_keys, partial_cnts, cfg,
             budget_elems=4 * snap_batch_to_pow2_flat(batch_bases, cfg.pad_multiple),
             device=dev,
         )
-    result = KmerList(keys_np, cnts_np, cfg.k)
-    return result, host_histogram(result.counts, cfg.upper)
-
-
-def _pull_kept(words_s, total, keep, upper: int):
-    """The kept rows of a merged, filtered result as host (keys (M, W)
-    uint32, counts (M,) int32). The counts are within [lower, upper], so
-    they cross at the narrowest width upper fits."""
-    idx = torch.nonzero(keep).squeeze(1)
-    keys = torch.stack([w[idx] for w in words_s], dim=-1)
-    counts = narrow_counts(total[idx], upper)
-    return (
-        keys.cpu().numpy().view(np.uint32),
-        counts.cpu().numpy().astype(np.int32),
-    )
+    return KmerList(keys_np, cnts_np, cfg.k), hist
 
 
 def _merge_device_resident(dev_words, dev_cnts, cfg, run_len):
@@ -517,7 +496,8 @@ def _merge_device_resident(dev_words, dev_cnts, cfg, run_len):
     merge + weighted run-length sum + [L,U] filter (the reference's
     count_sorted_kmerlist, src/kmerops.cpp:1447-1476), then a gather of the
     kept rows. The held runs are not modified: the caller's handler drains
-    them to the host when the merge runs out of device memory.
+    them to the host when the merge runs out of device memory. Returns
+    (KmerList, histogram), the histogram computed on the device.
     """
     runs = _next_pow2(len(dev_words))
     t0 = time.perf_counter()
@@ -529,12 +509,12 @@ def _merge_device_resident(dev_words, dev_cnts, cfg, run_len):
         dev_words, dev_cnts, lower, upper,
         words=cfg.words, run_len=run_len, pad_runs=runs - len(dev_words),
     )
-    keys_np, cnts_np = _pull_kept(words_s, total, keep, upper)
+    result, hist = kept_result(words_s, total, keep, cfg, upper)
     _LOG.info(
         "device-resident merge + final copy: %.1f MB in %.2fs",
-        (keys_np.nbytes + cnts_np.nbytes) / 1e6, time.perf_counter() - t0,
+        (result.keys.nbytes + result.counts.nbytes) / 1e6, time.perf_counter() - t0,
     )
-    return keys_np, cnts_np
+    return result, hist
 
 
 def merge_partial_lists(
@@ -557,29 +537,35 @@ def merge_partial_lists(
     order. The reference's memory bound comes from its fixed-size exchange
     rounds (src/kmerops.cpp:587-1007); chunked merging is the analogue on
     the result side (count_sorted_kmerlist, :1447-1476).
+
+    Each partial's rows go to the device as they are (contiguous (m, W)
+    keys and (m,) counts); the sentinel-padded (runs x run_len) layout the
+    merge takes is made there, one slice copy a partial. Returns (keys (M,
+    W) uint32, counts (M,) int32, histogram over [0, cfg.upper]), the
+    histogram computed on the device.
     """
     dev = resolve_device(device)
     n_runs = _next_pow2(len(partial_keys))
     run_len_1 = _next_pow2(max(max(p.shape[0] for p in partial_keys), 1))
 
     def run_merge(chunk_keys, chunk_cnts, run_len):
-        all_keys = np.full(
-            (cfg.words, n_runs, run_len), 0xFFFFFFFF, dtype=np.uint32
-        )
-        all_cnts = np.zeros((n_runs, run_len), dtype=np.int32)
+        keys = torch.full((cfg.words, n_runs, run_len), -1, dtype=torch.int32, device=dev)
+        cnts = torch.zeros((n_runs, run_len), dtype=torch.int32, device=dev)
         for i, (pk, pc) in enumerate(zip(chunk_keys, chunk_cnts)):
-            all_keys[:, i, : pk.shape[0]] = pk.T
-            all_cnts[i, : pc.shape[0]] = pc
-        rows = [
-            torch.from_numpy(all_keys[w].reshape(-1).view(np.int32)).to(dev)
-            for w in range(cfg.words)
-        ]
-        rows.append(torch.from_numpy(all_cnts.reshape(-1)).to(dev))
+            m = pk.shape[0]
+            if m:
+                rows = np.ascontiguousarray(pk, dtype=np.uint32).view(np.int32)
+                keys[:, i, :m] = to_device(rows, dev).T
+                cnts[i, :m] = to_device(np.asarray(pc).astype(np.int32, copy=False), dev)
+        rows = [keys[w].reshape(-1) for w in range(cfg.words)] + [cnts.reshape(-1)]
+        del keys, cnts
         merged = merge_ops.merge_sorted_runs(rows, cfg.words, run_len)
+        del rows
         words_s, pay = merged[: cfg.words], merged[cfg.words]
         head, total = _run_length_sum_auto(words_s, pay)
         keep = count_ops.frequency_filter(head, total, cfg.lower, cfg.upper)
-        return _pull_kept(words_s, total, keep, cfg.upper)
+        result, hist = kept_result(words_s, total, keep, cfg, cfg.upper)
+        return result.keys, result.counts, hist
 
     if n_runs * run_len_1 <= max(budget_elems, 1 << 20):
         return run_merge(partial_keys, partial_cnts, run_len_1)
@@ -623,18 +609,16 @@ def merge_partial_lists(
         )
         or 1
     )
-    out_keys, out_cnts = [], []
+    out_keys = [np.zeros((0, cfg.words), np.uint32)]
+    out_cnts = [np.zeros(0, np.int32)]
+    hist = np.zeros(cfg.upper + 1, np.int32)
     for a, b in groups:
         ck = [pk[o[a] : o[b]] for pk, o in zip(partial_keys, offs)]
         cc = [pc[o[a] : o[b]] for pc, o in zip(partial_cnts, offs)]
         if not any(x.shape[0] for x in ck):
             continue
-        k_np, c_np = run_merge(ck, cc, run_len)
+        k_np, c_np, h = run_merge(ck, cc, run_len)
         out_keys.append(k_np)
         out_cnts.append(c_np)
-    if not out_keys:
-        return (
-            np.zeros((0, cfg.words), np.uint32),
-            np.zeros(0, np.int32),
-        )
-    return np.concatenate(out_keys), np.concatenate(out_cnts)
+        hist += h
+    return np.concatenate(out_keys), np.concatenate(out_cnts), hist

@@ -13,6 +13,7 @@ N (or any non-ACGT char) read as A — exactly the reference's behavior
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
 from typing import Sequence
 
@@ -874,6 +875,10 @@ def _run_count_job(kind: str, data, cfg, job: dict):
     raise ValueError(f"unknown job kind {kind!r}")
 
 
+def _refuse(name: str, *args, **kwargs):
+    raise AssertionError(f"{name} was called")
+
+
 def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
     """Run `jobs` in order on this rank. A job is a dict with `name`,
     `kind` and `inputs` (an .npz path), and per kind:
@@ -886,8 +891,11 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
                            cfg (KmerConfig fields), device; batch_bases for
                            the streaming kinds, optional async_depth and
                            read_id_offset; optional capacity (every range
-                           route starts from it) and headroom (the device
-                           memory headroom the facade sees, in bytes)
+                           route starts from it), headroom (the device
+                           memory headroom the facade sees, in bytes) and
+                           refuse_host_flatten (the extension-mode host
+                           flatteners, fasta.flatten_for_device_ext and
+                           build_ext_blocks, raise if called)
       count_fasta_multihost, count_fasta_multihost_streaming,
       count_fasta_multihost_ext, count_fasta_multihost_ext_streaming,
       count_fasta_multihost_supermer, count_fasta_multihost_supermer_streaming
@@ -910,6 +918,7 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
     import torch.distributed as dist
 
     from .config import KmerConfig
+    from .io import fasta as fasta_io
     from .parallel import exchange
     from .parallel import pipeline as sharded
     from .pipeline import KmerListExt
@@ -948,6 +957,11 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
                     stack.enter_context(mock.patch.object(
                         memcheck, "hbm_headroom_bytes",
                         lambda device, safety=0.9, h=job["headroom"]: h))
+                if job.get("refuse_host_flatten"):
+                    for mod, name in ((fasta_io, "flatten_for_device_ext"),
+                                      (sharded, "build_ext_blocks")):
+                        stack.enter_context(mock.patch.object(
+                            mod, name, functools.partial(_refuse, name)))
                 kl, hist = _run_count_job(kind, data, cfg, job)
             out = dict(keys=kl.keys, counts=kl.counts, hist=hist,
                        passes=np.int64(calls["_shard_body_range"]),

@@ -99,6 +99,18 @@ SCENARIOS = [
     ("ext_one_read", 4, "one_read", dict(EXT, lower=1, upper=10), SEXT, {}),
     ("ext_kmer_hash", 4, "random", dict(EXT, routing="kmer_hash"), SEXT, {}),
     ("ext_stream", 4, "random", EXT, SEXT_STREAM, dict(batch_bases=900)),
+    # The bucketed extension routes over the wire: the host flatteners raise.
+    ("ext_minimizer_wire", 2, "random", dict(EXT, routing="minimizer"), SEXT,
+     dict(read_id_offset=2, refuse_host_flatten=True)),
+    ("ext_kmer_hash_wire", 2, "random", dict(EXT, routing="kmer_hash"), SEXT,
+     dict(refuse_host_flatten=True)),
+    ("ext_stream_minimizer_wire", 2, "random", dict(EXT, routing="minimizer"),
+     SEXT_STREAM, dict(batch_bases=600, read_id_offset=1, refuse_host_flatten=True)),
+    ("ext_kmer_hash_wire", 4, "random", dict(EXT, routing="kmer_hash"), SEXT,
+     dict(read_id_offset=6, refuse_host_flatten=True)),
+    ("ext_minimizer_wire", 4, "one_read", dict(EXT, routing="minimizer", lower=1,
+                                              upper=10), SEXT,
+     dict(refuse_host_flatten=True)),
     # The bucketed routes, one-shot.
     ("minimizer", 2, "random", MINI, ONE_SHOT, {}),
     ("minimizer_combiner", 2, "random", dict(MINI, combiner=True), ONE_SHOT, {}),

@@ -176,11 +176,12 @@ def test_jax_partials_through_port_merges(k):
     assert len(parts_k) > 4
     want_k, want_c = jsched.merge_partial_lists(parts_k, parts_c, jcfg, 1 << 30)
     for budget in (1 << 30, 256):
-        got_k, got_c = scheduler.merge_partial_lists(
+        got_k, got_c, got_h = scheduler.merge_partial_lists(
             parts_k, parts_c, cfg, budget, device="cpu"
         )
         assert got_k.dtype == np.uint32 and got_c.dtype == np.int32
         assert np.array_equal(got_k, want_k) and np.array_equal(got_c, want_c)
+        assert np.array_equal(got_h, jpipeline.host_histogram(want_c, cfg.upper))
     small_k, small_c = jsched.merge_partial_lists(parts_k, parts_c, jcfg, 256)
     assert np.array_equal(small_k, want_k) and np.array_equal(small_c, want_c)
 
