@@ -75,10 +75,19 @@ build/kernels/ at first use. Phases, each printing its findings:
      H2D, device pipeline, gather + D2H + flat result, beside the former
      host flatten, whose read ids and positions equal the device's), its
      device outputs equal to the plain composition on the same CUDA
-     tensors; count_reads_streaming_ext on the first 2^24 bases in batches of 2^22 with a read id offset, equal to the
-     one-shot extension result on the same reads; phase 3's FASTA through
-     the facade and the CLI (--extension, one-shot and streamed) against an
-     oracle of kmer -> (count, {(rid, pos)})
+     tensors; (c) count_reads_streaming_ext, its partials held and merged
+     on the card (never on the host), on phase 2's reads in batches of 2^24
+     against (a) and on the first 2^24 bases in batches of 2^22 with a read
+     id offset against count_reads_ext on the same reads (keys, counts,
+     histogram, every k-mer's occurrences as sets), each with its peak, the
+     held bytes, the merge's transient factor and the launches of
+     merge_runs and run_length_sum, then the full-width call stage by stage
+     (wire feed, batch steps, holding, merge_runs, run_length_sum, gather,
+     D2H, device histogram); phase 3's FASTA through the facade and the CLI
+     (--extension, one-shot and streamed) against an oracle of kmer ->
+     (count, {(rid, pos)}); (e) the streamed call's out-of-memory drain: its
+     device merge under a memory fraction 64 MiB above the allocator's
+     holding logs its warning, finishes by the host merge, equals (c)
   9  the sharded range exchange (parallel/pipeline.count_reads_sharded:
      key build, mix, sort, pack, all_to_all, run merge of the received runs,
      count) on phase 2's reads: (a) one rank with NCCL in this process, best
@@ -101,9 +110,10 @@ build/kernels/ at first use. Phases, each printing its findings:
      round_robin and the combiner, kmer_hash, kmer_hash with extension
      mode. Each result exactly equal to its reference after sorting by key
      (extension mode: every occurrence as sorted (key, rid, pos) rows); no
-     run calls the host flatten (every extension route feeds the wire); per
-     rank the wall, the peak device memory, the step passes, the bytes sent
-     and the kernels' launches
+     run calls the host flatten (every extension route feeds the wire) or
+     the host merge (the extension streams merge on the card, their merge
+     kernels launched); per rank the wall, the peak device memory, the step
+     passes, the bytes sent and the kernels' launches
  11  supermer routing (parallel/supermer_route.py: destination scan,
      classification and dispatch, supermer streams, 2-bit segments,
      all_to_all, receive-side decode, key build, sort, count) with phase 2's
@@ -120,7 +130,8 @@ build/kernels/ at first use. Phases, each printing its findings:
      count passes U and is kept), a bucket flagged and pre-counted, each
      result equal to the range route's on the same reads; (d) extension mode on phase 8(c)'s 2^24 bases with read ids
      from EXT_RID0, one-shot on one rank and on two, and streamed in batches
-     of 2^22 on two, each against phase 8(c)'s one-shot result; (e)
+     of 2^22 on two (merged on the card, not by the host merge), each
+     against phase 8(c)'s one-shot result; (e)
      count_reads_sharded_streaming in batches of 2^24, one rank and two
      ranks, against phase 2. Each result exactly equal after sorting by key
      (extension mode: every occurrence as sorted (key, rid, pos) rows); per
@@ -132,7 +143,8 @@ build/kernels/ at first use. Phases, each printing its findings:
      over gloo and (b) one process over NCCL on phase 2's FASTA, (c)
      --routing supermer on two processes, each against phase 2; (d)
      --extension --stream-batch-bases 2^24 on two processes on phase 2's
-     FASTA against phase 8(a)'s one-shot extension result. Each time the
+     FASTA against phase 8(a)'s one-shot extension result, its merge
+     kernels launched in every process. Each time the
      union of the
      shares equals the reference's lines (so the shares are disjoint) and
      the printed histogram the reference's; per rank its wall, its stage
@@ -163,7 +175,7 @@ SEED = 20261016
 K, M, LOWER, UPPER = 31, 17, 2, 50
 GENOME_BASES = 1 << 22
 READ_LEN = 150
-EXT_STREAM_BASES = 1 << 24  # host numpy merges every occurrence: cut to size
+EXT_STREAM_BASES = 1 << 24  # 8(c)'s second run, and the sharded phases' smaller runs
 EXT_STREAM_BATCH = 1 << 22
 EXT_RID0 = 1_000_000  # phase 8(c)'s read id offset, phase 10's too
 N_READS = (1 << 26) // READ_LEN  # 2^26 bases of reads, ~16x coverage
@@ -1870,8 +1882,9 @@ def sample_ext(kl, step: int):
 
 def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
                      reads, errs):
-    """Path C: extension mode one-shot at full width, streamed, and on the
-    small FASTA through the facade and the CLI. Returns the references of
+    """Path C: extension mode one-shot at full width, streamed at full width
+    and on 2^24 bases, on the small FASTA through the facade and the CLI,
+    and the streamed call's drain. Returns the references of
     phase 10: (a)'s list and histogram, and (c)'s one-shot ones on the
     first EXT_STREAM_BASES bases with read ids from EXT_RID0."""
     import dataclasses
@@ -1939,7 +1952,7 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
     t_device = time.perf_counter() - t0
     del packed, lens
     t0 = time.perf_counter()
-    assembled = pipeline.assemble_ext_result(words, cnt, keep, rid_s, pos_s, cfg)
+    assembled = pipeline.kept_partial(words, cnt, keep, rid_s, pos_s)[0].to_host(cfg.k)
     t_assemble = time.perf_counter() - t0
     if not same_list(assembled, one_shot[0]):
         raise AssertionError("the assembled extension list differs from phase 2's")
@@ -1981,37 +1994,25 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
     del dev, marked
     torch.cuda.empty_cache()
 
-    # (c) streamed against one-shot on the first EXT_STREAM_BASES bases.
+    # (c) streamed against one-shot: at full width (phase 2's reads in
+    # batches of 2^24, read ids from 0) against (a), then on the first
+    # EXT_STREAM_BASES bases in batches of 2^22 with a read id offset
+    # against count_reads_ext on the same reads; then the full-width call
+    # stage by stage.
+    phase8_streamed("full", codes, lengths, cfg, STREAM_BATCH, 0, ext_one_shot, wall)
     sub_codes, sub_lengths = ext_stream_reads(codes, lengths)
     rid0 = EXT_RID0
     t0 = time.perf_counter()
     want, want_hist = ht.count_reads_ext(sub_codes, sub_lengths, cfg, rid0,
                                          device="cuda")
     one_wall = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    got, got_hist = ht.count_reads_streaming_ext(
-        sub_codes, sub_lengths, cfg, EXT_STREAM_BATCH, rid0, device="cuda")
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    if not (same_list(got, want) and np.array_equal(got_hist, want_hist)):
-        raise AssertionError("streamed extension counts differ from one-shot")
-    if not np.array_equal(np.diff(got.offsets), got.counts):
-        raise AssertionError("streamed occurrence lists do not match the counts")
-    step = 64
-    if sample_ext(got, step) != sample_ext(want, step):
-        raise AssertionError("streamed occurrences differ from one-shot")
-    if int(got.occ_rid.min()) < rid0:
+    got = phase8_streamed("sub", sub_codes, sub_lengths, cfg, EXT_STREAM_BATCH, rid0,
+                          (want, want_hist), one_wall)
+    if int(got[0].occ_rid.min()) < rid0:
         raise AssertionError("the read id offset was lost")
-    log(f"phase8c count_reads_streaming_ext {int(sub_codes.size)} bases in batches "
-        f"of {EXT_STREAM_BATCH}, read_id_offset {rid0}: {len(got)} k-mers, keys, counts "
-        f"and histogram equal to count_reads_ext, occurrences of every {step}th "
-        f"k-mer equal as sets; wall {wall:.4f} s (one-shot {one_wall:.4f} s); peak "
-        f"device memory {peak / 2**30:.3f} GiB; launches {json.dumps(_build.launches)}")
     ext_sub_one_shot = (want, want_hist)
     del got
+    phase8_stream_stages(codes, lengths, cfg, STREAM_BATCH, ext_one_shot)
 
     # (d) the small FASTA: facade and CLI against the oracle.
     want = oracle_ext(reads, K, 2, 10)
@@ -2044,7 +2045,210 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
                                  f"{len(counts)}")
         log(f"phase8d cli --extension {' '.join(extra)}: {len(got)} k-mers equal "
             f"to the oracle")
+    # (e) the out-of-memory drain of the device merge.
+    phase8_drain(sub_codes, sub_lengths, cfg, rid0, ext_sub_one_shot)
     return ext_one_shot, ext_sub_one_shot
+
+
+def phase8_streamed(tag, codes, lengths, cfg, batch_bases, rid0, want, one_wall):
+    """count_reads_streaming_ext against a one-shot (list, histogram) of the
+    same reads: keys, counts and histogram equal, every k-mer's occurrences
+    equal as sets (as sorted (key, rid, pos) rows); the partials merged on
+    the card once and never on the host, both merge kernels launched. Its
+    line: wall against the one-shot wall, peak device memory, the held
+    partials' bytes at the merge's entry and the merge's transient factor
+    (its peak above what was allocated at its entry, over the held bytes),
+    the launches. Returns (list, histogram)."""
+    import torch
+
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch import _build
+    from hysortk_tpu_torch.runtime import scheduler
+
+    seen = {}
+    real_merge = scheduler.merge_ext_partials_device
+
+    def measured_merge(parts, cfg_):
+        torch.cuda.synchronize()
+        seen["peak_before"] = torch.cuda.max_memory_allocated()
+        seen["entry"] = torch.cuda.memory_allocated()
+        seen["held"] = sum(p.nbytes for p in parts)
+        seen["partials"] = len(parts)
+        torch.cuda.reset_peak_memory_stats()
+        out = real_merge(parts, cfg_)
+        torch.cuda.synchronize()
+        seen["merge_peak"] = torch.cuda.max_memory_allocated()
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    scheduler.merge_ext_partials_device = measured_merge
+    try:
+        with Recorder(scheduler, "merge_ext_partials") as host_merge:
+            t0 = time.perf_counter()
+            got, got_hist = ht.count_reads_streaming_ext(codes, lengths, cfg, batch_bases,
+                                                         rid0, device="cuda")
+            wall = time.perf_counter() - t0
+    finally:
+        scheduler.merge_ext_partials_device = real_merge
+    launches = dict(_build.launches)
+    peak = max(seen["peak_before"], seen["merge_peak"])
+    if host_merge.calls or "held" not in seen:
+        raise AssertionError(f"8(c) {tag}: {host_merge.calls} host merges, device merge "
+                             f"{'run' if seen else 'not run'}")
+    for name in STREAMING_KERNELS:
+        if not launches[name]:
+            raise AssertionError(f"8(c) {tag}: {name} was not launched")
+    if not (same_list(got, want[0]) and np.array_equal(got_hist, want[1])):
+        raise AssertionError(f"8(c) {tag}: streamed extension counts differ from one-shot")
+    if not np.array_equal(np.diff(got.offsets), got.counts):
+        raise AssertionError(f"8(c) {tag}: occurrence lists do not match the counts")
+    t0 = time.perf_counter()
+    require_same_ext(f"8(c) {tag}", (got, got_hist), want)
+    factor = (seen["merge_peak"] - seen["entry"]) / max(seen["held"], 1)
+    log(f"phase8c count_reads_streaming_ext {int(codes.size)} bases in batches of "
+        f"{batch_bases}, read_id_offset {rid0}: {len(got)} k-mers, {int(got.counts.sum())} "
+        f"occurrences; keys, counts and histogram equal to the one-shot result, every "
+        f"k-mer's occurrences equal as sets (checked in {time.perf_counter() - t0:.1f} s); "
+        f"wall {wall:.4f} s (one-shot {one_wall:.4f} s); peak device memory "
+        f"{peak / 2**30:.3f} GiB; {seen['partials']} partials held, "
+        f"{seen['held'] / 2**20:.1f} MiB at the merge's entry, merge transient "
+        f"{(seen['merge_peak'] - seen['entry']) / 2**20:.1f} MiB = {factor:.2f} x held "
+        f"(budget factor {scheduler.EXT_MERGE_FACTOR}); host merges 0; launches on this "
+        f"path merge_runs {launches['merge_runs']}, run_length_sum "
+        f"{launches['run_length_sum']}; all {json.dumps(launches)}")
+    return got, got_hist
+
+
+def phase8_stream_stages(codes, lengths, cfg, batch_bases, want) -> None:
+    """The full-width streamed extension call again, each stage synchronized
+    at both edges and timed on the host and by CUDA events: the batch steps
+    (wire feed, then decode, key build, sort, count), holding (the partial
+    made from the step's outputs), the device merge (merge_runs,
+    run_length_sum, the gather, each on its own), the D2H of the result and
+    the device histogram; the call's host wall beside them."""
+    import collections
+
+    import torch
+
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch import pipeline
+    from hysortk_tpu_torch.ops import merge as merge_ops
+    from hysortk_tpu_torch.ops import run_length_sum
+    from hysortk_tpu_torch.runtime import scheduler
+
+    host, dev, calls = collections.defaultdict(float), collections.defaultdict(float), \
+        collections.Counter()
+    patches = []
+
+    def clock(owner, name, key):
+        real = getattr(owner, name)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            try:
+                return real(*a, **k)
+            finally:
+                end.record()
+                torch.cuda.synchronize()
+                host[key] += (time.perf_counter() - t0) * 1e3
+                dev[key] += start.elapsed_time(end)
+                calls[key] += 1
+
+        setattr(owner, name, timed)
+        patches.append((owner, name, real))
+
+    for owner, name, key in (
+            (scheduler, "feed_wire", "feed"), (scheduler, "_count_device_ext_packed", "step"),
+            (scheduler, "ext_partial", "hold"), (scheduler, "merge_ext_partials_device", "merge"),
+            (merge_ops, "merge_runs_at", "merge_runs"),
+            (run_length_sum, "run_length_sum_fused", "run_length_sum"),
+            (pipeline, "gather_kept_ext", "gather"), (pipeline.ExtPartial, "to_host", "d2h"),
+            (pipeline, "device_histogram", "histogram")):
+        clock(owner, name, key)
+    try:
+        t0 = time.perf_counter()
+        got, got_hist = ht.count_reads_streaming_ext(codes, lengths, cfg, batch_bases,
+                                                     device="cuda")
+        staged_wall = time.perf_counter() - t0
+    finally:
+        for owner, name, real in reversed(patches):
+            setattr(owner, name, real)
+    if not (same_list(got, want[0]) and np.array_equal(got_hist, want[1])):
+        raise AssertionError("8(c) stage by stage differs from the one-shot result")
+    del got
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ht.count_reads_streaming_ext(codes, lengths, cfg, batch_bases, device="cuda")
+    wall = time.perf_counter() - t0
+    rest = host["merge"] - host["merge_runs"] - host["run_length_sum"] - host["gather"] \
+        - host["d2h"] - host["histogram"]
+    line = "; ".join(f"{what} {host[key]:.1f} (device {dev[key]:.1f})"
+                     for what, key in (("wire feed", "feed"), ("batch steps", "step"),
+                                       ("holding", "hold"), ("merge_runs", "merge_runs"),
+                                       ("run_length_sum", "run_length_sum"),
+                                       ("gather", "gather"), ("D2H of the result", "d2h"),
+                                       ("device histogram", "histogram")))
+    log(f"phase8c stream stages (ms, host with the device's events in brackets; "
+        f"{calls['step']} batches of {batch_bases}): {line}; the rest of the merge "
+        f"{rest:.1f}; device merge in all {host['merge']:.1f}; wall {staged_wall:.4f} s "
+        f"stage by stage, host wall of the call {wall:.4f} s")
+
+
+def phase8_drain(codes, lengths, cfg, rid0, want) -> None:
+    """(e) The streamed extension call's out-of-memory drain on the card: the
+    device merge runs under a per-process memory fraction leaving 64 MiB
+    above what the allocator holds at its entry (the held partials need
+    several times more), so it raises torch.cuda.OutOfMemoryError; the run
+    must log its drain warning, finish by the host merge and equal 8(c)."""
+    import logging
+
+    import torch
+
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch.runtime import scheduler
+
+    logged = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            logged.append(record.getMessage())
+
+    handler = Catch(logging.WARNING)
+    stream_log = logging.getLogger("hysortk_tpu_torch.stream")
+    stream_log.addHandler(handler)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with MemoryCapWithin(scheduler, "merge_ext_partials_device", 64 << 20) as cap, \
+                Recorder(scheduler, "merge_ext_partials") as host_merge:
+            t0 = time.perf_counter()
+            got = ht.count_reads_streaming_ext(codes, lengths, cfg, EXT_STREAM_BATCH, rid0,
+                                               device="cuda")
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        stream_log.removeHandler(handler)
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    warning = "device merge of extension partials ran out of device memory"
+    if not any(warning in w for w in logged):
+        raise AssertionError(f"8(e) logged no drain warning: {logged}")
+    if cap.calls != 1 or host_merge.calls != 1:
+        raise AssertionError(f"8(e): {cap.calls} device merges, {host_merge.calls} host "
+                             f"merges (want 1 and 1)")
+    if not (same_list(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        raise AssertionError("8(e) differs from 8(c)")
+    require_same_ext("8(e)", got, want)
+    log(f"phase8e drain: merge_ext_partials_device under a cap of "
+        f"{cap.caps[0] / 2**30:.3f} GiB raised torch.cuda.OutOfMemoryError; warning "
+        f"logged ({warning}); finished by the host merge; wall {wall:.4f} s, peak device "
+        f"memory {peak / 2**30:.3f} GiB; {len(got[0])} k-mers and every occurrence equal "
+        f"to 8(c)")
 
 
 # --------------------------------------------------------------------------
@@ -2523,7 +2727,7 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
              "sub", ext, (), rid0, ext_sub_one_shot, CORE_KERNELS + ("mix_keys",)),
             ("c", "count_reads_sharded_ext_streaming, 2^24 bases in batches of 2^22",
              "count_reads_sharded_ext_streaming", "sub", ext, (EXT_STREAM_BATCH,), rid0,
-             ext_sub_one_shot, CORE_KERNELS + ("mix_keys",)),
+             ext_sub_one_shot, CORE_KERNELS + ("mix_keys",) + STREAMING_KERNELS),
             ("e", "minimizer, round_robin + combiner, 2^24 bases", "count_reads_sharded",
              "sub", dict(mini, dispatcher="round_robin", combiner=True), (), {},
              sub_one_shot, CORE_KERNELS + ("run_length_sum",)),
@@ -2541,6 +2745,7 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
         flattens = [st["host_flattens"] for st in stats]
         if any(flattens):
             raise AssertionError(f"phase 10({tag}) ran the host flatten {flattens} times")
+        no_host_merge(10, tag, stats)
         log(f"phase10{tag} host flatten calls per rank: {flattens}")
 
     # The reference of three runs: its sorted occurrence rows once.
@@ -2549,6 +2754,17 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
                 no_host_flatten)
     del sub_rows
     log(f"phase10 {time.perf_counter() - t_phase:.1f} s in all")
+
+
+def no_host_merge(phase: int, tag: str, stats: list[dict]) -> None:
+    """A spawned run's ranks merged their extension partials on the card
+    only: the host merge is the drain's, and nothing here drains."""
+    merges = [(st["calls"]["merge_ext_partials_device"], st["calls"]["merge_ext_partials"])
+              for st in stats]
+    if any(host for _, host in merges):
+        raise AssertionError(f"phase {phase}({tag}) took the host merge: {merges}")
+    if any(device for device, _ in merges):
+        log(f"phase{phase}{tag} extension merges per rank (device, host): {merges}")
 
 
 def run_spawned(workdir, phase: int, spawns: dict, inputs: dict, ext_ref, ext_rows,
@@ -2811,7 +3027,7 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
              CORE_KERNELS),
             ("d", "count_reads_sharded_ext_streaming, routing supermer, 2^24 bases in "
              "batches of 2^22", "count_reads_sharded_ext_streaming", "sub", ext,
-             (EXT_STREAM_BATCH,), rid0, ext_sub_one_shot, CORE_KERNELS),
+             (EXT_STREAM_BATCH,), rid0, ext_sub_one_shot, CORE_KERNELS + STREAMING_KERNELS),
             ("e", "count_reads_sharded_streaming, routing supermer, 2^26 bases in "
              "batches of 2^24", "count_reads_sharded_streaming", "all", sm,
              (STREAM_BATCH,), {}, one_shot, stream_needed),
@@ -2819,6 +3035,7 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
     }
 
     def check(tag, stats):
+        no_host_merge(11, tag, stats)
         if any(st["calls"]["_supermer_step"] < 1 for st in stats):
             raise AssertionError(f"phase 11({tag}) did not take the supermer step")
         if tag == "c" and any(st["calls"]["heavy_precount"] != 1 for st in stats):
@@ -2954,7 +3171,8 @@ def phase12_multiprocess(workdir: str, one_shot, ext_one_shot) -> None:
         ht.KmerList(ext_kl.keys, ext_kl.counts, K)).splitlines())
     phase12_run("d", f"extension mode streamed in batches of {STREAM_BATCH}", fasta,
                 workdir, 2, ["--extension", "--stream-batch-bases", str(STREAM_BATCH)],
-                want_ext, writer.format_histogram(ext_hist), range_kernels, "gloo")
+                want_ext, writer.format_histogram(ext_hist), range_kernels + STREAMING_KERNELS,
+                "gloo")
     log(f"phase12 {time.perf_counter() - t_phase:.1f} s")
 
 

@@ -236,7 +236,7 @@ def _run(args, p, cfg, sharded: bool, multiproc: bool) -> int:
             return result
         if args.extension and batch:
             # Bounded-memory EXT: per-batch unfiltered occurrence partials
-            # merged on the host.
+            # held and merged on the device.
             if sharded:
                 return sharded_pipeline.count_reads_sharded_ext_streaming(
                     codes, lengths, cfg, batch, device=dev)

@@ -6,7 +6,8 @@ on the W-word key space whose top bits are uniform (full avalanche). Then
 the destination of a key is a range of mixed[0], a monotone function of the
 sort order, so one local sort orders the keys and groups the destinations
 into contiguous segments; equal mixed keys are equal keys, so counting in
-mixed space is exact; the compacted results are un-mixed on the host.
+mixed space is exact; the compacted results are un-mixed where they lie
+(`unmix_keys`, plain PyTorch on any device).
 
 M is a cyclic Feistel-style network of murmur3 fmix32 steps
 (w[i] = fmix32(w[i] + w[(i+1) % W] + C)), finished with a constant XOR that
@@ -16,8 +17,9 @@ they are.
 
 On a CUDA tensor `mix_keys` launches the hand-written kernel of
 csrc/mixkey.cu (in the JAX package the mix is XLA code, no Pallas kernel);
-on a CPU tensor it runs the plain version, `mix_keys_plain`. The numpy
-functions are the host side (the inverse) and are copied from the JAX
+on a CPU tensor it runs the plain version, `mix_keys_plain`. The inverse,
+`unmix_keys`, is elementwise int64 arithmetic masked to 32 bits (the JAX
+package unmixes in numpy). The numpy functions are copied from the JAX
 module as they are.
 """
 
@@ -130,6 +132,34 @@ def mix_keys_plain(words: Sequence[torch.Tensor]) -> list[torch.Tensor]:
                     (w[i] + w[(i + 1) % W] + c) & 0xFFFFFFFF
                 )
     return [narrow(x ^ fix[i]) for i, x in enumerate(w)]
+
+
+def _fmix32_inv_wide(h: torch.Tensor) -> torch.Tensor:
+    """The inverse of hashes.fmix32_wide, on int64 values in [0, 2^32)."""
+    h = h ^ (h >> 16)
+    h = hashes.mul32(h, int(_INV_C2))
+    h = h ^ (h >> 13) ^ (h >> 26)
+    h = hashes.mul32(h, int(_INV_C1))
+    return h ^ (h >> 16)
+
+
+def unmix_keys(words: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The inverse of mix_keys in plain PyTorch, on any device: W (N,) int32
+    mixed words -> W int32 canonical words, new tensors (unmix_keys_np on
+    the tensors' device; the sentinel stays the sentinel)."""
+    W = len(words)
+    if not 1 <= W <= MAX_WORDS:
+        raise ValueError(f"need 1..{MAX_WORDS} words, got {W}")
+    fix = _sentinel_fix(W)
+    w = [widen(x) ^ fix[i] for i, x in enumerate(words)]
+    for r in range(_ROUNDS - 1, -1, -1):
+        for i in range(W - 1, -1, -1):
+            c = _RC[r * W + i]
+            if W == 1:
+                w[0] = (_fmix32_inv_wide(w[0]) - c) & 0xFFFFFFFF
+            else:
+                w[i] = (_fmix32_inv_wide(w[i]) - w[(i + 1) % W] - c) & 0xFFFFFFFF
+    return [narrow(x) for x in w]
 
 
 def mix_keys(words: Sequence[torch.Tensor]) -> list[torch.Tensor]:

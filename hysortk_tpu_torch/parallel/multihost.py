@@ -41,7 +41,8 @@ import torch.distributed as dist
 
 from ..config import KmerConfig
 from ..io import fasta as fasta_io
-from ..pipeline import KmerList, KmerListExt, merge_ext_partials, resolve_device
+from ..pipeline import KmerList, KmerListExt, resolve_device
+from ..runtime.scheduler import ExtPartialStore
 from ..runtime.timer import stage
 from . import group as group_mod
 from . import pipeline as sharded
@@ -212,9 +213,8 @@ def count_fasta_multihost_ext(
                                                              device)
     codes, lengths, rid_offset = read_my_records(fasta_path, group)
     dev = group_mod.rank_device(device)
-    rows, occ = sharded._count_rank_ext(codes, lengths, cfg, group, dev, rid_offset,
-                                        (0, 1))
-    return _with_global_histogram(sharded._ext_list(rows, occ, cfg.k), cfg, group, dev)
+    part = sharded._count_rank_ext(codes, lengths, cfg, group, dev, rid_offset, (0, 1))
+    return _with_global_histogram(sharded._ext_list(part, cfg.k), cfg, group, dev)
 
 
 def count_fasta_multihost_ext_streaming(
@@ -224,9 +224,11 @@ def count_fasta_multihost_ext_streaming(
     """Bounded-memory multi-process extension mode: each rank streams its
     own records in batches of batch_bases (the batch count agreed by
     all-reduce MAX), each batch counted unfiltered with read ids advanced
-    by the batches before it, and merges its own partials on the host
-    (merge_ext_partials, [L, U] on the merged totals). routing="supermer"
-    goes to the supermer stream in extension mode.
+    by the batches before it; its own partials stay on its device and merge
+    there once (runtime/scheduler.ExtPartialStore, [L, U] on the merged
+    totals; the merge runs no collective, so a rank that drains to the host
+    keeps in step). routing="supermer" goes to the supermer stream in
+    extension mode.
 
     Returns this rank's KmerListExt and the global histogram."""
     cfg = _extension(cfg)
@@ -239,13 +241,13 @@ def count_fasta_multihost_ext_streaming(
     dev = group_mod.rank_device(device)
     cfg_pre = dataclasses.replace(cfg, unfiltered=True)
     min_dims = sharded.ext_stream_dims(lengths, batch_bases, cfg, 1)
-    partials = [
-        sharded._ext_list(*sharded._count_rank_ext(b_codes, b_lengths, cfg_pre, group, dev,
-                                                   rid, min_dims), cfg.k)
-        for b_codes, b_lengths, rid in sharded._own_batches(codes, lengths, batch_bases,
-                                                            dev, group, first)]
+    store = ExtPartialStore(cfg, dev)
+    for b_codes, b_lengths, rid in sharded._own_batches(codes, lengths, batch_bases, dev,
+                                                        group, first):
+        store.add(sharded._count_rank_ext(b_codes, b_lengths, cfg_pre, group, dev, rid,
+                                          min_dims))
     with stage("merge", dev):
-        merged = merge_ext_partials(partials, cfg.lower, cfg.upper, cfg.k, cfg.words)
+        merged, _ = store.result()
     return _with_global_histogram(merged, cfg, group, dev)
 
 

@@ -16,7 +16,7 @@ The default route is the range exchange; per step, on every rank:
   wire decode -> key build -> mix (ops/mixkey.py) -> ONE local sort
   -> contiguous per-destination segments -> all_to_all_single
   -> run merge of the S received runs -> count + [L,U] filter
-  -> compact -> unmix on the host -> all ranks' lists gathered
+  -> compact -> unmix on the device -> all ranks' lists gathered
 
 Because the mixed sort key doubles as the routing key, a step costs one
 local sort plus a merge of the S received sorted runs. The ownership rule:
@@ -78,14 +78,15 @@ from ..ops import run_length_sum
 from ..ops import wire
 from ..ops.kmer import widen
 from ..pipeline import (
+    ExtPartial,
     KmerList,
     KmerListExt,
     feed_wire,
     host_histogram,
-    kept_occurrences,
-    merge_ext_partials,
+    kept_partial,
+    to_host,
 )
-from ..runtime.scheduler import iter_read_batches, read_batch_spans
+from ..runtime.scheduler import ExtPartialStore, iter_read_batches, read_batch_spans
 from ..runtime.timer import stage
 from . import dispatch
 from . import exchange
@@ -480,8 +481,15 @@ def _count_step(codes, valid, cfg: KmerConfig, n_local: int, group):
 
 
 def _all_gather_rows(rows: torch.Tensor, group) -> list[torch.Tensor]:
-    """Every rank's (m_r, C) int32 rows, in rank order, on the host: the
-    sizes first, then one all_gather of rows padded to the largest."""
+    """Every rank's (m_r, C) int32 rows, in rank order, on the host
+    (_gather_rows, copied out)."""
+    return [p.cpu() for p in _gather_rows(rows, group)]
+
+
+def _gather_rows(rows: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every rank's (m_r, C) int32 rows, in rank order, where `rows` lies
+    (the collective's device): the sizes first, then one all_gather of rows
+    padded to the largest."""
     num_shards = dist.get_world_size(group)
     size = torch.tensor([rows.shape[0]], dtype=torch.int64, device=rows.device)
     sizes = [torch.empty_like(size) for _ in range(num_shards)]
@@ -493,18 +501,25 @@ def _all_gather_rows(rows: torch.Tensor, group) -> list[torch.Tensor]:
     padded[: rows.shape[0]] = rows
     parts = [torch.empty_like(padded) for _ in range(num_shards)]
     dist.all_gather(parts, padded, group=group)
-    return [p[:m].cpu() for p, m in zip(parts, sizes)]
+    return [p[:m] for p, m in zip(parts, sizes)]
+
+
+def _unmixed(keys: torch.Tensor, mixed: bool) -> torch.Tensor:
+    """(m, W) int32 key rows, unmixed where they lie (mixkey.unmix_keys)
+    if they are in the mixed key space (range routing)."""
+    if not mixed:
+        return keys
+    return torch.stack(mixkey.unmix_keys(keys.unbind(1)), dim=1)
 
 
 def _rank_rows(keys_dev, mixed: bool) -> np.ndarray:
     """(m, W) int32 key rows on the device -> (m, W) uint32 host keys,
-    unmixed where they are in the mixed key space (range routing)."""
-    keys = keys_dev.cpu().numpy().view(np.uint32)
-    return mixkey.unmix_keys_np(keys) if mixed else keys
+    unmixed on the device first where they are mixed (_unmixed)."""
+    return to_host(_unmixed(keys_dev, mixed)).view(np.uint32)
 
 
 def _rank_list(words, cnt, keep, cfg: KmerConfig, mixed: bool) -> KmerList:
-    """The rank's kept rows as its KmerList, keys unmixed on the host where
+    """The rank's kept rows as its KmerList, keys unmixed on the device where
     `mixed` (range routing)."""
     with stage("result", keep.device):
         idx = torch.nonzero(keep).squeeze(1)
@@ -974,39 +989,38 @@ def ext_stream_dims(
     return -(-max_raw // gran) * gran, max_lmax
 
 
-def _ext_rows(words, cnt, keep, rid_s, pos_s, mixed: bool):
-    """The rank's kept keys (unmixed on the host where `mixed`) and counts
-    as (m, W + 1) int32 host rows, and their occurrences, gathered on the
-    device, as (n, 2) int32 (rid, pos) rows there."""
+def _ext_rows(words, cnt, keep, rid_s, pos_s, mixed: bool) -> ExtPartial:
+    """The rank's kept keys and counts and their occurrences as an
+    ExtPartial on the device (kept_partial), keys unmixed there where
+    `mixed` (its rows then stay in mixed-key order, not ascending)."""
     with stage("result", keep.device):
-        starts, counts, rid, pos = kept_occurrences(cnt, keep, rid_s, pos_s)
-        keys = _rank_rows(torch.stack([w[starts] for w in words], dim=-1), mixed)
-        rows = np.concatenate(
-            [keys.view(np.int32), counts.to(torch.int32).cpu().numpy()[:, None]], axis=1)
-        return rows, torch.stack([rid, pos], dim=1)
+        part, _ = kept_partial(words, cnt, keep, rid_s, pos_s)
+        return dataclasses.replace(part, keys=_unmixed(part.keys, mixed),
+                                   ascending=not mixed)
 
 
-def _ext_list(rows: np.ndarray, occ: torch.Tensor, k: int) -> KmerListExt:
-    """(key words, count) rows and their (rid, pos) occurrence rows, in the
-    same order, as one KmerListExt over flat occurrences (the counts'
-    prefix sums are its offsets)."""
+def _ext_list(part: ExtPartial, k: int) -> KmerListExt:
+    """A partial's rows and occurrences, in its order, as a host KmerListExt
+    (one `to_host` an array; the counts' prefix sums are its offsets)."""
     with stage("result"):
-        occ = occ.cpu().numpy()
-        return KmerListExt.from_flat(
-            np.ascontiguousarray(rows[:, :-1]).view(np.uint32),
-            np.ascontiguousarray(rows[:, -1]), k,
-            np.ascontiguousarray(occ[:, 0]),
-            np.ascontiguousarray(occ[:, 1]).view(np.uint32))
+        return part.to_host(k)
 
 
-def _gather_ext(rows: np.ndarray, occ: torch.Tensor, k: int, group, dev) -> KmerListExt:
+def _gather_ext(part: ExtPartial, group, dev) -> ExtPartial:
     """Every rank's _ext_rows in rank order (two all_gathers), as one
-    KmerListExt on every rank."""
+    ExtPartial where the collectives leave it: on this rank's card under
+    NCCL, on the host under gloo (a stream's ExtPartialStore uploads it
+    once, a one-shot result needs no copy out)."""
     cdev = group_mod.collective_device(dev, group)
     with stage("result", dev):
-        rows = torch.cat(_all_gather_rows(torch.from_numpy(rows).to(cdev), group)).numpy()
-        occ = torch.cat(_all_gather_rows(occ.to(cdev), group))
-    return _ext_list(rows, occ, k)
+        rows = torch.cat([part.keys, part.counts[:, None]], dim=1).to(cdev)
+        occ = torch.stack([part.occ_rid, part.occ_pos], dim=1).to(cdev)
+        rows = torch.cat(_gather_rows(rows, group))
+        occ = torch.cat(_gather_rows(occ, group))
+    one_rank = dist.get_world_size(group) == 1
+    return ExtPartial(rows[:, :-1].contiguous(), rows[:, -1].contiguous(),
+                      occ[:, 0].contiguous(), occ[:, 1].contiguous(),
+                      ascending=part.ascending and one_rank)
 
 
 def count_reads_sharded_ext(
@@ -1025,22 +1039,37 @@ def count_reads_sharded_ext(
     package feeds the bucketed routings flat blocks (build_ext_blocks),
     which gives the same result. min_dims pins
     (block_len, lmax) from below (the streaming caller's ext_stream_dims).
-    Every rank returns the whole (KmerListExt, histogram).
+    Every rank returns the whole (KmerListExt, histogram), copied out of
+    the gathered tensors once (_ext_list).
     routing="supermer" goes to supermer_route.count_reads_supermer_ext."""
     if cfg.routing == "supermer":
         from . import supermer_route
 
         return supermer_route.count_reads_supermer_ext(
             codes, lengths, cfg, group, device, read_id_offset, min_dims)
-    dev = group_mod.rank_device(device)
-    mine, lens, first = _rank_share(codes, lengths, group)
-    kl = _gather_ext(*_count_rank_ext(mine, lens, cfg, group, dev, read_id_offset + first,
-                                      min_dims), cfg.k, group, dev)
+    kl = _ext_list(_sharded_ext_partial(codes, lengths, cfg, group, device,
+                                        read_id_offset, min_dims), cfg.k)
     return kl, host_histogram(kl.counts, cfg.upper)
 
 
+def _sharded_ext_partial(codes, lengths, cfg: KmerConfig, group, device,
+                         read_id_offset: int, min_dims) -> ExtPartial:
+    """count_reads_sharded_ext's list before it becomes a host list: every
+    rank's rows in rank order (_gather_ext; the supermer route's through
+    supermer_route.supermer_ext_partial)."""
+    if cfg.routing == "supermer":
+        from . import supermer_route
+
+        return supermer_route.supermer_ext_partial(codes, lengths, cfg, group, device,
+                                                   read_id_offset, min_dims)
+    dev = group_mod.rank_device(device)
+    mine, lens, first = _rank_share(codes, lengths, group)
+    return _gather_ext(_count_rank_ext(mine, lens, cfg, group, dev, read_id_offset + first,
+                                       min_dims), group, dev)
+
+
 def _count_rank_ext(codes, lengths, cfg: KmerConfig, group, dev, read_id_offset: int,
-                    min_dims):
+                    min_dims) -> ExtPartial:
     """Extension mode on the rank's own reads, read ids from read_id_offset
     (every routing but supermer): its block over the wire, (rid, pos)
     derived on the device from the read lengths; its share as _ext_rows."""
@@ -1075,22 +1104,23 @@ def count_reads_sharded_ext_streaming(
 ) -> tuple[KmerListExt, np.ndarray]:
     """Bounded-memory extension mode across the ranks: each batch runs the
     sharded extension pass UNFILTERED, and the per-batch (key, count,
-    occurrences) partials merge on the host ([L, U] applies to the merged
-    totals only): the reference's bounded round loop, where nothing in the
+    occurrences) partials stay on the rank's device and merge there once
+    (runtime/scheduler.ExtPartialStore; [L, U] applies to the merged totals
+    only): the reference's bounded round loop, where nothing in the
     exchange is EXT-conditional (src/kmerops.cpp:906-1007). Every batch's
-    whole list is gathered before the merge: under routing="supermer" each
-    batch plans its own assignment, so a key's owner can change between
-    batches."""
+    whole list is gathered before the merge (_sharded_ext_partial, sorted
+    by key as it is held): under routing="supermer" each batch plans its own
+    assignment, so a key's owner can change between batches. The merge
+    runs no collective, so a rank that drains to the host keeps in step."""
     cfg_pre = dataclasses.replace(cfg, unfiltered=True)
     min_dims = ext_stream_dims(lengths, batch_bases, cfg,
                                dist.get_world_size(group))
-    partials = []
+    dev = group_mod.rank_device(device)
+    store = ExtPartialStore(cfg, dev)
     rid_off = read_id_offset
     for b_codes, b_lengths in iter_read_batches(codes, lengths, batch_bases):
-        kl, _ = count_reads_sharded_ext(b_codes, b_lengths, cfg_pre, group, device,
-                                        rid_off, min_dims)
-        partials.append(kl)
+        store.add(_sharded_ext_partial(b_codes, b_lengths, cfg_pre, group, device,
+                                       rid_off, min_dims))
         rid_off += b_lengths.size
-    with stage("merge"):
-        merged = merge_ext_partials(partials, cfg.lower, cfg.upper, cfg.k, cfg.words)
-    return merged, host_histogram(merged.counts, cfg.upper)
+    with stage("merge", dev):
+        return store.result()

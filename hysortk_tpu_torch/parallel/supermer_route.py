@@ -78,7 +78,8 @@ from ..config import KmerConfig
 from ..io import fasta as fasta_io
 from ..io import supermer as supermer_io
 from ..ops import keybuild, minimizer, radix_sort, wire
-from ..pipeline import KmerList, host_histogram, merge_ext_partials, resolve_device
+from ..pipeline import KmerList, host_histogram, resolve_device
+from ..runtime.scheduler import ExtPartialStore
 from ..runtime.timer import stage
 from . import dispatch, exchange
 from . import group as group_mod
@@ -428,9 +429,21 @@ def _supermer_step(codes, lengths, cfg: KmerConfig, group, dev, *, assign=None,
 
 
 def _step_ext_rows(step: _Step):
-    """An extension-mode step's kept rows and occurrences
-    (parallel/pipeline._ext_rows)."""
+    """An extension-mode step's kept rows and occurrences, an ascending
+    ExtPartial on the device (parallel/pipeline._ext_rows)."""
     return sharded._ext_rows(step.words, step.cnt, step.keep, *step.payloads, False)
+
+
+def supermer_ext_partial(codes, lengths, cfg: KmerConfig, group, device,
+                         read_id_offset: int = 0, min_dims=(0, 1)):
+    """Extension mode on the global reads: the rank's share through one
+    step, then every rank's rows in rank order as one ExtPartial
+    (parallel/pipeline._gather_ext)."""
+    dev = group_mod.rank_device(device)
+    mine, lens, first = sharded._rank_share(codes, lengths, group)
+    step = _supermer_step(mine, lens, cfg, group, dev,
+                          read_id_offset=read_id_offset + first, min_dims=min_dims)
+    return sharded._gather_ext(_step_ext_rows(step), group, dev)
 
 
 def _supermer_one_shot(codes, lengths, cfg: KmerConfig, group, device,
@@ -438,13 +451,14 @@ def _supermer_one_shot(codes, lengths, cfg: KmerConfig, group, device,
     """The one-shot entries on the global reads: the rank's share through
     one step, then every rank's list in rank order (the heavy entries after
     it, as one ascending list) and its histogram, on every rank."""
+    if cfg.extension:
+        kmerlist = sharded._ext_list(supermer_ext_partial(
+            codes, lengths, cfg, group, device, read_id_offset, min_dims), cfg.k)
+        return kmerlist, host_histogram(kmerlist.counts, cfg.upper)
     dev = group_mod.rank_device(device)
     mine, lens, first = sharded._rank_share(codes, lengths, group)
     step = _supermer_step(mine, lens, cfg, group, dev,
                           read_id_offset=read_id_offset + first, min_dims=min_dims)
-    if cfg.extension:
-        kmerlist = sharded._gather_ext(*_step_ext_rows(step), cfg.k, group, dev)
-        return kmerlist, host_histogram(kmerlist.counts, cfg.upper)
     kmerlist = sharded._gather_list(
         sharded._rank_list(step.words, step.cnt, step.keep, cfg, False), group, dev)
     if step.heavy is not None:
@@ -615,7 +629,7 @@ def count_fasta_multihost_supermer(fasta_path: str, cfg: KmerConfig, group=None,
     dev = group_mod.rank_device(device)
     step = _supermer_step(codes, lengths, cfg, group, dev, read_id_offset=rid_offset)
     if cfg.extension:
-        kmerlist = sharded._ext_list(*_step_ext_rows(step), cfg.k)
+        kmerlist = sharded._ext_list(_step_ext_rows(step), cfg.k)
     else:
         kmerlist = sharded._rank_list(step.words, step.cnt, step.keep, cfg, False)
         if step.heavy is not None:  # the rank's own entries, after its list
@@ -655,8 +669,9 @@ def _multihost_supermer_ext_streaming(fasta_path: str, cfg: KmerConfig,
     """Bounded-memory extension-mode supermer routing across processes: each
     batch of the process's own reads ships supermer segments with their
     {len, pos, rid} run headers and counts UNFILTERED on the owner; the
-    rank's per-batch occurrence partials merge on the host under the global
-    [L, U] (merge_ext_partials). The assignment is fixed on batch 0, so a
+    rank's per-batch occurrence partials stay on its device and merge there
+    once under the global [L, U] (runtime/scheduler.ExtPartialStore). The
+    assignment is fixed on batch 0, so a
     key keeps its owner across batches; read ids count from the process's
     first record and each batch advances them by its reads. No classifier,
     as in the one-shot extension mode.
@@ -669,15 +684,15 @@ def _multihost_supermer_ext_streaming(fasta_path: str, cfg: KmerConfig,
     cfg_pre = dataclasses.replace(cfg, unfiltered=True)
     assign = None
     dims = (0, 1)
-    partials = []
+    store = ExtPartialStore(cfg, dev)
     for b_codes, b_lengths, rid in sharded._own_batches(codes, lengths, batch_bases, dev,
                                                         group, first):
         step = _supermer_step(b_codes, b_lengths, cfg_pre, group, dev, assign=assign,
                               read_id_offset=rid, min_dims=dims)
         assign = step.assign
         dims = tuple(max(a, b) for a, b in zip(dims, step.dims))
-        partials.append(sharded._ext_list(*_step_ext_rows(step), cfg.k))
+        store.add(_step_ext_rows(step))
         del step
     with stage("merge", dev):
-        merged = merge_ext_partials(partials, cfg.lower, cfg.upper, cfg.k, cfg.words)
+        merged, _ = store.result()
     return merged, sharded._global_histogram(merged.counts, cfg.upper, dev, group)

@@ -30,11 +30,14 @@ import torch
 
 from .config import KmerConfig
 from .io.fasta import segment_positions
+from .ops import count as count_ops
 from .ops import fused_count
 from .ops import fused_sort
 from .ops import keybuild
 from .ops import kmer as kmer_ops
+from .ops import merge as merge_ops
 from .ops import radix_sort
+from .ops import run_length_sum
 from .ops import wire
 
 
@@ -493,48 +496,46 @@ def split_occurrences(
     ]
 
 
+def gather_runs(starts: torch.Tensor, lengths: torch.Tensor, *arrays: torch.Tensor
+                ) -> list[torch.Tensor]:
+    """The runs a[starts[j]:starts[j] + lengths[j]] of each array, laid end
+    to end in j order, by one index gather an array (starts and lengths
+    int64, on the arrays' device; one device sync for the total)."""
+    ends = torch.cumsum(lengths, 0)
+    total = int(ends[-1]) if lengths.shape[0] else 0
+    # Element j of the runs laid end to end sits at starts[run] + (j - the
+    # first j of the run).
+    slot = torch.repeat_interleave(starts - (ends - lengths), lengths, output_size=total)
+    slot += torch.arange(total, device=slot.device)
+    return [a[slot] for a in arrays]
+
+
 def kept_occurrences(cnt, keep, rid_s, pos_s):
     """The kept runs of the extension step's sorted outputs, gathered on the
     device: (starts, counts int64, rid, pos), the occurrences of the kept
     runs laid end to end in run order."""
     starts = torch.nonzero(keep).squeeze(1)
     counts = cnt[starts].to(torch.int64)
-    ends = torch.cumsum(counts, 0)
-    total = int(ends[-1]) if counts.shape[0] else 0
-    # Occurrence j of the kept runs, laid end to end, sits at sorted slot
-    # starts[run] + (j - first j of the run).
-    slot = torch.arange(total, device=keep.device) + torch.repeat_interleave(
-        starts - (ends - counts), counts, output_size=total
-    )
-    return starts, counts, rid_s[slot], pos_s[slot]
+    return (starts, counts, *gather_runs(starts, counts, rid_s, pos_s))
 
 
-def _ext_list(words, kept, k: int) -> KmerListExt:
-    """The kept runs' keys and counts, and their occurrences gathered end to
-    end (kept_occurrences' output), as the list's flat storage: only those
-    cross to the host (`to_host`), into arrays the list owns."""
-    starts, counts, rid, pos = kept
+def kept_partial(words, cnt, keep, rid_s, pos_s) -> tuple["ExtPartial", torch.Tensor]:
+    """The kept runs of the extension step's sorted outputs as an ExtPartial
+    on the device: their keys and counts, and their occurrences gathered
+    end to end (kept_occurrences; the JAX package copies both whole streams
+    and slices them on the host); and the kept runs' slots."""
+    starts, counts, rid, pos = kept_occurrences(cnt, keep, rid_s, pos_s)
     keys = torch.stack([w[starts] for w in words], dim=-1)
-    return KmerListExt.from_flat(
-        to_host(keys).view(np.uint32), to_host(counts.to(torch.int32)), k,
-        to_host(rid), to_host(pos).view(np.uint32),
-    )
-
-
-def assemble_ext_result(words, cnt, keep, rid_s, pos_s, cfg: KmerConfig) -> KmerListExt:
-    """Assembly of the extension step's device outputs: the kept keys and
-    counts, and the kept runs' occurrences, gathered end to end on the
-    device (kept_occurrences); the JAX package copies both whole streams
-    and slices them on the host."""
-    return _ext_list(words, kept_occurrences(cnt, keep, rid_s, pos_s), cfg.k)
+    return ExtPartial(keys, counts.to(torch.int32), rid, pos), starts
 
 
 def ext_result(words, cnt, keep, rid_s, pos_s, cfg: KmerConfig
                ) -> tuple[KmerListExt, np.ndarray]:
-    """`assemble_ext_result` and the histogram of the kept counts over [0,
+    """The kept runs (kept_partial), crossing to the host at their final
+    size (ExtPartial.to_host), and the histogram of the kept counts over [0,
     cfg.upper], computed on the device (device_histogram)."""
-    kept = kept_occurrences(cnt, keep, rid_s, pos_s)
-    return _ext_list(words, kept, cfg.k), device_histogram(cnt, kept[0], cfg.upper)
+    part, starts = kept_partial(words, cnt, keep, rid_s, pos_s)
+    return part.to_host(cfg.k), device_histogram(cnt, starts, cfg.upper)
 
 
 def count_flat_ext(
@@ -652,3 +653,140 @@ def merge_ext_partials(
         all_keys[order[group_starts[keep]]], totals[keep].astype(np.int32), k,
         flat_rid[gather_idx], flat_pos[gather_idx], offsets,
     )
+
+
+# --------------------------------------------------------------------------
+# Extension-mode partials held on the device, and their merge there.
+
+
+@dataclasses.dataclass
+class ExtPartial:
+    """One batch's unfiltered extension-mode partial on its device: distinct
+    keys (m, W) int32 (uint32 bit patterns), their counts (m,) int32, and
+    every occurrence as read ids and positions (n,) int32 (n = the counts'
+    sum), row j's counts[j] occurrences contiguous and in row order.
+    `ascending`: the rows are one run of keys in ascending unsigned order,
+    word 0 first, as the device merge takes them (`ascending_partial`)."""
+
+    keys: torch.Tensor
+    counts: torch.Tensor
+    occ_rid: torch.Tensor
+    occ_pos: torch.Tensor
+    ascending: bool = True
+
+    def __len__(self) -> int:
+        return int(self.keys.shape[0])
+
+    @property
+    def n_occ(self) -> int:
+        return int(self.occ_rid.shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.keys, self.counts, self.occ_rid, self.occ_pos))
+
+    def to(self, device) -> "ExtPartial":
+        """The partial on `device` (itself where it lies there)."""
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).to(device) for f in ("keys", "counts", "occ_rid", "occ_pos")})
+
+    def to_host(self, k: int) -> KmerListExt:
+        """The partial as a host KmerListExt: one `to_host` an array."""
+        return KmerListExt.from_flat(
+            to_host(self.keys).view(np.uint32), to_host(self.counts), k,
+            to_host(self.occ_rid), to_host(self.occ_pos).view(np.uint32))
+
+
+def ext_partial(words, cnt, keep, rid_s, pos_s) -> ExtPartial:
+    """The partial of an extension step run under UNFILTERED bounds, from its
+    sorted outputs. Every run but the sentinel's is kept there and the
+    sentinel sorts last, so the kept runs' occurrences laid end to end are
+    the first n_valid slots of rid_s / pos_s: copied as they are, with no
+    gather (kept_occurrences gives the same)."""
+    starts = kept_slots(keep)
+    counts = cnt[starts]
+    n_valid = int(counts.sum())
+    return ExtPartial(torch.stack([w[starts] for w in words], dim=-1), counts,
+                      rid_s[:n_valid].clone(), pos_s[:n_valid].clone())
+
+
+def ascending_partial(part: ExtPartial) -> ExtPartial:
+    """`part` with its rows in ascending key order: the radix sort
+    (ops/radix_sort.sort_words) of its key words with the counts and the row
+    index riding as payloads, then its occurrences laid out again in the new
+    row order (gather_runs). A partial already ascending is returned as it
+    is."""
+    if part.ascending or len(part) == 0:
+        return dataclasses.replace(part, ascending=True)
+    n_words = part.keys.shape[1]
+    row = torch.arange(len(part), dtype=torch.int32, device=part.keys.device)
+    words, (counts, row) = radix_sort.sort_words(
+        [part.keys[:, w].contiguous() for w in range(n_words)], [part.counts, row])
+    lengths = part.counts.to(torch.int64)
+    starts = (torch.cumsum(lengths, 0) - lengths)[row.to(torch.int64)]
+    rid, pos = gather_runs(starts, counts.to(torch.int64), part.occ_rid, part.occ_pos)
+    return ExtPartial(torch.stack(words, dim=-1), counts, rid, pos)
+
+
+def merge_ext_rows(parts: Sequence[ExtPartial]) -> tuple[list[torch.Tensor],
+                                                        torch.Tensor, torch.Tensor]:
+    """Step 1 of `merge_ext_partials_device`: the ascending partials' rows end
+    to end, merged by key at the partials' bounds (ops/merge.merge_runs_at)
+    with two payload rows, each row's count and the start of its
+    occurrences in the partials' occurrences end to end. Returns (W sorted
+    words, counts, starts), int32. The merge is stable: a key's rows come in
+    partial order."""
+    n_occ = sum(p.n_occ for p in parts)
+    if n_occ >= 2**31:
+        raise ValueError(f"extension merge takes fewer than 2^31 occurrences, got {n_occ}")
+    counts = torch.cat([p.counts for p in parts])
+    # Each partial's occurrences are its rows' runs in row order, so the
+    # exclusive prefix sum of the counts end to end is each row's start.
+    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    n_words = parts[0].keys.shape[1]
+    rows = [torch.cat([p.keys[:, w] for p in parts]) for w in range(n_words)]
+    bounds = np.concatenate([[0], np.cumsum([len(p) for p in parts])])
+    merged = merge_ops.merge_runs_at(rows + [counts, starts], n_words, bounds)
+    return merged[:n_words], merged[n_words], merged[n_words + 1]
+
+
+def gather_kept_ext(parts: Sequence[ExtPartial], words_s, counts_s, starts_s, head,
+                    total, keep) -> tuple[ExtPartial, torch.Tensor]:
+    """Step 3 of `merge_ext_partials_device`: the kept groups (keep, at their
+    heads) as one ascending partial, each group's rows' occurrences gathered
+    end to end from the partials' occurrences (gather_runs), and the kept
+    heads' slots."""
+    heads = kept_slots(keep)
+    group = torch.cumsum(head, 0) - 1  # the group of every row
+    rows = kept_slots(keep[kept_slots(head)][group])
+    rid, pos = gather_runs(
+        starts_s[rows].to(torch.int64), counts_s[rows].to(torch.int64),
+        torch.cat([p.occ_rid for p in parts]), torch.cat([p.occ_pos for p in parts]))
+    keys = torch.stack([w[heads] for w in words_s], dim=-1)
+    return ExtPartial(keys, total[heads], rid, pos), heads
+
+
+def merge_ext_partials_device(parts: Sequence[ExtPartial], cfg: KmerConfig
+                              ) -> tuple[KmerListExt, np.ndarray]:
+    """`merge_ext_partials` on the partials' device: equal keys' counts
+    summed and their occurrences laid end to end (in partial order), [L, U]
+    on the totals; the same keys, counts and occurrences in the same order.
+    The partials must be ascending (`ascending_partial`) and are not
+    modified. On the device: the run merge of their rows (merge_ext_rows),
+    the weighted run-length sum of the counts
+    (ops/run_length_sum.run_length_sum_fused) and the filter, one gather of
+    the kept groups' occurrences (gather_kept_ext); then only the result
+    crosses to the host, one `to_host` an array, with its histogram over
+    [0, cfg.upper] (device_histogram)."""
+    if not all(p.ascending for p in parts):
+        raise ValueError("the device merge takes ascending partials (ascending_partial)")
+    parts = [p for p in parts if len(p)]
+    if not parts:
+        return (KmerListExt(np.zeros((0, cfg.words), np.uint32), np.zeros(0, np.int32),
+                            cfg.k), np.zeros(cfg.upper + 1, np.int32))
+    words_s, counts_s, starts_s = merge_ext_rows(parts)
+    head, total = run_length_sum.run_length_sum_fused(words_s, counts_s)
+    keep = count_ops.frequency_filter(head, total, cfg.lower, cfg.upper)
+    merged, heads = gather_kept_ext(parts, words_s, counts_s, starts_s, head, total, keep)
+    return merged.to_host(cfg.k), device_histogram(total, heads, cfg.upper)

@@ -21,8 +21,11 @@ stay on the device as sorted sentinel-padded runs, folded together every
 `group` batches, and only the final filtered result crosses to the host.
 
 Extension mode streams the same batches (count_reads_streaming_ext): each
-runs the extension pipeline unfiltered and the per-batch (key, count,
-occurrences) partials merge on the host.
+runs the extension pipeline unfiltered, the per-batch (key, count,
+occurrences) partials stay on the device and merge there once
+(ExtPartialStore, shared with the sharded and multi-process extension
+streams), draining to the host merge only past the memory budget or on
+running out of device memory.
 """
 
 from __future__ import annotations
@@ -41,18 +44,21 @@ from ..ops import merge as merge_ops
 from ..ops import run_length_sum as sum_ops
 from ..pipeline import (
     UNFILTERED as _UNFILTERED,
+    ExtPartial,
     KmerList,
     KmerListExt,
     _count_device_ext_packed,
     _count_device_packed,
     _count_device_packed_compact,
-    assemble_ext_result,
+    ascending_partial,
     compact_keys,
+    ext_partial,
     feed_wire,
     host_histogram,
     kept_result,
     kept_slots,
     merge_ext_partials,
+    merge_ext_partials_device,
     pull_prefix,
     resolve_device,
     to_device,
@@ -153,6 +159,88 @@ def suggest_pipe_depth(
     return max(1, min(d, max_depth))
 
 
+# Device bytes that merge_ext_partials_device takes beyond the partials it
+# merges, per byte held (ExtPartialStore's budget): the rows' concatenation,
+# the run merge's output and ping-pong buffer, the sum's totals, the
+# occurrences' concatenation, the gather's int64 index and its output.
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 8(c)):
+# 3.57x at 2^26 bases in batches of 2^24 (678 MiB held), 3.99x at 2^24 in
+# batches of 2^22; 6 keeps a margin.
+EXT_MERGE_FACTOR = 6.0
+
+
+class ExtPartialStore:
+    """The per-batch extension-mode partials of one streamed call, held on
+    their device (pipeline.ExtPartial, made ascending as they arrive) and
+    merged there once (pipeline.merge_ext_partials_device).
+
+    The budget: a partial is held while EXT_MERGE_FACTOR x the bytes held
+    with it fits the device's headroom (memcheck.hbm_headroom_bytes, as
+    _consolidation_group_size sizes its group; no budget on the CPU) and
+    the occurrences held stay below 2^31. The drain: when a partial would
+    not fit, or the device merge raises torch.cuda.OutOfMemoryError
+    (nothing wider: a failed kernel build or launch ends the run), the held
+    partials go to the host (`to_host`), every later partial goes there
+    too, and the host merge (pipeline.merge_ext_partials) finishes, with a
+    logged warning. Nothing else takes the host merge."""
+
+    def __init__(self, cfg: KmerConfig, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.held: list[ExtPartial] = []
+        self.drained: list[KmerListExt] | None = None  # the host's, after a drain
+
+    def held_bytes(self) -> int:
+        return sum(p.nbytes for p in self.held)
+
+    def _fits(self, part: ExtPartial) -> bool:
+        if sum(p.n_occ for p in self.held) + part.n_occ >= 2**31:
+            return False
+        headroom = memcheck.hbm_headroom_bytes(self.device)
+        need = EXT_MERGE_FACTOR * (self.held_bytes() + part.nbytes)
+        return headroom is None or need <= headroom
+
+    def _drain(self) -> None:
+        t0 = time.perf_counter()
+        nbytes = self.held_bytes()
+        self.drained = (self.drained or []) + [p.to_host(self.cfg.k) for p in self.held]
+        self.held.clear()
+        _LOG.warning("extension partials drained to the host: %.1f MB in %.2fs; the "
+                     "host merge finishes", nbytes / 1e6, time.perf_counter() - t0)
+
+    def add(self, part: ExtPartial) -> None:
+        """Hold one batch's partial on the store's device (copied there where
+        it lies elsewhere, as a gloo gather leaves it; sorted first where it
+        is not ascending), or send it to the host after a drain."""
+        if self.drained is None:
+            part = part.to(self.device)
+            if not self._fits(part):
+                _LOG.warning("extension partials: %d held and the next would pass the "
+                             "device budget; draining to the host", len(self.held))
+                self._drain()
+        if self.drained is not None:
+            self.drained.append(part.to_host(self.cfg.k))
+        else:
+            self.held.append(ascending_partial(part))
+
+    def result(self) -> tuple[KmerListExt, np.ndarray]:
+        """The merged, filtered list and its histogram over [0, cfg.upper]."""
+        if self.drained is None:
+            try:
+                return merge_ext_partials_device(self.held, self.cfg)
+            except torch.cuda.OutOfMemoryError:
+                # The held partials are unmodified; the drain runs outside
+                # this handler, where the failed merge's frames are gone.
+                _LOG.warning("device merge of extension partials ran out of device "
+                             "memory; draining to the host")
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            self._drain()
+        merged = merge_ext_partials(self.drained, self.cfg.lower, self.cfg.upper,
+                                    self.cfg.k, self.cfg.words)
+        return merged, host_histogram(merged.counts, self.cfg.upper)
+
+
 def count_reads_streaming_ext(
     codes: np.ndarray,
     lengths: np.ndarray,
@@ -162,11 +250,13 @@ def count_reads_streaming_ext(
     device="cuda",
 ) -> tuple[KmerListExt, np.ndarray]:
     """Bounded-memory extension-mode counting on one device: each device
-    batch runs the extension pipeline UNFILTERED, and the per-batch (key,
-    count, occurrences) partials merge on the host with the [L, U] filter
+    batch runs the extension pipeline UNFILTERED, its (key, count,
+    occurrences) partial stays on the device (pipeline.ext_partial), and
+    the partials merge there once (ExtPartialStore) with the [L, U] filter
     applied to the merged totals only, the reference's EXT-indifferent
     bounded round loop (src/kmerops.cpp:906-1007). Peak device memory is set
-    by batch_bases. Read ids count from read_id_offset across the batches."""
+    by batch_bases and the held partials. Read ids count from
+    read_id_offset across the batches."""
     dev = resolve_device(device)
     snapped = snap_batch_to_pow2_flat(batch_bases, cfg.pad_multiple)
     if 0 < snapped <= batch_bases:
@@ -175,7 +265,7 @@ def count_reads_streaming_ext(
     spans = read_batch_spans(lengths, batch_bases)
     lmax = max((end - start for start, end in spans), default=1)
 
-    partials = []
+    store = ExtPartialStore(cfg, dev)
     rid_off = read_id_offset
     for b_codes, b_lengths in iter_read_batches(codes, lengths, batch_bases):
         # 2-bit wire feed; (rid, pos) are derived on the device from the
@@ -186,13 +276,10 @@ def count_reads_streaming_ext(
         packed, lens = feed_wire(b_codes, b_lengths, n, dev, max(lmax, 1))
         outs = _count_device_ext_packed(packed, lens, rid_off, cfg.k, n, *_UNFILTERED)
         del packed, lens
-        partials.append(assemble_ext_result(*outs, cfg))
+        store.add(ext_partial(*outs))
+        del outs
         rid_off += b_lengths.size
-
-    merged = merge_ext_partials(
-        partials, cfg.lower, cfg.upper, cfg.k, cfg.words
-    )
-    return merged, host_histogram(merged.counts, cfg.upper)
+    return store.result()
 
 
 def _consolidation_group_size(target: int, words: int, device) -> int:

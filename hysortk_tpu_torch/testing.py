@@ -802,23 +802,29 @@ def fill_meta_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int
 
 
 SUPERMER_COUNTED = ("_supermer_step", "heavy_precount")  # in supermer_route
+# The extension streams' device merge and host merge, as the scheduler's
+# ExtPartialStore calls them.
+SCHEDULER_COUNTED = ("merge_ext_partials_device", "merge_ext_partials")
 COUNTED = ("_shard_body_range", "_shard_body_range_combiner", "_shard_body_bucketed",
            "_shard_body_ext_range", "_shard_body_ext_bucketed", "count_reads_sharded",
-           "count_reads_sharded_ext", "count_reads_sharded_streaming", *SUPERMER_COUNTED)
+           "count_reads_sharded_ext", "count_reads_sharded_streaming", *SUPERMER_COUNTED,
+           *SCHEDULER_COUNTED)
 
 
 def call_counters(stack, pipeline_mod) -> dict:
     """Count the calls of the step bodies (the overflow retry and the
     combiner re-run show in them), of the sharded entries (the facade's
-    choice shows in them), and of the supermer route's step and heavy
-    pre-count."""
+    choice shows in them), of the supermer route's step and heavy
+    pre-count, and of the extension streams' device and host merges."""
     from unittest import mock
 
     from .parallel import supermer_route
+    from .runtime import scheduler
 
     calls = dict.fromkeys(COUNTED, 0)
     for name in calls:
-        mod = supermer_route if name in SUPERMER_COUNTED else pipeline_mod
+        mod = (supermer_route if name in SUPERMER_COUNTED
+               else scheduler if name in SCHEDULER_COUNTED else pipeline_mod)
         real = getattr(mod, name)
 
         def counted(*a, _real=real, _name=name, **k):

@@ -61,6 +61,7 @@ SCENARIOS = [
     ("stream", "random", BASE, STREAM, 700),
     ("ext", "random", EXT, EXT_ONE, None),
     ("ext_stream", "random", EXT, EXT_STREAM, 700),
+    ("ext_stream_kmer_hash", "random", dict(EXT, routing="kmer_hash"), EXT_STREAM, 700),
     ("supermer_heavy", "poly_a", SUPERMER, SM_ONE, None),
     ("supermer_stream_heavy", "poly_a", SUPERMER, SM_STREAM, 900),
     ("supermer_ext_stream", "random", dict(EXT, routing="supermer"), SM_STREAM, 700),
@@ -256,6 +257,9 @@ def test_multihost_matches_jax_per_rank(results, scenario, ws):
         assert sum(n for b, n in calls.items() if b.startswith("_shard_body")) == 0
     if "heavy" in name and kind.startswith(SM_ONE):
         assert calls["heavy_precount"] >= 1
+    if ext and kind in (EXT_STREAM, SM_STREAM):  # one merge, on the device
+        assert calls["merge_ext_partials_device"] == 1
+        assert calls["merge_ext_partials"] == 0
     if name.startswith("empty_rank"):  # one rank read no record
         records = [fasta.FaiRecord(str(i), len(r), 0, 60, 61)
                    for i, r in enumerate(_reads(reads_kind, ws))]

@@ -95,6 +95,13 @@ SCENARIOS = [
      dict(batch_bases=600)),
     ("ext_stream_k55", 2, "long", dict(K55, extension=True), SEXT_STREAM,
      dict(batch_bases=1500, read_id_offset=3)),
+    ("ext_stream_k15", 2, "random", dict(K15, extension=True), SEXT_STREAM,
+     dict(batch_bases=600)),
+    ("ext_stream_supermer", 2, "random", dict(EXT, routing="supermer"), SEXT_STREAM,
+     dict(batch_bases=600, read_id_offset=2)),
+    # A device budget of one byte: every partial drains to the host merge.
+    ("ext_stream_drain", 2, "random", EXT, SEXT_STREAM,
+     dict(batch_bases=600, headroom=1)),
     ("ext", 4, "random", EXT, SEXT, {}),
     ("ext_one_read", 4, "one_read", dict(EXT, lower=1, upper=10), SEXT, {}),
     ("ext_kmer_hash", 4, "random", dict(EXT, routing="kmer_hash"), SEXT, {}),
@@ -242,7 +249,9 @@ def test_sharded_route_matches_jax(port_results, scenario):
                                     "_shard_body_bucketed", "_shard_body_ext_range",
                                     "_shard_body_ext_bucketed")}
     ran = {b for b, n in bodies.items() if n}
-    if extension:
+    if fields.get("routing") == "supermer":
+        assert ran == set() and calls["_supermer_step"] >= 1
+    elif extension:
         assert ran == {"_shard_body_ext_range" if fields.get("routing", "range") == "range"
                        else "_shard_body_ext_bucketed"}
     elif fields.get("routing", "range") != "range":
@@ -250,6 +259,10 @@ def test_sharded_route_matches_jax(port_results, scenario):
     if kind == "kmer_count":  # the facade's choice
         assert calls[SEXT if extension else STREAM] == 1
         assert calls[ONE_SHOT] == 0
+    if kind == SEXT_STREAM:  # one merge, on the device unless it drained
+        drained = bool(opts.get("headroom"))
+        assert calls["merge_ext_partials_device"] == (not drained)
+        assert calls["merge_ext_partials"] == drained
     if name.endswith("overflow"):  # the capacity doubled and the pass re-ran
         assert sum(bodies.values()) > 1 + (kind == STREAM)
     if name in ("minimizer", "minimizer_combiner", "minimizer_skewed", "ext",

@@ -303,6 +303,8 @@ SCENARIOS = [
     ("stream_entry", 2, "poly_a", WIDE, "count_reads_supermer_streaming",
      dict(batch_bases=900)),
     ("ext_stream", 2, "random", EXT, SEXT_STREAM, dict(batch_bases=600, read_id_offset=7)),
+    ("ext_stream_k55", 2, "long", dict(K55, extension=True), SEXT_STREAM,
+     dict(batch_bases=1500, read_id_offset=1)),
     ("facade", 2, "poly_a", WIDE, "kmer_count", {}),
     ("facade_ext", 2, "random", EXT, "kmer_count", {}),
     ("balanced", 4, "random", SUPERMER, ONE_SHOT, {}),
@@ -462,6 +464,9 @@ def test_supermer_route_matches_jax(port_results, scenario):
         assert (want.keys[top, 0] >= 2**31) == (name == "heavy_top_bit")
     if kind == "kmer_count":  # the facade's choice
         assert calls[SEXT if fields.get("extension") else ONE_SHOT] == 1
+    if kind == SEXT_STREAM:  # the partials merged on the device, once
+        assert calls["merge_ext_partials_device"] == 1
+        assert calls["merge_ext_partials"] == 0
 
 
 def test_jax_reference_flags_late_skew_in_a_later_batch_only():

@@ -16,8 +16,8 @@ them (default 2^26). K=31, M=17, L=2, U=50.
 After one warm-up call each, R timed calls (default 7) of: kmer_count
 one-shot (count_reads); count_reads_streaming in batches of 2^24 with the
 partials held on the host (a) and under device_compact in batches of 2^22
-(b); kmer_count in extension mode. Every call after the first must equal
-the first. Prints the card's name and power limit, each entry's walls,
+(b); kmer_count in extension mode; count_reads_streaming_ext in batches
+of 2^24. Every call after the first must equal the first. Prints the card's name and power limit, each entry's walls,
 median and quartiles, and as its last line one JSON object.
 """
 
@@ -87,6 +87,9 @@ def main() -> int:
             device="cuda"),
         "ext_one_shot": lambda: ht.kmer_count(
             codes, lengths, dataclasses.replace(cfg, extension=True), device="cuda"),
+        "ext_stream": lambda: ht.count_reads_streaming_ext(
+            codes, lengths, dataclasses.replace(cfg, extension=True), 1 << 24,
+            device="cuda"),
     }
     out = {"tree": tree, "card": card, "bases": int(codes.size), "walls": {}}
     for name, run in entries.items():
