@@ -40,7 +40,8 @@ build/kernels/ at first use. Phases, each printing its findings:
      read_records) and again on the written .fai, each equal to the first;
      then the same count stage by stage with a synchronize after each, for
      the stage times (pack into pinned staging, which must be pinned; H2D;
-     decode; keybuild; sort; count; compaction + D2H; the device histogram,
+     decode; keybuild; sort; count; compaction + D2H, with the copy-out's
+     part; the device histogram,
      equal to host_histogram), each device stage also by CUDA events, and
      the device-busy share of the one-shot call (those events' sum over the
      best wall); then each of the host library's seven functions
@@ -72,7 +73,8 @@ build/kernels/ at first use. Phases, each printing its findings:
   8  extension mode ((ReadId, PosInRead) per occurrence): kmer_count with
      extension=True on phase 2's reads, with a sample of its occurrences
      read back from the reads; the same call stage by stage (wire pack +
-     H2D, device pipeline, gather + D2H + flat result, beside the former
+     H2D, device pipeline, gather + D2H + flat result with the copy-out's
+     part, beside the former
      host flatten, whose read ids and positions equal the device's), its
      device outputs equal to the plain composition on the same CUDA
      tensors; (c) count_reads_streaming_ext, its partials held and merged
@@ -151,10 +153,21 @@ build/kernels/ at first use. Phases, each printing its findings:
      times (read shard and its index part, pack, step, merge, result,
      write), its peak device memory and its kernels' launches
 
+Then the copy-out of results to the host (pipeline.to_host): the pinned
+footprint of the process after phases 2, 8 and 12 (the ring's, at or under
+its cap, and torch's whole pinned pool), and on phase 2's and 8(c)'s
+results, per array, the pinned D2H alone by CUDA events, the host copy
+into a touched, a fresh torch.empty, a fresh np.empty and a fresh
+MAP_POPULATE destination, a pinned allocation on a cache miss and the
+port's copy-out, then the whole result in one copy-out, and the port's
+copy-out against a ring of smaller pieces and the former copy-out in
+turns; the host's transparent huge page modes and thread counts.
+
 Any failure raises (exit code 1); a rank's failure fails its spawn. Without
-a CUDA device the script exits 1 before printing any result. The last three
-lines of standard output are the card's name and power limit, the
-per-kernel JSON record and {"ok": true, "device": {...}}.
+a CUDA device the script exits 1 before printing any result. The last four
+lines of standard output are the copy-out's JSON record, the card's name
+and power limit, the per-kernel JSON record and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -1349,6 +1362,28 @@ def phase2_host_functions(workdir: str, codes, lengths, one_shot) -> None:
         del got, want
 
 
+@contextlib.contextmanager
+def copy_out_clock():
+    """Yields a list that collects the host ms of every pipeline.to_host
+    call (the copy-out) made inside the block."""
+    from hysortk_tpu_torch import pipeline
+
+    real, spent = pipeline.to_host, []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            spent.append((time.perf_counter() - t0) * 1e3)
+
+    pipeline.to_host = timed
+    try:
+        yield spent
+    finally:
+        pipeline.to_host = real
+
+
 def phase2_stages(codes, lengths, cfg, best_wall: float) -> None:
     """The one-shot call stage by stage, a synchronize after each: each
     stage's host wall and, where it only queues device work, its device
@@ -1404,9 +1439,12 @@ def phase2_stages(codes, lengths, cfg, best_wall: float) -> None:
 
         def compaction():
             idx = pipeline.kept_slots(keep)
-            return pipeline.compact_keys(words, cnt, idx, cfg.k, cfg.upper), idx
+            with copy_out_clock() as copy_ms:
+                kl = pipeline.compact_keys(words, cnt, idx, cfg.k, cfg.upper)
+            return kl, idx, copy_ms
 
-        kl, idx = timed("compaction + D2H", compaction, on_device=False)
+        kl, idx, copy_ms = timed("compaction + D2H", compaction, on_device=False)
+        stages[-1] += f" (copy-out {sum(copy_ms):.1f})"
         before = pipeline.calls["device_histogram"]
         hist = timed("device histogram", lambda: pipeline.device_histogram(
             cnt, idx, cfg.upper))
@@ -1952,7 +1990,8 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
     t_device = time.perf_counter() - t0
     del packed, lens
     t0 = time.perf_counter()
-    assembled = pipeline.kept_partial(words, cnt, keep, rid_s, pos_s)[0].to_host(cfg.k)
+    with copy_out_clock() as copy_ms:
+        assembled = pipeline.kept_partial(words, cnt, keep, rid_s, pos_s)[0].to_host(cfg.k)
     t_assemble = time.perf_counter() - t0
     if not same_list(assembled, one_shot[0]):
         raise AssertionError("the assembled extension list differs from phase 2's")
@@ -1972,8 +2011,8 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
     del flat, valid, rid, pos, at
     log(f"phase8b stages of the one-shot extension call: wire pack + H2D "
         f"{t_wire:.4f} s, device pipeline (decode, key build, sort, count) "
-        f"{t_device:.4f} s, gather + D2H + flat result {t_assemble:.4f} s; the "
-        f"former host flatten alone {t_flatten:.4f} s")
+        f"{t_device:.4f} s, gather + D2H + flat result {t_assemble:.4f} s (copy-out "
+        f"{sum(copy_ms) / 1e3:.4f} s); the former host flatten alone {t_flatten:.4f} s")
     marked = keybuild.canonical_keys_plain(dev[0], dev[1], cfg.k)
     p_words, (p_rid, p_pos) = radix_sort.sort_words_plain(marked, dev[2:])
     p_cnt, p_keep = fused_count.run_length_count_filter_plain(
@@ -3176,6 +3215,201 @@ def phase12_multiprocess(workdir: str, one_shot, ext_one_shot) -> None:
     log(f"phase12 {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# The copy-out: where a result's time goes between the card and the host
+
+
+def empty_host_cache() -> bool:
+    """Return torch's cached pinned blocks to CUDA, so that the next pinned
+    allocation misses the cache; False where this torch has no such call."""
+    import torch
+
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            return True
+    return False
+
+
+def pinned_footprint() -> dict:
+    """The page-locked bytes of this process: the copy-out ring's blocks
+    against its cap, and torch's whole pinned pool (the ring, the feed's
+    staging blocks, the host-held merge's uploads, gloo's exchange
+    staging), where torch.cuda.host_memory_stats gives it."""
+    import torch
+
+    from hysortk_tpu_torch import pipeline
+
+    pool = getattr(torch.cuda, "host_memory_stats", lambda: {})()
+    return {"ring": pipeline.RING.nbytes, "cap": pipeline.RING.cap,
+            "torch_pinned_pool": pool.get("allocated_bytes.current")}
+
+
+def host_facts() -> dict:
+    """The host's transparent huge page modes and thread counts."""
+    import torch
+
+    thp = {}
+    for what in ("enabled", "defrag"):
+        try:
+            with open(f"/sys/kernel/mm/transparent_hugepage/{what}") as f:
+                thp[what] = f.read().strip()
+        except OSError as e:
+            thp[what] = f"unreadable: {e.strerror}"
+    return {"thp": thp, "cpu_count": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0)),
+            "torch_threads": torch.get_num_threads()}
+
+
+def _rate(nbytes: int, ms: float) -> dict:
+    return {"ms": round(ms, 4), "GB/s": round(nbytes / ms / 1e6, 3) if ms > 0 else None}
+
+
+def former_to_host(t):
+    """The copy-out before the ring (kept here for the turns below): the
+    whole array into one pinned block from torch's cache, a synchronous
+    D2H, then torch's host copy into a fresh torch.empty."""
+    import torch
+
+    stage = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    stage.copy_(t)
+    return torch.empty(t.shape, dtype=t.dtype).copy_(stage).numpy()
+
+
+def copy_out_breakdown(arrays: dict, reps: int = 3) -> dict:
+    """Where the copy-out of a result's arrays (name -> CUDA tensor) goes,
+    per array, the median of `reps` in ms and GB/s: (v) a pinned
+    allocation of the array's size when torch's pinned cache misses (one
+    run, after emptying it), (i) the D2H alone into that block by CUDA
+    events, (ii) the host copy from it into a destination already touched,
+    (iii) the same into a fresh torch.empty, (iv) into a fresh np.empty
+    (the ring's destination) and (vi) into a fresh anonymous mapping made
+    present by MAP_POPULATE, the mmap call included (fresh: each run's
+    destination is kept alive until all runs are done, so none reuses
+    another's pages), and the port's copy-out of the array alone
+    (pipeline.to_host); then the whole result in one copy-out, and the
+    same result by the port's copy-out, by a ring of 16 MiB pieces and by
+    the former copy-out (former_to_host, an array a call) in turns,
+    `2 * reps` each, every result dropped before the next, as a caller
+    drops it. Every copy is
+    checked equal to the array."""
+    import mmap
+
+    import torch
+
+    from hysortk_tpu_torch import pipeline
+
+    def median_ms(run):
+        times, kept = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kept.append(run())
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times)), kept
+
+    def populated(shape, dtype):
+        nbytes = max(1, int(np.prod(shape)) * np.dtype(dtype).itemsize)
+        region = mmap.mmap(-1, nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS
+                           | mmap.MAP_POPULATE)
+        return np.frombuffer(region, np.uint8)[:nbytes].view(dtype).reshape(shape)
+
+    out = {}
+    for name, t in arrays.items():
+        flat = t.reshape(-1)
+        nbytes = flat.numel() * flat.element_size()
+        want = flat.cpu().numpy()
+        row = {"bytes": nbytes, "dtype": str(flat.dtype).replace("torch.", "")}
+        missed = empty_host_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pinned = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        alloc_ms = (time.perf_counter() - t0) * 1e3
+        row["v_pinned_alloc"] = _rate(nbytes, alloc_ms) if missed else None
+        d2h = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            pinned.copy_(flat, non_blocking=True)
+            end.record()
+            end.synchronize()
+            d2h.append(start.elapsed_time(end))
+        row["i_d2h_pinned"] = _rate(nbytes, float(np.median(d2h)))
+        touched = torch.empty(flat.shape, dtype=flat.dtype)
+        touched.copy_(pinned)
+        ms, _ = median_ms(lambda: touched.copy_(pinned))
+        row["ii_host_copy_touched"] = _rate(nbytes, ms)
+        ms, kept = median_ms(lambda: torch.empty(flat.shape, dtype=flat.dtype).copy_(pinned))
+        row["iii_host_copy_fresh_torch_empty"] = _rate(nbytes, ms)
+        kept = [k.numpy() for k in kept + [touched]]
+        for what, empty in (("iv_host_copy_fresh_np_empty", np.empty),
+                            ("vi_host_copy_fresh_map_populate", populated)):
+            ms, got = median_ms(lambda: torch.from_numpy(
+                empty(tuple(flat.shape), want.dtype)).copy_(pinned).numpy())
+            row[what] = _rate(nbytes, ms)
+            kept += got
+        ms, got = median_ms(lambda: pipeline.to_host([t])[0].reshape(-1))
+        row["copy_out"] = _rate(nbytes, ms)
+        if not all(np.array_equal(k, want) for k in kept + got):
+            raise AssertionError(f"copy-out breakdown: {name} copied unequal")
+        del kept, got, touched, pinned
+        out[name] = row
+    total = sum(r["bytes"] for r in out.values())
+    tensors = list(arrays.values())
+    ms, kept = median_ms(lambda: pipeline.to_host(tensors))
+    del kept
+    small = pipeline.CopyRing(16 << 20)
+    runs = {"port": pipeline.to_host,
+            "ring of 16 MiB pieces": lambda ts: small.copy_out(ts, [None] * len(ts)),
+            "former": lambda ts: [former_to_host(x) for x in ts]}
+    turns = {who: [] for who in runs}
+    for turn in range(2 * reps):
+        for who in list(runs) if turn % 2 == 0 else list(runs)[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = runs[who](tensors)
+            turns[who].append((time.perf_counter() - t0) * 1e3)
+            del got
+    out["whole result, one copy-out"] = {
+        "bytes": total, "copy_out": _rate(total, ms),
+        "in_turns_ms": {who: {"median": round(float(np.median(v)), 4),
+                              "runs": [round(x, 4) for x in v]}
+                        for who, v in turns.items()}}
+    empty_host_cache()
+    return out
+
+
+def copy_out_phase(one_shot, ext_one_shot, footprints: dict) -> dict:
+    """The copy-out's breakdown (copy_out_breakdown) on phase 2's result
+    (key rows, counts narrowed to uint8 as compact_keys sends them) and
+    8(c)'s (keys, counts, read ids, positions; equal to 8(a)'s), uploaded
+    to the card as the device result was; the host's huge page modes and
+    threads; the pinned footprints after phases 2, 8 and 12, each at or
+    under the ring's cap."""
+    import torch
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    kl = one_shot[0]
+    phase2 = {"keys": card(kl.keys.view(np.int32)), "counts": card(kl.counts.astype(np.uint8))}
+    ext = ext_one_shot[0]
+    ext_arrays = {"keys": card(ext.keys.view(np.int32)), "counts": card(ext.counts),
+                  "occ_rid": card(ext.occ_rid), "occ_pos": card(ext.occ_pos.view(np.int32))}
+    for when, fp in footprints.items():
+        if fp["ring"] > fp["cap"]:
+            raise AssertionError(f"copy-out ring {when}: {fp['ring']} B pinned, over its "
+                                 f"cap of {fp['cap']} B")
+    record = {"copy_out": {
+        "host": host_facts(), "pinned_footprint": footprints,
+        "phase2": copy_out_breakdown(phase2), "phase8c": copy_out_breakdown(ext_arrays)}}
+    log(f"copy-out: ring {footprints['after phase 12']['cap']} B cap, pinned footprints "
+        f"{json.dumps(footprints)}; host {json.dumps(record['copy_out']['host'])}")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -3198,6 +3432,7 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch_root)
     try:
         codes, lengths, launches, one_shot, peak, best_wall = phase2_slice(workdir, rng)
+        footprints = {"after phase 2": pinned_footprint()}
         phase2_host_functions(workdir, codes, lengths, one_shot)
         torch.cuda.empty_cache()
         times = phase1_main_path(codes, lengths, errs)
@@ -3213,6 +3448,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         ext_one_shot, ext_sub_one_shot = phase8_extension(
             workdir, codes, lengths, one_shot, peak, fasta, reads, errs)
+        footprints["after phase 8"] = pinned_footprint()
         torch.cuda.empty_cache()
         sharded_launches, sub_one_shot, range_traffic = phase9_sharded(
             workdir, codes, lengths, one_shot)
@@ -3224,6 +3460,8 @@ def main() -> int:
                          range_traffic)
         torch.cuda.empty_cache()
         phase12_multiprocess(workdir, one_shot, ext_one_shot)
+        footprints["after phase 12"] = pinned_footprint()
+        copy_out = copy_out_phase(one_shot, ext_one_shot, footprints)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     times.update(stream_times)
@@ -3240,6 +3478,7 @@ def main() -> int:
         for name in KERNELS
     ]}
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    log(json.dumps(copy_out))
     log(smi)  # again beside the record: the card every number above ran on
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -84,6 +84,7 @@ from ..pipeline import (
     feed_wire,
     host_histogram,
     kept_partial,
+    narrow_counts,
     to_host,
 )
 from ..runtime.scheduler import ExtPartialStore, iter_read_batches, read_batch_spans
@@ -480,10 +481,10 @@ def _count_step(codes, valid, cfg: KmerConfig, n_local: int, group):
     return result
 
 
-def _all_gather_rows(rows: torch.Tensor, group) -> list[torch.Tensor]:
-    """Every rank's (m_r, C) int32 rows, in rank order, on the host
-    (_gather_rows, copied out)."""
-    return [p.cpu() for p in _gather_rows(rows, group)]
+def _all_gather_rows(rows: torch.Tensor, group) -> list[np.ndarray]:
+    """Every rank's (m_r, C) rows, in rank order, on the host
+    (_gather_rows, in one copy-out)."""
+    return to_host(_gather_rows(rows, group))
 
 
 def _gather_rows(rows: torch.Tensor, group) -> list[torch.Tensor]:
@@ -512,19 +513,17 @@ def _unmixed(keys: torch.Tensor, mixed: bool) -> torch.Tensor:
     return torch.stack(mixkey.unmix_keys(keys.unbind(1)), dim=1)
 
 
-def _rank_rows(keys_dev, mixed: bool) -> np.ndarray:
-    """(m, W) int32 key rows on the device -> (m, W) uint32 host keys,
-    unmixed on the device first where they are mixed (_unmixed)."""
-    return to_host(_unmixed(keys_dev, mixed)).view(np.uint32)
-
-
-def _rank_list(words, cnt, keep, cfg: KmerConfig, mixed: bool) -> KmerList:
+def _rank_list(words, cnt, keep, cfg: KmerConfig, mixed: bool, upper: int) -> KmerList:
     """The rank's kept rows as its KmerList, keys unmixed on the device where
-    `mixed` (range routing)."""
+    `mixed` (range routing); keys and counts cross in one copy-out, the
+    counts at the narrowest width `upper`, the bound `keep` was filtered
+    by, fits (narrow_counts)."""
     with stage("result", keep.device):
         idx = torch.nonzero(keep).squeeze(1)
-        keys = _rank_rows(torch.stack([w[idx] for w in words], dim=-1), mixed)
-        return KmerList(keys=keys, counts=cnt[idx].cpu().numpy(), k=cfg.k)
+        keys, counts = to_host(
+            [_unmixed(torch.stack([w[idx] for w in words], dim=-1), mixed),
+             narrow_counts(cnt[idx], upper)], [None, torch.int32])
+        return KmerList(keys=keys.view(np.uint32), counts=counts, k=cfg.k)
 
 
 def _empty_list(cfg: KmerConfig) -> KmerList:
@@ -539,7 +538,7 @@ def _gather_list(kmerlist: KmerList, group, dev) -> KmerList:
         rows = np.concatenate([kmerlist.keys.view(np.int32),
                                kmerlist.counts[:, None]], axis=1)
         cdev = group_mod.collective_device(dev, group)
-        every = torch.cat(_all_gather_rows(torch.from_numpy(rows).to(cdev), group)).numpy()
+        every = np.concatenate(_all_gather_rows(torch.from_numpy(rows).to(cdev), group))
     return KmerList(
         keys=np.ascontiguousarray(every[:, :-1]).view(np.uint32),
         counts=np.ascontiguousarray(every[:, -1]),
@@ -557,7 +556,8 @@ def _every_rank(kmerlist: KmerList, cfg: KmerConfig, group, dev):
 def _gather_result(words, cnt, keep, cfg: KmerConfig, group, mixed: bool):
     """The rank's kept rows (_rank_list), then every rank's list and its
     histogram (_every_rank)."""
-    return _every_rank(_rank_list(words, cnt, keep, cfg, mixed), cfg, group, keep.device)
+    return _every_rank(_rank_list(words, cnt, keep, cfg, mixed, _bounds(cfg)[1]), cfg,
+                       group, keep.device)
 
 
 def count_flat_sharded(
@@ -777,7 +777,7 @@ def _count_rank(codes, lengths, cfg: KmerConfig, group, dev) -> KmerList:
     del packed, lens
     with stage("step", dev):
         words, cnt, keep = _count_step(codes_d, valid_d, cfg, block_len, group)
-    return _rank_list(words, cnt, keep, cfg, cfg.routing == "range")
+    return _rank_list(words, cnt, keep, cfg, cfg.routing == "range", _bounds(cfg)[1])
 
 
 # --------------------------------------------------------------------------
@@ -791,15 +791,16 @@ def _count_rank(codes, lengths, cfg: KmerConfig, group, dev) -> KmerList:
 
 
 def _merge_partials(parts, cfg: KmerConfig, dev):
-    """A rank's R partial lists (each ascending, from sorted batch output)
-    -> (words, total, keep): one merge of the R runs at their exact bounds
+    """A rank's R partial lists (each ascending, from sorted batch output:
+    W int32 key word arrays and the int32 counts, on the host) -> (words,
+    total, keep) on `dev`: one merge of the R runs at their exact bounds
     (ops/merge.merge_runs_at), the weighted run-length sum of the partial
     counts, the [L, U] filter on the totals."""
     w = cfg.words
     with stage("merge", dev):
-        rows = [torch.cat([p[0][i] for p in parts]).to(dev) for i in range(w)]
-        rows.append(torch.cat([p[1] for p in parts]).to(dev))
-        bounds = np.cumsum([0] + [p[1].shape[0] for p in parts])
+        rows = [torch.from_numpy(np.concatenate([p[i] for p in parts])).to(dev)
+                for i in range(w + 1)]
+        bounds = np.cumsum([0] + [p[w].shape[0] for p in parts])
         if bounds[-1]:
             rows = merge_ops.merge_runs_at(rows, w, bounds)
         head, total = run_length_sum.run_length_sum_fused(rows[:w], rows[w])
@@ -878,12 +879,12 @@ def _count_rank_streaming(batches, cfg: KmerConfig, group, dev) -> KmerList:
                 result, plan = _run_passes(codes_d, valid_d, plan, num_shards, group)
             words, cnt, keep = result
             idx = torch.nonzero(keep).squeeze(1)
-            parts.append(([w[idx].cpu() for w in words], cnt[idx].cpu()))
+            parts.append(to_host([w[idx] for w in words] + [cnt[idx]]))
         del codes_d, valid_d, words, cnt, keep, result, idx
     if plan is None:  # no reads: no rank saw a batch
         return _empty_list(cfg)
     words, total, keep = _merge_partials(parts, cfg, dev)
-    return _rank_list(words, total, keep, cfg, plan[0].routing == "range")
+    return _rank_list(words, total, keep, cfg, plan[0].routing == "range", cfg.upper)
 
 
 # --------------------------------------------------------------------------
@@ -1001,7 +1002,8 @@ def _ext_rows(words, cnt, keep, rid_s, pos_s, mixed: bool) -> ExtPartial:
 
 def _ext_list(part: ExtPartial, k: int) -> KmerListExt:
     """A partial's rows and occurrences, in its order, as a host KmerListExt
-    (one `to_host` an array; the counts' prefix sums are its offsets)."""
+    (one copy-out, ExtPartial.to_host; the counts' prefix sums are its
+    offsets)."""
     with stage("result"):
         return part.to_host(k)
 

@@ -78,7 +78,7 @@ from ..config import KmerConfig
 from ..io import fasta as fasta_io
 from ..io import supermer as supermer_io
 from ..ops import keybuild, minimizer, radix_sort, wire
-from ..pipeline import KmerList, host_histogram, resolve_device
+from ..pipeline import KmerList, host_histogram, resolve_device, to_host
 from ..runtime.scheduler import ExtPartialStore
 from ..runtime.timer import stage
 from . import dispatch, exchange
@@ -111,7 +111,7 @@ def host_destinations(
     """
     dev = resolve_device(device)
     c = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8)).to(dev)
-    return minimizer.kmer_destinations(c, k, m, num_buckets).cpu().numpy()
+    return to_host([minimizer.kmer_destinations(c, k, m, num_buckets)])[0]
 
 
 def host_canonical_words(
@@ -126,7 +126,7 @@ def host_canonical_words(
     if positions is not None:
         at = torch.from_numpy(np.asarray(positions, dtype=np.int64)).to(dev)
         words = [w[at] for w in words]
-    return [w.cpu().numpy().view(np.uint32) for w in words]
+    return [w.view(np.uint32) for w in to_host(words)]
 
 
 def _sorted_runs(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -215,7 +215,6 @@ def _allgather_entry_lists(
     ])
     cdev = group_mod.collective_device(torch.device(device), group)
     every = sharded._all_gather_rows(torch.from_numpy(rows).to(cdev), group)
-    every = [e.numpy() for e in every]
     out = []
     for s in range(len(per_shard)):
         lists = []
@@ -460,7 +459,8 @@ def _supermer_one_shot(codes, lengths, cfg: KmerConfig, group, device,
     step = _supermer_step(mine, lens, cfg, group, dev,
                           read_id_offset=read_id_offset + first, min_dims=min_dims)
     kmerlist = sharded._gather_list(
-        sharded._rank_list(step.words, step.cnt, step.keep, cfg, False), group, dev)
+        sharded._rank_list(step.words, step.cnt, step.keep, cfg, False,
+                           sharded._bounds(cfg)[1]), group, dev)
     if step.heavy is not None:
         kmerlist = _append_heavy_entries(kmerlist, _sum_entry_lists(step.heavy), cfg)
     return kmerlist, host_histogram(kmerlist.counts, cfg.upper)
@@ -529,11 +529,10 @@ def count_reads_supermer_ext(
 
 def _heavy_run(lists: list[tuple[np.ndarray, np.ndarray]]):
     """A rank's heavy entries of every batch, summed, as one partial list of
-    the final merge: (key words as int32 tensors, counts int32)."""
+    the final merge: W int32 key word arrays, then the int32 counts."""
     uk, cnts = _sum_entry_lists(lists)
-    return ([torch.from_numpy(np.ascontiguousarray(uk[:, i]).view(np.int32))
-             for i in range(uk.shape[1])],
-            torch.from_numpy(cnts.astype(np.int32)))
+    return ([np.ascontiguousarray(uk[:, i]).view(np.int32) for i in range(uk.shape[1])]
+            + [cnts.astype(np.int32)])
 
 
 def count_reads_supermer_streaming(
@@ -595,14 +594,14 @@ def _supermer_streaming(batches, cfg: KmerConfig, group, dev) -> KmerList:
             heavy.append(step.heavy[rank])
         with stage("result", dev):
             idx = torch.nonzero(step.keep).squeeze(1)
-            parts.append(([w[idx].cpu() for w in step.words], step.cnt[idx].cpu()))
+            parts.append(to_host([w[idx] for w in step.words] + [step.cnt[idx]]))
         del step, idx
     if assign is None:  # no reads: no rank saw a batch
         return sharded._empty_list(cfg)
     if heavy:
         parts.append(_heavy_run(heavy))
     words, total, keep = sharded._merge_partials(parts, cfg, dev)
-    return sharded._rank_list(words, total, keep, cfg, False)
+    return sharded._rank_list(words, total, keep, cfg, False, cfg.upper)
 
 
 # --------------------------------------------------------------------------
@@ -631,7 +630,8 @@ def count_fasta_multihost_supermer(fasta_path: str, cfg: KmerConfig, group=None,
     if cfg.extension:
         kmerlist = sharded._ext_list(_step_ext_rows(step), cfg.k)
     else:
-        kmerlist = sharded._rank_list(step.words, step.cnt, step.keep, cfg, False)
+        kmerlist = sharded._rank_list(step.words, step.cnt, step.keep, cfg, False,
+                                      sharded._bounds(cfg)[1])
         if step.heavy is not None:  # the rank's own entries, after its list
             kmerlist = _append_heavy_entries(kmerlist, step.heavy[dist.get_rank(group)],
                                              cfg)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from collections.abc import Sequence
 
 import numpy as np
@@ -223,17 +224,119 @@ def host_staging(shape, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, pin_memory=dev.type == "cuda")
 
 
-def to_host(t: torch.Tensor, dtype: torch.dtype | None = None) -> np.ndarray:
-    """A device tensor's values as an ordinary host array (of `dtype`, if
-    given). From CUDA they cross into a pinned bounce buffer
-    (`host_staging`) and are copied out of it by torch's threaded copy, so
-    no more than one result at a time is held page-locked, whatever a
-    stream of results adds up to."""
-    if t.device.type == "cpu":
-        return (t if dtype is None else t.to(dtype)).numpy()
-    stage = host_staging(t.shape, t.dtype, t.device)
-    stage.copy_(t)
-    return torch.empty(t.shape, dtype=dtype or t.dtype).copy_(stage).numpy()
+# The copy-out's pinned blocks (CopyRing): two of COPY_CHUNK_BYTES.
+COPY_CHUNK_BYTES = 64 << 20
+
+
+def copy_plan(sizes, chunk_bytes: int) -> list[tuple[int, int, int]]:
+    """How a result's arrays cross through pinned blocks of chunk_bytes, in
+    array order: sizes[i] = (elements, bytes an element) of array i; one
+    piece (array, lo, hi) a block, elements [lo, hi) of the flattened
+    array, as many as fill a block; an empty array has no piece."""
+    pieces = []
+    for i, (numel, itemsize) in enumerate(sizes):
+        step = chunk_bytes // itemsize
+        if step < 1:
+            raise ValueError(f"{itemsize} B elements do not fit a {chunk_bytes} B block")
+        pieces += [(i, lo, min(numel, lo + step)) for lo in range(0, numel, step)]
+    return pieces
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+class CopyRing:
+    """The device-to-host copy-out of whole results through two pinned
+    blocks of `chunk_bytes` (`host_staging`), allocated at first use and
+    kept for the ring's life: the page-locked memory it holds is at most
+    2 x chunk_bytes (`cap`), whatever the size of a result or of a stream
+    of them.
+
+    A result's pieces (copy_plan) take the blocks in turn: the copy of
+    piece p + 1 is queued (non_blocking, on the current stream, after the
+    work that made the arrays) with an event while the host waits for piece
+    p's event and copies it out of the other block into its destination (by
+    torch's threaded copy, widening where a dtype is asked for), so the
+    card's copy runs while the host's does. The destinations are fresh
+    np.empty arrays that the result owns. A failed copy raises; nothing
+    retries through pageable memory. Calls are serialized by a lock."""
+
+    def __init__(self, chunk_bytes: int = COPY_CHUNK_BYTES):
+        if chunk_bytes <= 0:
+            raise ValueError(f"a block of {chunk_bytes} B")
+        self.chunk_bytes = chunk_bytes
+        self.blocks: list[torch.Tensor] = []
+        self._lock = threading.Lock()
+
+    @property
+    def cap(self) -> int:
+        return 2 * self.chunk_bytes
+
+    @property
+    def nbytes(self) -> int:
+        """The page-locked bytes the ring holds."""
+        return sum(b.numel() for b in self.blocks)
+
+    def copy_out(self, tensors, dtypes) -> list[np.ndarray]:
+        """tensors on one device -> C-contiguous host arrays of their shapes,
+        each of dtypes[i] where that is not None, else of the tensor's."""
+        if len({t.device for t in tensors}) > 1:
+            raise ValueError("a copy-out takes tensors on one device")
+        srcs = [t.contiguous().reshape(-1) for t in tensors]
+        outs = [np.empty(tuple(t.shape), dtype=numpy_dtype(d or t.dtype))
+                for t, d in zip(tensors, dtypes)]
+        dsts = [torch.from_numpy(o.reshape(-1)) for o in outs]
+        plan = copy_plan([(s.numel(), s.element_size()) for s in srcs], self.chunk_bytes)
+        if not plan:
+            return outs
+        dev = srcs[0].device
+
+        def send(p):  # piece p into block p % 2: its view there and its event
+            i, lo, hi = plan[p]
+            if len(self.blocks) <= p % 2:
+                self.blocks.append(host_staging((self.chunk_bytes,), torch.uint8, dev))
+            src = srcs[i][lo:hi]
+            view = self.blocks[p % 2][:src.numel() * src.element_size()].view(src.dtype)
+            view.copy_(src, non_blocking=True)
+            if dev.type != "cuda":
+                return view, None
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            return view, event
+
+        with self._lock:
+            pending = send(0)
+            for p, (i, lo, hi) in enumerate(plan):
+                view, event = pending
+                if p + 1 < len(plan):
+                    pending = send(p + 1)
+                if event is not None:
+                    event.synchronize()
+                dsts[i][lo:hi].copy_(view)
+        return outs
+
+
+# The process's copy-out ring (its blocks are allocated at first use).
+RING = CopyRing()
+
+
+def to_host(tensors, dtypes=None) -> list[np.ndarray]:
+    """A device result, a list of tensors on one device, as ordinary
+    C-contiguous host arrays of their shapes (of dtypes[i], where given and
+    not None: a narrowed count widened on the host). From CUDA the whole
+    result crosses in one pass through the process's pinned ring (RING:
+    at most 2 x COPY_CHUNK_BYTES = 128 MiB page-locked), into fresh arrays
+    that own their memory; on the CPU each tensor is turned into an array
+    as it is, with no pinned memory."""
+    tensors = list(tensors)
+    dtypes = [None] * len(tensors) if dtypes is None else list(dtypes)
+    if len(dtypes) != len(tensors):
+        raise ValueError(f"{len(dtypes)} dtypes for {len(tensors)} tensors")
+    if not tensors or tensors[0].device.type == "cpu":
+        return [(t if d is None else t.to(d)).contiguous().numpy()
+                for t, d in zip(tensors, dtypes)]
+    return RING.copy_out(tensors, dtypes)
 
 
 def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -292,15 +395,12 @@ def compact_keys(
     words: list[torch.Tensor], cnt: torch.Tensor, idx: torch.Tensor, k: int, upper: int
 ) -> KmerList:
     """The kept rows `idx` (kept_slots) gathered on the device; only they
-    cross to the host (`to_host`): the key words, and the counts at the
-    narrowest width the filter's `upper` fits (narrow_counts), widened to
-    int32 on the host."""
-    keys = torch.stack([w[idx] for w in words], dim=-1)
-    return KmerList(
-        keys=to_host(keys).view(np.uint32),
-        counts=to_host(narrow_counts(cnt[idx], upper), torch.int32),
-        k=k,
-    )
+    cross to the host, in one copy-out (`to_host`): the key words, and the
+    counts at the narrowest width the filter's `upper` fits
+    (narrow_counts), widened to int32 on the host."""
+    keys, counts = to_host([torch.stack([w[idx] for w in words], dim=-1),
+                            narrow_counts(cnt[idx], upper)], [None, torch.int32])
+    return KmerList(keys=keys.view(np.uint32), counts=counts, k=k)
 
 
 def device_histogram(cnt: torch.Tensor, keep_idx: torch.Tensor, upper: int) -> np.ndarray:
@@ -312,7 +412,7 @@ def device_histogram(cnt: torch.Tensor, keep_idx: torch.Tensor, upper: int) -> n
     bound."""
     calls["device_histogram"] += 1
     kept = cnt[keep_idx].clamp(max=upper + 1)
-    return to_host(torch.bincount(kept, minlength=upper + 2)[: upper + 1].to(torch.int32))
+    return to_host([torch.bincount(kept, minlength=upper + 2)[: upper + 1].to(torch.int32)])[0]
 
 
 def kept_result(
@@ -328,10 +428,10 @@ def kept_result(
 
 def pull_prefix(tensors, n) -> list[np.ndarray]:
     """The first n elements of each device tensor, as host arrays (n an int
-    or a 0-d device tensor, read here): only the prefix crosses to the
-    host, not the padded tail."""
+    or a 0-d device tensor, read here): only the prefixes cross to the
+    host, in one copy-out (`to_host`), not the padded tail."""
     n = int(n)
-    return [to_host(t[:n]) for t in tensors]
+    return to_host([t[:n] for t in tensors])
 
 
 def narrow_counts(cnt: torch.Tensor, upper: int) -> torch.Tensor:
@@ -692,10 +792,10 @@ class ExtPartial:
             f: getattr(self, f).to(device) for f in ("keys", "counts", "occ_rid", "occ_pos")})
 
     def to_host(self, k: int) -> KmerListExt:
-        """The partial as a host KmerListExt: one `to_host` an array."""
-        return KmerListExt.from_flat(
-            to_host(self.keys).view(np.uint32), to_host(self.counts), k,
-            to_host(self.occ_rid), to_host(self.occ_pos).view(np.uint32))
+        """The partial as a host KmerListExt: its four arrays in one
+        copy-out (`to_host`)."""
+        keys, counts, rid, pos = to_host([self.keys, self.counts, self.occ_rid, self.occ_pos])
+        return KmerListExt.from_flat(keys.view(np.uint32), counts, k, rid, pos.view(np.uint32))
 
 
 def ext_partial(words, cnt, keep, rid_s, pos_s) -> ExtPartial:
@@ -777,8 +877,8 @@ def merge_ext_partials_device(parts: Sequence[ExtPartial], cfg: KmerConfig
     the weighted run-length sum of the counts
     (ops/run_length_sum.run_length_sum_fused) and the filter, one gather of
     the kept groups' occurrences (gather_kept_ext); then only the result
-    crosses to the host, one `to_host` an array, with its histogram over
-    [0, cfg.upper] (device_histogram)."""
+    crosses to the host, in one copy-out (ExtPartial.to_host), with its
+    histogram over [0, cfg.upper] (device_histogram)."""
     if not all(p.ascending for p in parts):
         raise ValueError("the device merge takes ascending partials (ascending_partial)")
     parts = [p for p in parts if len(p)]

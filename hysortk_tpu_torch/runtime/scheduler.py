@@ -178,11 +178,12 @@ class ExtPartialStore:
     with it fits the device's headroom (memcheck.hbm_headroom_bytes, as
     _consolidation_group_size sizes its group; no budget on the CPU) and
     the occurrences held stay below 2^31. The drain: when a partial would
-    not fit, or the device merge raises torch.cuda.OutOfMemoryError
-    (nothing wider: a failed kernel build or launch ends the run), the held
-    partials go to the host (`to_host`), every later partial goes there
-    too, and the host merge (pipeline.merge_ext_partials) finishes, with a
-    logged warning. Nothing else takes the host merge."""
+    not fit, or the sort of a partial as it is held (ascending_partial) or
+    the device merge raises torch.cuda.OutOfMemoryError (nothing wider: a
+    failed kernel build or launch ends the run), the held partials go to
+    the host (ExtPartial.to_host, one copy-out each), every later partial
+    goes there too, and the host merge (pipeline.merge_ext_partials)
+    finishes, with a logged warning. Nothing else takes the host merge."""
 
     def __init__(self, cfg: KmerConfig, device):
         self.cfg = cfg
@@ -217,11 +218,18 @@ class ExtPartialStore:
             if not self._fits(part):
                 _LOG.warning("extension partials: %d held and the next would pass the "
                              "device budget; draining to the host", len(self.held))
-                self._drain()
-        if self.drained is not None:
-            self.drained.append(part.to_host(self.cfg.k))
-        else:
-            self.held.append(ascending_partial(part))
+            else:
+                try:
+                    self.held.append(ascending_partial(part))
+                    return
+                except torch.cuda.OutOfMemoryError:
+                    _LOG.warning("sorting an extension partial ran out of device "
+                                 "memory; draining to the host")
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+            self._drain()
+        # The host merge sorts its partials itself: this one goes as it is.
+        self.drained.append(part.to_host(self.cfg.k))
 
     def result(self) -> tuple[KmerListExt, np.ndarray]:
         """The merged, filtered list and its histogram over [0, cfg.upper]."""
@@ -496,7 +504,7 @@ def count_reads_streaming(
             _drain_device_partials()
         if not device_resident:
             # Gather the kept rows on the device, copy only those out
-            # (through one pinned bounce buffer, reused batch to batch).
+            # (one copy-out through the pinned ring, pipeline.to_host).
             with annotate("stream/count_batch"):
                 words, cnt, keep = _count_device_packed(*args)
                 partial = compact_keys(words, cnt, kept_slots(keep), cfg.k, _UNFILTERED[1])

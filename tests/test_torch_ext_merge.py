@@ -29,6 +29,7 @@ from hysortk_tpu_torch.ops import mixkey
 from hysortk_tpu_torch.runtime import memcheck, scheduler
 
 KS = [15, 31, 41, 55]  # one, two, three and four key words
+WIDE_KS = [95, 96]  # six key words: the run merge's widest rows (eight with two payloads)
 KINDS = ["no_partials", "empty_partials", "single", "every_batch", "cross_bounds",
          "top_bit", "shuffled", "reads"]
 
@@ -109,7 +110,7 @@ def _partials(kind, k, cfg, rng):
     return parts, kind != "shuffled"
 
 
-@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("k", KS + WIDE_KS)
 @pytest.mark.parametrize("kind", KINDS)
 def test_device_merge_matches_jax(kind, k):
     rng = np.random.default_rng(k * 100 + KINDS.index(kind))
@@ -291,6 +292,43 @@ def test_out_of_memory_drains_and_other_errors_rise(monkeypatch, caplog):
     _Spy(monkeypatch, "merge_ext_partials_device",
          fail_with(RuntimeError("merge pass launch: CUDA error")))
     with pytest.raises(RuntimeError, match="merge pass launch"):
+        scheduler.count_reads_streaming_ext(codes, lengths, cfg, 900, device="cpu")
+
+
+def test_out_of_memory_in_the_held_sort_drains(monkeypatch, caplog):
+    """An out-of-memory error in the sort of a partial as the store holds
+    it (ascending_partial, on the second partial) drains as one in the
+    merge does: the held partial and this one go to the host, every later
+    one too, and the host merge finishes, equal to the JAX stream, with the
+    warnings logged; a RuntimeError there ends the run."""
+    codes, lengths, cfg, want = _stream_case()
+    real_sort = scheduler.ascending_partial
+    sorts = []
+
+    def sort_failing_with(exc):
+        def sort(part):
+            sorts.append(part)
+            if len(sorts) == 2:
+                raise exc
+            return real_sort(part)
+        return sort
+
+    _Spy(monkeypatch, "ascending_partial",
+         sort_failing_with(torch.cuda.OutOfMemoryError("out of memory")))
+    device = _Spy(monkeypatch, "merge_ext_partials_device")
+    host = _Spy(monkeypatch, "merge_ext_partials")
+    with caplog.at_level(logging.WARNING, logger="hysortk_tpu_torch.stream"):
+        got = scheduler.count_reads_streaming_ext(codes, lengths, cfg, 900,
+                                                  read_id_offset=3, device="cpu")
+    _assert_same(got, want)
+    assert len(sorts) == 2 and (device.calls, host.calls) == (0, 1)
+    assert any("sorting an extension partial ran out of device memory" in r.getMessage()
+               for r in caplog.records)
+    assert any("drained to the host" in r.getMessage() for r in caplog.records)
+    sorts.clear()
+    _Spy(monkeypatch, "ascending_partial",
+         sort_failing_with(RuntimeError("radix pass launch: CUDA error")))
+    with pytest.raises(RuntimeError, match="radix pass launch"):
         scheduler.count_reads_streaming_ext(codes, lengths, cfg, 900, device="cpu")
 
 

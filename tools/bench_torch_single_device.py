@@ -17,8 +17,17 @@ After one warm-up call each, R timed calls (default 7) of: kmer_count
 one-shot (count_reads); count_reads_streaming in batches of 2^24 with the
 partials held on the host (a) and under device_compact in batches of 2^22
 (b); kmer_count in extension mode; count_reads_streaming_ext in batches
-of 2^24. Every call after the first must equal the first. Prints the card's name and power limit, each entry's walls,
-median and quartiles, and as its last line one JSON object.
+of 2^24. Every call after the first must equal the first. The warm-up
+call and 3 more calls of each run with pipeline.to_host wrapped (a
+synchronize before each of its calls, then its host wall): the warm-up's
+copy-out ms (the process's first result of that entry) and the copy-out's
+share of a later call, the time in to_host over that call's wall. The
+wrapper is the same on any tree, since every single-device result leaves
+through pipeline.to_host (one array a call before the copy-out ring, a
+whole result a call after).
+Prints the card's name and power limit, each entry's walls, median and
+quartiles, its copy-out ms and share, the warm-up's copy-out ms, and as
+its last line one JSON object.
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ def main() -> int:
     import torch
 
     import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch import pipeline
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -91,9 +101,26 @@ def main() -> int:
             codes, lengths, dataclasses.replace(cfg, extension=True), 1 << 24,
             device="cuda"),
     }
-    out = {"tree": tree, "card": card, "bases": int(codes.size), "walls": {}}
+    out = {"tree": tree, "card": card, "bases": int(codes.size), "walls": {}, "copy_out": {}}
+    real_to_host = pipeline.to_host
+    in_copy = []
+
+    def timed_to_host(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return real_to_host(*a, **k)
+        finally:
+            in_copy.append(time.perf_counter() - t0)
+
     for name, run in entries.items():
-        first = run()
+        in_copy.clear()
+        pipeline.to_host = timed_to_host
+        try:
+            first = run()
+        finally:
+            pipeline.to_host = real_to_host
+        first_ms = sum(in_copy) * 1e3
         walls = []
         for _ in range(args.repeats):
             torch.cuda.synchronize()
@@ -105,12 +132,28 @@ def main() -> int:
                     and np.array_equal(got[0].counts, first[0].counts)
                     and np.array_equal(got[1], first[1])):
                 raise AssertionError(f"{name}: a call differs from the first")
+        shares = []
+        pipeline.to_host = timed_to_host
+        try:
+            for _ in range(3):
+                in_copy.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                shares.append((sum(in_copy), sum(in_copy) / (time.perf_counter() - t0)))
+        finally:
+            pipeline.to_host = real_to_host
         del first, got
         torch.cuda.empty_cache()
         q1, med, q3 = np.percentile(walls, [25, 50, 75])
+        copy_ms, share = (float(np.median([s[i] for s in shares])) for i in (0, 1))
         out["walls"][name] = walls
+        out["copy_out"][name] = {"ms": copy_ms * 1e3, "share": share, "first_ms": first_ms}
         print(f"{name}: median {med:.4f} s, quartiles {q1:.4f} / {q3:.4f} s, walls "
-              f"{', '.join(f'{w:.4f}' for w in walls)}")
+              f"{', '.join(f'{w:.4f}' for w in walls)}; copy-out {copy_ms * 1e3:.1f} ms, "
+              f"{100 * share:.1f}% of a call (medians of 3); the warm-up call's "
+              f"copy-out {first_ms:.1f} ms")
     print(card)
     print(json.dumps(out))
     return 0
