@@ -116,20 +116,33 @@ build/kernels/ at first use. Phases, each printing its findings:
      the host merge (the extension streams merge on the card, their merge
      kernels launched); per rank the wall, the peak device memory, the step
      passes, the bytes sent and the kernels' launches
- 11  supermer routing (parallel/supermer_route.py: destination scan,
-     classification and dispatch, supermer streams, 2-bit segments,
-     all_to_all, receive-side decode, key build, sort, count) with phase 2's
-     configuration: first the encoder's and fill_run_meta's hard cases of
-     hysortk_tpu_torch.testing on the card (each case's route result equal
-     to kmer_count's, fill_run_meta equal to its CPU result); (a)
-     count_reads_sharded with routing="supermer" on phase 2's reads, one
-     rank with NCCL, best of three, with a stage line and the wire bytes
-     beside the range route's (9(a)); (b) four spawned ranks sharing the card
+ 11  supermer routing (parallel/supermer_route.py: wire feed and decode,
+     destination scan, bucket sizes on the card, classification and
+     dispatch, the send side on the card (heavy pre-count, the run table
+     and segment pack kernels), all_to_all, receive-side decode, key build,
+     sort, count) with phase 2's configuration: first the encoder's and
+     fill_run_meta's hard cases of hysortk_tpu_torch.testing on the card
+     (each case's route result equal to kmer_count's, fill_run_meta equal
+     to its CPU result); the send side's hard cases (the run table's cases,
+     every encoder case at K = 15, 31, 55, 95 on 1, 2 and 4 destinations,
+     extension mode off and on: each kernel equal to its plain version, the
+     send tensor equal to the host encoder's); the two send-side kernels on
+     11(a)'s inputs against their plain versions, timed beside their
+     bounds, and the send tensor of phase 2's reads equal to the host
+     encoder's at one and four destinations (four also in extension mode);
+     (a) count_reads_sharded with routing="supermer" on phase 2's reads, one
+     rank with NCCL, best of three, then two calls more under the route's
+     own stage spans (runtime/timer.record_stages; the second's line,
+     feed to result, logged), the wire bytes beside the range route's
+     (9(a)), and no run boundary or run gather in the host library; the device heavy pre-count timed on (c)'s first reads
+     under four ranks' buckets against the host pre-count; (b) four spawned
+     ranks sharing the card
      over gloo; (c) the heavy-bucket pre-count on four ranks: phase 8(c)'s
      2^24 bases plus poly-A reads making ~25% of the k-mers (the poly-A
      key's count is above U = 65535, the most a configuration allows, and is
      dropped), and 2^17 bases with ~25% poly-A k-mers (the poly-A key's
-     count passes U and is kept), a bucket flagged and pre-counted, each
+     count passes U and is kept), a bucket flagged and pre-counted on the
+     card (never by the host pre-count), each
      result equal to the range route's on the same reads; (d) extension mode on phase 8(c)'s 2^24 bases with read ids
      from EXT_RID0, one-shot on one rank and on two, and streamed in batches
      of 2^22 on two (merged on the card, not by the host merge), each
@@ -138,12 +151,13 @@ build/kernels/ at first use. Phases, each printing its findings:
      ranks, against phase 2. Each result exactly equal after sorting by key
      (extension mode: every occurrence as sorted (key, rid, pos) rows); per
      rank the wall, the peak device memory, the bytes sent and the kernels'
-     launches
+     launches, both send-side kernels launched in every run
  12  multi-process runs (parallel/multihost.py) through the CLI's
      --coordinator, each process reading its own records of the FASTA and
      writing its share to <rank>.out: (a) two processes sharing the card
      over gloo and (b) one process over NCCL on phase 2's FASTA, (c)
-     --routing supermer on two processes, each against phase 2; (d)
+     --routing supermer on two processes (both send-side kernels launched in
+     each), each against phase 2; (d)
      --extension --stream-batch-bases 2^24 on two processes on phase 2's
      FASTA against phase 8(a)'s one-shot extension result, its merge
      kernels launched in every process. Each time the
@@ -1082,12 +1096,23 @@ KERNELS = {
     # path, not the port of a Pallas kernel.
     "mix_keys": ("hysortk_tpu_torch/csrc/mixkey.cu",
                  "hysortk_tpu/ops/mixkey.py:128 (XLA, no pallas_call)"),
+    # The supermer route's send side, which the JAX package runs in host
+    # numpy: kernels the port added for the route, not ports of Pallas
+    # kernels.
+    "supermer_runs": ("hysortk_tpu_torch/csrc/supermer_runs.cu",
+                      "hysortk_tpu/io/supermer.py:50 run_boundaries (host numpy, "
+                      "no pallas_call)"),
+    "supermer_pack": ("hysortk_tpu_torch/csrc/supermer_pack.cu",
+                      "hysortk_tpu/io/supermer.py:124, :271 + "
+                      "parallel/supermer_route.py:219, :641 (host numpy, no "
+                      "pallas_call)"),
 }
 # Which path's run gives each kernel its launch count in the record:
 # phase 2, phase 4(a), and for fused_sort phase 6, for block_sort phase 7,
-# for mix_keys phase 9(a).
+# for mix_keys phase 9(a), for the supermer kernels 11(a)'s first call.
 ONE_SHOT_KERNELS = ("keybuild", "radix_sort", "fused_count")
 STREAMING_KERNELS = ("run_length_sum", "merge_runs")
+SUPERMER_KERNELS = ("supermer_runs", "supermer_pack")
 
 
 # --------------------------------------------------------------------------
@@ -2894,74 +2919,266 @@ def phase11_hard_cases() -> None:
         f"{len(cases)} fill_run_meta cases equal to the CPU's")
 
 
-def phase11_stages(codes, lengths, cfg, range_traffic) -> None:
-    """One rank's supermer call stage by stage, a synchronize after each
-    (inside phase 11's one-rank group), with the wire bytes beside the range
-    route's of 9(a)."""
+def phase11_send_cases(errs) -> None:
+    """The send side's hard cases on the card, inside phase 11's one-rank
+    group: the run table's cases (testing.run_table_cases), then every
+    encoder case at K = 15, 31, 55 and 95 on 1, 2 and 4 destinations,
+    extension mode off and on: each kernel equal to its plain version on
+    the same CUDA tensors, and the send tensor equal to the host encoder's
+    `_segments(_encode(...))` on the same share."""
     import torch
 
+    import hysortk_tpu_torch as ht
+    from hysortk_tpu_torch import pipeline, testing
     from hysortk_tpu_torch.io import fasta as fasta_io
-    from hysortk_tpu_torch.io import native
-    from hysortk_tpu_torch.ops import keybuild, radix_sort
-    from hysortk_tpu_torch.parallel import dispatch, exchange
+    from hysortk_tpu_torch.ops import supermer as sm_ops
+    from hysortk_tpu_torch.ops import wire
+    from hysortk_tpu_torch.parallel import supermer_route as sr
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cases = testing.run_table_cases()
+    for name, valid, dest, m in cases:
+        args = (torch.from_numpy(valid).to(dev), torch.from_numpy(dest).to(dev), m)
+        e = max_abs_err(sm_ops.run_table(*args), sm_ops.run_table_plain(*args))
+        require_equal(f"supermer_runs case {name}", e)
+        errs["supermer_runs"] = max(errs["supermer_runs"], e)
+    n = 0
+    for kind in testing.SUPERMER_KINDS:
+        for k, m in ((15, 7), (31, 17), (55, 13), (95, 17)):
+            codes, lengths = fasta_io.reads_to_codes(testing.supermer_reads(kind, k, 5))
+            lengths = lengths.astype(np.int32)
+            flat, valid = fasta_io.flatten_for_device(codes, lengths, k, 256)
+            for num_dest in (1, 2, 4):
+                shard_of = testing.supermer_case_dest(kind, flat.size, num_dest, 5)
+                for ext in (False, True):
+                    what = f"{kind} k={k} S={num_dest}{' ext' if ext else ''}"
+                    cfg = ht.KmerConfig(k=k, m=m, pad_multiple=256, extension=ext)
+                    rid0 = 2**31 - 5 if ext else 0
+                    want = sr._segments(sr._encode(flat, valid, shard_of, cfg, num_dest,
+                                                   lengths, rid0, ext), cfg, dev, None)[0]
+                    packed, lens_d, n_slots = pipeline.wire_batch(codes, lengths, cfg, dev)
+                    codes_d, valid_d = wire.decode_block(packed, lens_d, k, n_slots)
+                    args = (valid_d, torch.from_numpy(shard_of).to(dev), sm_ops.max_kmers(k))
+                    runs = sm_ops.run_table(*args)
+                    e = max_abs_err(runs, sm_ops.run_table_plain(*args))
+                    require_equal(f"supermer_runs {what}", e)
+                    errs["supermer_runs"] = max(errs["supermer_runs"], e)
+                    layout = sm_ops.segment_layout(*runs, k, num_dest)
+                    dims = sm_ops.segment_dims(layout.cmax, layout.smax, 256)
+                    headers = sm_ops.run_headers(layout.src, lens_d, rid0) if ext else ()
+                    got = sm_ops.pack_segments(codes_d, layout, *dims, headers)
+                    e = max_abs_err([got], [sm_ops.pack_segments_plain(codes_d, layout,
+                                                                       *dims, headers)])
+                    require_equal(f"supermer_pack {what}", e)
+                    errs["supermer_pack"] = max(errs["supermer_pack"], e)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"phase 11 send case {what}: the send tensor "
+                                             f"differs from the host encoder's")
+                    n += 1
+    log(f"phase11 send cases: {len(cases)} run-table cases and {n} encoder cases, each "
+        f"kernel equal to its plain version, each send tensor equal to the host "
+        f"encoder's")
+
+
+def phase11_kernels(codes, lengths, cfg, errs) -> dict:
+    """The send side's two kernels against their plain versions on the
+    inputs 11(a)'s step gives them (phase 2's reads on one rank: the wire
+    decoded, the destination ranks of the one-rank plan), timed beside
+    their bounds; then the send tensor against the host encoder's
+    `_segments(_encode(...))` on phase 2's reads at one destination, and at
+    four (the plan's buckets of four ranks) with and without extension
+    mode. Inside phase 11's one-rank group. Returns the kernels'
+    measurements and the share's wire (supermers, bases, segment dims)."""
+    import dataclasses
+
+    import torch
+
+    from hysortk_tpu_torch import pipeline
+    from hysortk_tpu_torch.io import fasta as fasta_io
+    from hysortk_tpu_torch.ops import minimizer, wire
+    from hysortk_tpu_torch.ops import supermer as sm_ops
+    from hysortk_tpu_torch.parallel import dispatch
     from hysortk_tpu_torch.parallel import pipeline as sharded
     from hysortk_tpu_torch.parallel import supermer_route as sr
 
-    stages = []
-
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        stages.append(f"{name} {(time.perf_counter() - t0) * 1e3:.1f}")
-        return out
-
     dev = torch.device("cuda", torch.cuda.current_device())
-    native.reset_calls()
-    for _ in range(2):
-        stages.clear()
-        exchange.reset_traffic()
-        def partition_flatten():  # supermer_route._supermer_step's first stage
-            mine, lens, first = sharded._rank_share(codes, lengths, None)
-            return (*fasta_io.flatten_for_device(mine, lens, cfg.k, cfg.pad_multiple),
-                    lens, first)
+    lens = lengths.astype(np.int32)
+    packed, lens_d, n = pipeline.wire_batch(codes, lens, cfg, dev)
+    codes_d, valid = wire.decode_block(packed, lens_d, cfg.k, n)
+    del packed
+    dest = minimizer.kmer_destinations(codes_d, cfg.k, cfg.m, sharded._num_buckets(cfg, 1))
+    _, assign = sr._plan(dest, valid, cfg, None, True, dev, None)
+    shard_of = torch.from_numpy(assign.astype(np.int32)).to(dev)[dest.to(torch.int64)]
+    mk = sm_ops.max_kmers(cfg.k)
+    runs = sm_ops.run_table(valid, shard_of, mk)
+    e = max_abs_err(runs, sm_ops.run_table_plain(valid, shard_of, mk))
+    require_equal("supermer_runs main path", e)
+    errs["supermer_runs"] = max(errs["supermer_runs"], e)
+    r = runs[0].numel()
+    # In: valid + int32 destination a position; out: 16 B a run. Per
+    # position a head test, a modulo and two scan steps in each of two
+    # passes.
+    rt_bound = bound(5 * n + 16 * r, 20 * n)
+    rt = dict(
+        ms=cuda_ms(lambda: sm_ops.run_table(valid, shard_of, mk), 10),
+        plain_ms=cuda_ms(lambda: sm_ops.run_table_plain(valid, shard_of, mk), 3),
+        bound_ms=rt_bound[0], bound_by=rt_bound[1], library_ms=None,
+    )
+    layout = sm_ops.segment_layout(*runs, cfg.k, 1)
+    dims = sm_ops.segment_dims(layout.cmax, layout.smax, cfg.pad_multiple)
+    send = sm_ops.pack_segments(codes_d, layout, *dims)
+    e = max_abs_err([send], [sm_ops.pack_segments_plain(codes_d, layout, *dims)])
+    require_equal("supermer_pack main path", e)
+    errs["supermer_pack"] = max(errs["supermer_pack"], e)
+    gathered = int(layout.bases.sum())
+    # In: the bases the runs cover, each once (a run's first k - 1 bases
+    # may be the run before's last: runs ascend in flat order, so do their
+    # ends), 20 B of rows a run (src, off, length) and the destinations'
+    # bounds; out: the send tensor. Per gathered base a load, a mask, a
+    # shift and an or; per word a binary search over the runs.
+    starts, kmers = runs[0], runs[1]
+    ends = starts + kmers.to(torch.int64) + (cfg.k - 1)
+    covered = int(ends[-1] - starts[0]) - int(
+        (starts[1:] - ends[:-1]).clamp(min=0).sum()) if r else 0
+    pk_bound = bound(covered + 20 * r + 8 * layout.dest_begin.numel() + 4 * send.numel(),
+                     4 * gathered + (gathered // 16) * 3 * max(r, 2).bit_length())
+    pk = dict(
+        ms=cuda_ms(lambda: sm_ops.pack_segments(codes_d, layout, *dims), 10),
+        plain_ms=cuda_ms(lambda: sm_ops.pack_segments_plain(codes_d, layout, *dims), 3),
+        bound_ms=pk_bound[0], bound_by=pk_bound[1], library_ms=None,
+    )
+    log_kernel(f"phase11 supermer_runs main path n={n} ({r} runs)", rt)
+    log_kernel(f"phase11 supermer_pack main path {gathered} bases of {r} runs "
+               f"({covered} distinct) into {send.numel()} words", pk)
 
-        flat_codes, flat_valid, lens, first = timed("partition + flatten",
-                                                    partition_flatten)
-        dest = timed("destination scan", lambda: sr.host_destinations(
-            flat_codes, cfg.k, cfg.m, sharded._num_buckets(cfg, 1), dev))
-        types, assign = timed("sizes + plan", lambda: sr._plan(
-            dest, flat_valid, cfg, None, True, dev, None))
-        if (types == dispatch.HEAVY).any():
-            raise AssertionError("phase 2's reads flagged a heavy bucket")
-        streams = timed("encode", lambda: sr._encode(
-            flat_codes, flat_valid, assign[dest], cfg, 1, lens, first, False))
-        del flat_codes, flat_valid, dest
-        supermers = sum(int(st[1].size) for st in streams)
-        payload = sr.wire_nbytes(streams)
-        send, block_len, lmax = timed("pack + H2D", lambda: sr._segments(
-            streams, cfg, dev, None))
-        del streams
-        recv = timed("exchange", lambda: exchange.all_to_all_exchange(
-            send, [send.shape[2]], None)[0])
-        marked = timed("decode + keybuild", lambda: keybuild.canonical_keys_fused(
-            *sr._decode_received(recv, cfg, block_len, lmax)[:2], cfg.k))
-        del recv, send
-        words_s = timed("radix sort", lambda: radix_sort.sort_words(marked)[0])
-        del marked
-        cnt, keep = timed("fused count", lambda: sharded._count_merged(words_s, cfg))
-        timed("result (compact + D2H + all_gather + histogram)",
-              lambda: sharded._gather_result(words_s, cnt, keep, cfg, None, False))
-        del words_s, cnt, keep
-    log(f"phase11a stages of one supermer call, second of two, ms: {'; '.join(stages)}")
-    if not all(native.calls[name] for name in ("run_boundaries", "gather_runs", "pack_2bit")):
-        raise AssertionError(f"phase 11(a)'s encoder and pack did not run the host "
-                             f"library: calls {native.calls}")
-    log(f"phase11a host library calls in the two calls: {json.dumps(native.calls)}")
+    # The send tensors against the host encoder's on the same share.
+    flat, flat_valid = fasta_io.flatten_for_device(codes, lens, cfg.k, cfg.pad_multiple)
+    dest4 = minimizer.kmer_destinations(codes_d, cfg.k, cfg.m, sharded._num_buckets(cfg, 4))
+    sizes = dispatch.bucket_sizes_device(dest4, valid, sharded._num_buckets(cfg, 4))
+    assign4 = dispatch.balanced_assignment(sizes.cpu().numpy().astype(np.int64), 4)
+    shard4 = torch.from_numpy(assign4.astype(np.int32)).to(dev)[dest4.to(torch.int64)]
+    checked = []
+    for num_dest, shard_d, ext in ((1, shard_of, False), (4, shard4, False),
+                                   (4, shard4, True)):
+        c = dataclasses.replace(cfg, extension=ext)
+        rid0 = EXT_RID0 if ext else 0
+        t0 = time.perf_counter()
+        got = sr._device_send(codes_d, valid, shard_d, lens_d, c, num_dest, rid0, ext,
+                              dev, None)[0]
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = sr._segments(sr._encode(flat, flat_valid, pipeline.to_host([shard_d])[0],
+                                       c, num_dest, lens, rid0, ext), c, dev, None)[0]
+        torch.cuda.synchronize()
+        t_host = time.perf_counter() - t0
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 11: the send tensor of phase 2's reads at "
+                                 f"{num_dest} destination(s), ext={ext}, differs from "
+                                 f"the host encoder's")
+        checked.append(f"S={num_dest}{' ext' if ext else ''} {tuple(got.shape)} "
+                       f"device {t_dev * 1e3:.1f} ms, host {t_host * 1e3:.1f} ms")
+        del got, want
+    log(f"phase11 send tensors of phase 2's reads equal to the host encoder's: "
+        f"{'; '.join(checked)}")
+    wire_info = dict(supermers=r, bases=gathered, dims=dims)
+    return {"supermer_runs": rt, "supermer_pack": pk}, wire_info
+
+
+# The spans of one supermer call (runtime/timer.stage, in the order entered)
+# that 11(a)'s stage line must show: the route's, nested as in
+# supermer_route._supermer_step, and the wire feed's (pipeline.stage_wire).
+SUPERMER_SPANS = (
+    "pack", "feed", "wire feed", "staging", "host pack", "wire decode", "plan", "scan",
+    "sizes", "sizes all_reduce", "encode", "destination ranks", "run table", "layout",
+    "dims all_reduce", "segment pack", "step", "exchange", "receive decode + keybuild",
+    "radix sort", "fused count", "result")
+
+
+def phase11_stages(codes, lengths, cfg, range_traffic, wire_info) -> None:
+    """11(a)'s call twice more under the route's own stage spans
+    (runtime/timer.record_stages: each span ends with a synchronize), the
+    second's line logged, with the wire bytes beside the range route's of
+    9(a). Inside phase 11's one-rank group."""
+    import dataclasses
+
+    from hysortk_tpu_torch.parallel import exchange
+    from hysortk_tpu_torch.parallel import pipeline as sharded
+    from hysortk_tpu_torch.runtime import timer
+
+    sm = dataclasses.replace(cfg, routing="supermer")
+    for _ in range(2):
+        exchange.reset_traffic()
+        t0 = time.perf_counter()
+        with timer.record_stages() as seconds:
+            sharded.count_reads_sharded(codes, lengths, sm)
+        wall = time.perf_counter() - t0
+    missing = [name for name in SUPERMER_SPANS if name not in seconds]
+    if missing:
+        raise AssertionError(f"phase 11(a)'s call entered no {missing} span")
+    if "heavy pre-count" in seconds:
+        raise AssertionError("phase 2's reads flagged a heavy bucket")
+    h2d = seconds["wire feed"] - seconds["staging"] - seconds["host pack"]
+    log(f"phase11a stages of one supermer call under its spans, second of two (wall "
+        f"{wall * 1e3:.1f} ms), ms: "
+        + "; ".join(f"{name} {sec * 1e3:.1f}" for name, sec in seconds.items())
+        + f"; H2D (wire feed less staging and host pack) {h2d * 1e3:.1f}")
+    supermers, bases, dims = (wire_info[key] for key in ("supermers", "bases", "dims"))
+    payload = -(-bases // 4) + 4 * supermers
     log(f"phase11a wire: {supermers} supermers, {payload} B of supermer payload "
         f"(2 bits a base + 4 B a supermer), {exchange.traffic['bytes_sent']} B sent "
-        f"(segments padded to {block_len} bases, lmax {lmax}); the range route's "
+        f"(segments padded to {dims[0]} bases, lmax {dims[1]}); the range route's "
         f"9(a): {range_traffic['bytes_sent']} B sent")
+
+
+def phase11_heavy_stage(codes, lengths, cfg) -> None:
+    """The device heavy pre-count timed on 11(c)'s first reads as one rank
+    holding all of them sees them under four ranks' buckets (on one rank's
+    three buckets the poly-A bucket is not heavy), against the host
+    pre-count on the same inputs. Inside phase 11's one-rank group."""
+    import torch
+
+    from hysortk_tpu_torch import pipeline
+    from hysortk_tpu_torch.io import fasta as fasta_io
+    from hysortk_tpu_torch.ops import minimizer, wire
+    from hysortk_tpu_torch.parallel import dispatch
+    from hysortk_tpu_torch.parallel import pipeline as sharded
+    from hysortk_tpu_torch.parallel import supermer_route as sr
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lens = lengths.astype(np.int32)
+    packed, lens_d, n = pipeline.wire_batch(codes, lens, cfg, dev)
+    codes_d, valid = wire.decode_block(packed, lens_d, cfg.k, n)
+    nb = sharded._num_buckets(cfg, 4)
+    dest = minimizer.kmer_destinations(codes_d, cfg.k, cfg.m, nb)
+    sizes = dispatch.bucket_sizes_device(dest, valid, nb).cpu().numpy().astype(np.int64)
+    types = dispatch.classify(sizes, cfg.heavy_ratio)
+    if not (types == dispatch.HEAVY).any():
+        raise AssertionError("phase 11(c)'s reads flagged no heavy bucket on 12 buckets")
+    assign = dispatch.balanced_assignment(np.where(types == dispatch.HEAVY, 0, sizes), 4)
+    assign_d = torch.from_numpy(assign.astype(np.int32)).to(dev)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_valid, got = sr.heavy_precount_device(codes_d, valid, dest, types, assign_d,
+                                                  cfg.k, 4)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    flat, flat_valid = fasta_io.flatten_for_device(codes, lens, cfg.k, cfg.pad_multiple)
+    t0 = time.perf_counter()
+    want_valid, want = sr.heavy_precount(flat, flat_valid, pipeline.to_host([dest])[0],
+                                         types, assign, cfg.k, 4, dev)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(pipeline.to_host([got_valid])[0], want_valid) or not all(
+            np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+            for g, w in zip(got, want)):
+        raise AssertionError("phase 11: the device heavy pre-count differs from the host's")
+    log(f"phase11 heavy pre-count on {int(codes.size)} bases, {int(sizes.sum())} k-mers, "
+        f"{int(sizes[types == dispatch.HEAVY].sum())} in heavy buckets, "
+        f"{sum(g[0].shape[0] for g in got)} distinct heavy keys: device "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms, the host pre-count {host_ms:.1f} ms, "
+        f"equal")
 
 
 def heavy_reads(codes, lengths, n_bases):
@@ -2978,15 +3195,17 @@ def heavy_reads(codes, lengths, n_bases):
 
 
 def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
-                     range_traffic) -> None:
+                     range_traffic, errs) -> tuple[dict, dict]:
     """Supermer routing on phase 2's reads and configuration: the hard
-    cases, then (a)-(e) of the docstring, every result exactly equal to its
-    reference."""
+    cases, the send side's kernels, then (a)-(e) of the docstring, every
+    result exactly equal to its reference. Returns the send-side kernels'
+    measurements and 11(a)'s first call's launches."""
     import dataclasses
 
     import torch
     import torch.distributed as dist
 
+    from hysortk_tpu_torch.io import native
     from hysortk_tpu_torch.parallel import group
 
     cfg = slice_config()
@@ -2995,7 +3214,8 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
     heavy_f = dict(sm, upper=65535)  # the most U may be: 11(c)'s two cases
     ext = dict(sm, extension=True)
     rid0 = dict(read_id_offset=EXT_RID0)
-    stream_needed = CORE_KERNELS + ("merge_runs", "run_length_sum")
+    needed = CORE_KERNELS + SUPERMER_KERNELS
+    stream_needed = needed + ("merge_runs", "run_length_sum")
     sub_codes, sub_lengths = ext_stream_reads(codes, lengths)
     h_codes, h_lengths, poly_kmers = heavy_reads(codes, lengths, EXT_STREAM_BASES)
     hk_codes, hk_lengths, kept_kmers = heavy_reads(codes, lengths, HEAVY_KEPT_BASES)
@@ -3006,6 +3226,10 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
         if dist.get_backend() != "nccl":
             raise AssertionError(f"one rank with its own card took {dist.get_backend()}")
         phase11_hard_cases()
+        phase11_send_cases(errs)
+        times, wire_info = phase11_kernels(codes, lengths, cfg, errs)
+        torch.cuda.empty_cache()
+        native.reset_calls()
         a = phase10_call("count_reads_sharded", codes, lengths, sm)
         walls = list(a["walls"])
         for _ in range(2):
@@ -3014,10 +3238,20 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
         a.update(backend="nccl", walls=walls)
         log_phase10("a", f"count_reads_sharded, routing supermer, {int(codes.size)} "
                     f"bases (walls {', '.join(f'{w:.4f}' for w in walls)} s; the first "
-                    f"call's line)", [a], len(one_shot[0]), CORE_KERNELS, 11)
+                    f"call's line)", [a], len(one_shot[0]), needed, 11)
         if a["launches"]["keybuild"] < 2:
             raise AssertionError("phase 11(a) did not build the m-mer words by the kernel")
-        phase11_stages(codes, lengths, cfg, range_traffic)
+        phase11_stages(codes, lengths, cfg, range_traffic, wire_info)
+        # The send side ran on the card: the host library packed the wire
+        # feed and found no run boundary and gathered no run.
+        if (native.calls["run_boundaries"] or native.calls["gather_runs"]
+                or not native.calls["pack_2bit"]):
+            raise AssertionError(f"phase 11(a) ran the host encoder or fed no wire: "
+                                 f"host library calls {native.calls}")
+        log(f"phase11a host library calls in the three calls and the stage line: "
+            f"{json.dumps(native.calls)}")
+        torch.cuda.empty_cache()
+        phase11_heavy_stage(h_codes, h_lengths, dataclasses.replace(cfg, upper=65535))
         torch.cuda.empty_cache()
         h_ref = phase10_call("count_reads_sharded", h_codes, h_lengths,
                              dict(heavy_f, routing="range"))["result"]
@@ -3031,7 +3265,7 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
         del got
         d["backend"] = "nccl"
         log_phase10("d", "count_reads_sharded_ext, routing supermer, 2^24 bases",
-                    [d], len(ext_sub_one_shot[0]), CORE_KERNELS, 11)
+                    [d], len(ext_sub_one_shot[0]), needed, 11)
         torch.cuda.empty_cache()
         e = phase10_call("count_reads_sharded_streaming", codes, lengths, sm,
                          (STREAM_BATCH,))
@@ -3053,20 +3287,19 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
     spawns = {
         4: [  # (tag, what, entry, inputs, cfg, args, kwargs, reference, kernels)
             ("c", f"heavy pre-count, 2^24 bases + {poly_kmers} poly-A k-mers",
-             "count_reads_sharded", "heavy", heavy_f, (), {}, h_ref, CORE_KERNELS),
+             "count_reads_sharded", "heavy", heavy_f, (), {}, h_ref, needed),
             ("c", f"heavy pre-count, 2^17 bases + {kept_kmers} poly-A k-mers, the "
              "poly-A key kept", "count_reads_sharded", "heavy_kept", heavy_f, (), {},
-             hk_ref, CORE_KERNELS),
+             hk_ref, needed),
             ("b", "count_reads_sharded, routing supermer, 2^26 bases",
-             "count_reads_sharded", "all", sm, (), {}, one_shot, CORE_KERNELS),
+             "count_reads_sharded", "all", sm, (), {}, one_shot, needed),
         ],
         2: [
             ("d", "count_reads_sharded_ext, routing supermer, 2^24 bases",
-             "count_reads_sharded_ext", "sub", ext, (), rid0, ext_sub_one_shot,
-             CORE_KERNELS),
+             "count_reads_sharded_ext", "sub", ext, (), rid0, ext_sub_one_shot, needed),
             ("d", "count_reads_sharded_ext_streaming, routing supermer, 2^24 bases in "
              "batches of 2^22", "count_reads_sharded_ext_streaming", "sub", ext,
-             (EXT_STREAM_BATCH,), rid0, ext_sub_one_shot, CORE_KERNELS + STREAMING_KERNELS),
+             (EXT_STREAM_BATCH,), rid0, ext_sub_one_shot, needed + STREAMING_KERNELS),
             ("e", "count_reads_sharded_streaming, routing supermer, 2^26 bases in "
              "batches of 2^24", "count_reads_sharded_streaming", "all", sm,
              (STREAM_BATCH,), {}, one_shot, stream_needed),
@@ -3077,13 +3310,16 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
         no_host_merge(11, tag, stats)
         if any(st["calls"]["_supermer_step"] < 1 for st in stats):
             raise AssertionError(f"phase 11({tag}) did not take the supermer step")
-        if tag == "c" and any(st["calls"]["heavy_precount"] != 1 for st in stats):
+        if tag == "c" and any(st["calls"]["heavy_precount_device"] != 1 for st in stats):
             raise AssertionError("phase 11(c) flagged no heavy bucket")
+        if any(st["calls"]["heavy_precount"] for st in stats):
+            raise AssertionError(f"phase 11({tag}) ran the host heavy pre-count")
 
     sub_rows = ext_occurrence_rows(ext_sub_one_shot[0])
     run_spawned(workdir, 11, spawns, inputs, ext_sub_one_shot, sub_rows, check)
     del sub_rows
     log(f"phase11 {time.perf_counter() - t_phase:.1f} s in all")
+    return times, a["launches"]
 
 
 # --------------------------------------------------------------------------
@@ -3202,7 +3438,8 @@ def phase12_multiprocess(workdir: str, one_shot, ext_one_shot) -> None:
     phase12_run("b", "range, one-shot", fasta, workdir, 1, [], want_lines, want_hist,
                 range_kernels, "nccl")
     phase12_run("c", "supermer routing, one-shot", fasta, workdir, 2,
-                ["--routing", "supermer"], want_lines, want_hist, CORE_KERNELS, "gloo")
+                ["--routing", "supermer"], want_lines, want_hist,
+                CORE_KERNELS + SUPERMER_KERNELS, "gloo")
     del want_lines
 
     ext_kl, ext_hist = ext_one_shot
@@ -3456,8 +3693,8 @@ def main() -> int:
         phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot, sub_one_shot,
                         ext_sub_one_shot)
         torch.cuda.empty_cache()
-        phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
-                         range_traffic)
+        supermer_times, supermer_launches = phase11_supermer(
+            workdir, codes, lengths, one_shot, ext_sub_one_shot, range_traffic, errs)
         torch.cuda.empty_cache()
         phase12_multiprocess(workdir, one_shot, ext_one_shot)
         footprints["after phase 12"] = pinned_footprint()
@@ -3465,6 +3702,9 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     times.update(stream_times)
+    times.update(supermer_times)
+    for name in SUPERMER_KERNELS:
+        launches[name] = supermer_launches[name]
     for name in STREAMING_KERNELS:
         launches[name] = stream_launches[name]
     launches["fused_sort"] = fused_launches["fused_sort"]

@@ -18,6 +18,9 @@ source, the flags, the compiler's version line and the machine, because
 build/ can travel with a working tree to another host. A failed build
 raises with the compiler's errors.
 
+The first load of the kernel library is a stage span of its own ("kernel
+library load", runtime/timer.stage), so a process's first call shows it.
+
 `launches` counts, per kernel wrapper, the calls that launched the kernel on
 a device. Only the wrappers touch it, at their launch; `reset_launches`
 clears it before a run whose kernel use is to be shown.
@@ -32,6 +35,8 @@ import platform
 import shutil
 import subprocess
 import threading
+
+from .runtime.timer import stage
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -57,6 +62,7 @@ launches = {
     "keybuild": 0, "radix_sort": 0, "fused_count": 0,
     "run_length_sum": 0, "merge_runs": 0,
     "fused_sort": 0, "block_sort": 0, "mix_keys": 0,
+    "supermer_runs": 0, "supermer_pack": 0,
 }
 
 _lock = threading.Lock()
@@ -212,7 +218,8 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(library_path()))
+            with stage("kernel library load"):
+                _lib = _bind(ctypes.CDLL(library_path()))
         return _lib
 
 
@@ -243,6 +250,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     u32s = ctypes.POINTER(ctypes.c_uint32)
     lib.hk_mix_keys.argtypes = [ptrs, ptrs, i32, i64, u32s, i32, u32s, ptr]
     lib.hk_mix_keys.restype = i32
+    lib.hk_supermer_runs_scratch.argtypes = [i64]
+    lib.hk_supermer_runs_scratch.restype = i64
+    lib.hk_supermer_runs_count.argtypes = [ptr, ptr, i64, i32, ptr, ptr, ptr]
+    lib.hk_supermer_runs_count.restype = i32
+    lib.hk_supermer_runs_write.argtypes = [ptr, ptr, i64, i32, ptr, ptr, ptr, ptr, ptr]
+    lib.hk_supermer_runs_write.restype = i32
+    lib.hk_supermer_pack.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
+                                     i32, ptr, ptr]
+    lib.hk_supermer_pack.restype = i32
     lib.hk_error_string.argtypes = [i32]
     lib.hk_error_string.restype = ctypes.c_char_p
     return lib

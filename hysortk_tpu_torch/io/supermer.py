@@ -6,7 +6,8 @@ host-side analogue of the reference's SupermerEncoder + 2-bit repacking
 run of consecutive k-mers (within one read) sharing a destination; shipping
 the run's L bases instead of its L-k+1 separate keys compresses the wire by
 ~(k-m)/2x. `pack_codes_2bit` is the wire of every sharded path; the
-encoders feed the supermer routing (parallel/supermer_route.py).
+encoders are the reference that the supermer route's send side on the
+device (ops/supermer, parallel/supermer_route.py) is held to.
 
 The run boundaries (destination change / read boundary / 250-base cap,
 MAX_SUPERMER_LEN at reference supermer.hpp:20), the run gather and the

@@ -24,7 +24,8 @@ Every rank runs the same collectives whether or not it holds reads: with
 fewer records than processes the last ranks read none and count nothing. Per
 rank, each result equals the JAX multi-process entry's for that process
 (extension mode by as_dict()). The stages (read_shard here, with its
-read_index part; pack, step, merge, result in the drivers) are timed inside
+read_index part; pack (the supermer step's with its feed, plan and encode
+parts), step, merge, result in the per-rank counting paths) are timed inside
 runtime/timer.record_stages.
 """
 

@@ -28,14 +28,25 @@ between hosts, every rank shares here:
     (source, destination) segment has one padded shape;
   * an all-gather of the heavy buckets' pre-counted entries.
 
-Per step, on every rank:
+Per step, on every rank, all on the rank's device but the plan:
 
-  partition -> flatten -> destination scan (ops/minimizer on the rank's
-  device) -> sizes, classification, assignment -> heavy pre-count (host
-  numpy) -> supermer streams per destination rank (io/supermer) -> 2-bit
-  segments -> all_to_all (parallel/exchange) -> one flat unpack and the
-  validity of each received segment (ops/wire) -> key build -> radix sort
-  -> fused count -> compact and gather of every rank's list
+  the 2-bit wire of the rank's reads (pipeline.wire_batch) -> decode
+  (ops/wire) -> destination scan (ops/minimizer) -> bucket sizes
+  (dispatch.bucket_sizes_device, one all-reduce) -> classification and
+  assignment on the host (num_buckets integers) -> heavy pre-count (key
+  build, radix sort and fused count over the heavy positions; only the
+  distinct heavy keys reach the host, one all-gather) -> the run table
+  (ops/supermer.run_table) -> per-destination layout (torch ops; segment
+  dims by one all-reduce MAX) -> the segment pack (ops/supermer.
+  pack_segments) -> all_to_all (parallel/exchange) -> one flat unpack and
+  the validity of each received segment (ops/wire) -> key build -> radix
+  sort -> fused count -> compact and gather of every rank's list
+
+The send tensor is bit for bit the one the host encoder builds from the
+same share (io/supermer.encode_supermer_streams[_ext] + `_segments`, the
+JAX package's route): those host functions, with `host_destinations`,
+`host_canonical_words` and `heavy_precount`, stay here as the reference
+the tests hold the device send side to, and no route calls them.
 
 count_reads_supermer, count_reads_supermer_exchange and
 count_reads_supermer_ext are the JAX entries with `mesh` replaced by
@@ -60,9 +71,11 @@ multi-process entries. Their streams batch the rank's own reads, the batch
 count agreed by all-reduce MAX (a rank that runs out feeds empty batches),
 the assignment fixed on batch 0 as above.
 
-The slice adds no device kernel: the path launches the key build (the
-m-mer words of the destination scan, the k-mer words), the radix sort and
-the fused count, and in streaming the run merge and the weighted run-length
+The send side launches two kernels of its own, the run table
+(csrc/supermer_runs.cu) and the segment pack (csrc/supermer_pack.cu);
+besides them the path launches the key build (the m-mer words of the
+destination scan, the heavy keys, the k-mer words), the radix sort and the
+fused count, and in streaming the run merge and the weighted run-length
 sum.
 """
 
@@ -75,10 +88,10 @@ import torch
 import torch.distributed as dist
 
 from ..config import KmerConfig
-from ..io import fasta as fasta_io
 from ..io import supermer as supermer_io
-from ..ops import keybuild, minimizer, radix_sort, wire
-from ..pipeline import KmerList, host_histogram, resolve_device, to_host
+from ..ops import fused_count, keybuild, minimizer, radix_sort, wire
+from ..ops import supermer as supermer_ops
+from ..pipeline import KmerList, host_histogram, resolve_device, to_host, wire_batch
 from ..runtime.scheduler import ExtPartialStore
 from ..runtime.timer import stage
 from . import dispatch, exchange
@@ -92,6 +105,7 @@ __all__ = [
     "count_reads_supermer_ext",
     "count_reads_supermer_exchange",
     "count_reads_supermer_streaming",
+    "heavy_precount_device",
     "host_destinations",
     "wire_nbytes",
 ]
@@ -277,19 +291,26 @@ def split_stream(
 
 
 # --------------------------------------------------------------------------
-# The driver, in the stages chip_smoke.py times one by one.
+# The supermer step. Its stage spans (runtime/timer.stage) are what chip_smoke.py's
+# phase 11(a) stage line and the CLI's multi-process line read.
 
 
-def _plan(dest: np.ndarray, flat_valid: np.ndarray, cfg: KmerConfig, assign,
+def _plan(dest: torch.Tensor, valid: torch.Tensor, cfg: KmerConfig, assign,
           classify: bool, dev, group) -> tuple[np.ndarray, np.ndarray]:
-    """(types, assign): the global bucket sizes by one all-reduce, the
-    heavy buckets where `classify` and cfg.classifier ask for them, and the
-    bucket -> rank assignment where `assign` is None (heavy buckets carry
-    no dispatch load). Every rank computes the same."""
+    """(types, assign): the global bucket sizes, counted on the device
+    (dispatch.bucket_sizes_device) and summed by one all-reduce on the
+    collective device, the heavy buckets where `classify` and
+    cfg.classifier ask for them, and the bucket -> rank assignment where
+    `assign` is None (heavy buckets carry no dispatch load). Only the
+    num_buckets sizes reach the host; every rank computes the same."""
     num_shards = dist.get_world_size(group)
     num_buckets = sharded._num_buckets(cfg, num_shards)
-    sizes = np.bincount(dest[flat_valid.astype(bool)], minlength=num_buckets)
-    sizes = sharded._all_reduce_host(sizes, dist.ReduceOp.SUM, dev, group)
+    with stage("sizes", dev):
+        sizes = dispatch.bucket_sizes_device(dest, valid, num_buckets).to(torch.int64)
+    with stage("sizes all_reduce", dev):
+        sizes = sizes.to(group_mod.collective_device(dev, group))
+        dist.all_reduce(sizes, op=dist.ReduceOp.SUM, group=group)
+        sizes = sizes.cpu().numpy()
     types = np.zeros(num_buckets, np.int32)
     if classify and cfg.classifier == "heavy_hitter":
         types = dispatch.classify(sizes, cfg.heavy_ratio)
@@ -300,6 +321,42 @@ def _plan(dest: np.ndarray, flat_valid: np.ndarray, cfg: KmerConfig, assign,
         else:
             assign = dispatch.round_robin_assignment(num_buckets, num_shards)
     return types, assign
+
+
+def heavy_precount_device(
+    codes: torch.Tensor,
+    valid: torch.Tensor,
+    dest: torch.Tensor,
+    types: np.ndarray,
+    assign: torch.Tensor,
+    k: int,
+    num_shards: int,
+) -> tuple[torch.Tensor, list[tuple[np.ndarray, np.ndarray]]]:
+    """`heavy_precount` where the rank's codes lie: the heavy positions
+    (valid, in a HEAVY bucket) keyed by the key build over that mask, the
+    keys with their owner rank (assign[dest]) as a payload row sorted by
+    one radix sort and counted by the fused count; only the distinct heavy
+    keys, their counts and owners cross to the host, split there per owner.
+    Returns (valid without the heavy positions, [(keys (E, W) uint32
+    ascending in unsigned order, counts int64)] per rank), as
+    heavy_precount."""
+    heavy_types = torch.from_numpy(types == dispatch.HEAVY).to(dest.device)
+    heavy = valid & heavy_types[dest.to(torch.int64)]
+    pos = torch.nonzero(heavy).squeeze(1)
+    words = [w[pos] for w in keybuild.canonical_keys_fused(codes, heavy, k)]
+    owner = assign[dest[pos].to(torch.int64)]
+    keys = np.zeros((0, len(words)), np.uint32)
+    counts = owners = np.zeros(0, np.int64)
+    if pos.numel():
+        words_s, (owner_s,) = radix_sort.sort_words(words, [owner])
+        cnt, head = fused_count.run_length_count_filter(words_s, 1, 2**31 - 1)
+        idx = torch.nonzero(head).squeeze(1)
+        keys, counts, owners = to_host([torch.stack([x[idx] for x in words_s], dim=-1),
+                                        cnt[idx], owner_s[idx]])
+        keys = keys.view(np.uint32)
+    per_shard = [(keys[owners == s], counts[owners == s].astype(np.int64))
+                 for s in range(num_shards)]
+    return valid & ~heavy, per_shard
 
 
 def _encode(flat_codes, flat_valid, shard_of, cfg: KmerConfig, num_shards: int,
@@ -371,12 +428,16 @@ def _count_received(recv, cfg: KmerConfig, block_len: int, lmax: int):
     """Receive side: decode, key build, radix sort (rid and pos ride as
     payload rows in extension mode), fused count. Returns (sorted words,
     cnt, keep, sorted payloads)."""
-    codes, valid, payloads = _decode_received(recv, cfg, block_len, lmax)
-    marked = keybuild.canonical_keys_fused(codes, valid, cfg.k)
-    del codes, valid
-    words_s, pay_s = radix_sort.sort_words(marked, payloads)
-    del marked, payloads
-    cnt, keep = sharded._count_merged(words_s, cfg)
+    dev = recv.device
+    with stage("receive decode + keybuild", dev):
+        codes, valid, payloads = _decode_received(recv, cfg, block_len, lmax)
+        marked = keybuild.canonical_keys_fused(codes, valid, cfg.k)
+        del codes, valid
+    with stage("radix sort", dev):
+        words_s, pay_s = radix_sort.sort_words(marked, payloads)
+        del marked, payloads
+    with stage("fused count", dev):
+        cnt, keep = sharded._count_merged(words_s, cfg)
     return words_s, cnt, keep, pay_s
 
 
@@ -393,36 +454,83 @@ class _Step:
     dims: tuple[int, int]  # (block_len, lmax)
 
 
+def _device_send(codes: torch.Tensor, valid: torch.Tensor, shard_of: torch.Tensor,
+                 read_lengths: torch.Tensor, cfg: KmerConfig, num_shards: int,
+                 read_id_offset: int, ext: bool, dev, group, min_dims=(0, 1)):
+    """The send tensor of `_segments(_encode(...))`, built on the rank's
+    device: the run table (ops/supermer.run_table), the per-destination
+    layout, the segment dims (the most of any rank by one all-reduce MAX,
+    pinned from below by min_dims), in extension mode each run's headers
+    from the read lengths, then the segment pack (ops/supermer.
+    pack_segments). Returns (send, block_len, lmax)."""
+    with stage("run table", dev):
+        starts, kmers, run_dest = supermer_ops.run_table(valid, shard_of,
+                                                         supermer_ops.max_kmers(cfg.k))
+    with stage("layout", dev):
+        layout = supermer_ops.segment_layout(starts, kmers, run_dest, cfg.k, num_shards)
+        del starts, kmers, run_dest
+    with stage("dims all_reduce", dev):
+        cmax, smax = sharded._all_reduce_host(np.array([layout.cmax, layout.smax]),
+                                              dist.ReduceOp.MAX, dev, group)
+    block_len, lmax = supermer_ops.segment_dims(int(cmax), int(smax), cfg.pad_multiple,
+                                                min_dims)
+    headers = ()
+    if ext:
+        with stage("run headers", dev):
+            headers = supermer_ops.run_headers(layout.src, read_lengths, read_id_offset)
+    with stage("segment pack", dev):
+        send = supermer_ops.pack_segments(codes, layout, block_len, lmax, headers)
+    return send, block_len, lmax
+
+
 def _supermer_step(codes, lengths, cfg: KmerConfig, group, dev, *, assign=None,
                    read_id_offset: int = 0, min_dims=(0, 1)) -> _Step:
     """One pass of the route on this rank's own reads (codes, lengths), read
     ids from read_id_offset, with the collectives every rank runs whether or
     not it holds reads. `assign` fixes the bucket -> rank assignment
     (streaming, after batch 0); extension mode has no classifier, as in the
-    JAX package."""
+    JAX package. The send side runs on the rank's device: the reads cross
+    once as the 2-bit wire (pipeline.wire_batch; the rank's own block, so
+    no agreed dims) and only the bucket sizes and, with a heavy bucket, the
+    distinct heavy keys come back to the host."""
     ext = cfg.extension
     num_shards = dist.get_world_size(group)
+    # The pack's parts are stages of their own: "feed" (wire and decode),
+    # "plan" (scan, sizes, plan, heavy pre-count), "encode" (the send side),
+    # each split further into the spans inside it.
     with stage("pack", dev):
-        lens = np.asarray(lengths).astype(np.int32)
-        flat_codes, flat_valid = fasta_io.flatten_for_device(codes, lens, cfg.k,
-                                                             cfg.pad_multiple)
-        dest = host_destinations(flat_codes, cfg.k, cfg.m,
-                                 sharded._num_buckets(cfg, num_shards), dev)
-        types, assign = _plan(dest, flat_valid, cfg, assign, not ext, dev, group)
-        heavy = None
-        if (types == dispatch.HEAVY).any():
-            flat_valid, per_shard = heavy_precount(flat_codes, flat_valid, dest, types,
-                                                   assign, cfg.k, num_shards, dev)
-            heavy = _allgather_entry_lists(per_shard, group, dev)
-        streams = _encode(flat_codes, flat_valid, assign[dest], cfg, num_shards, lens,
-                          read_id_offset, ext)
-        del flat_codes, flat_valid, dest
-        send, block_len, lmax = _segments(streams, cfg, dev, group, min_dims)
-        del streams
+        with stage("feed", dev):
+            lens = np.asarray(lengths).astype(np.int32)
+            with stage("wire feed", dev):  # pipeline.stage_wire's spans, then H2D
+                packed, lens_d, n = wire_batch(codes, lens, cfg, dev)
+            with stage("wire decode", dev):
+                codes_d, valid = wire.decode_block(packed, lens_d, cfg.k, n)
+                del packed
+        with stage("plan", dev):
+            with stage("scan", dev):
+                dest = minimizer.kmer_destinations(codes_d, cfg.k, cfg.m,
+                                                   sharded._num_buckets(cfg, num_shards))
+            types, assign = _plan(dest, valid, cfg, assign, not ext, dev, group)
+            assign_d = torch.from_numpy(np.asarray(assign, dtype=np.int32)).to(dev)
+            heavy = None
+            if (types == dispatch.HEAVY).any():
+                with stage("heavy pre-count", dev):
+                    valid, per_shard = heavy_precount_device(
+                        codes_d, valid, dest, types, assign_d, cfg.k, num_shards)
+                    heavy = _allgather_entry_lists(per_shard, group, dev)
+        with stage("encode", dev):
+            with stage("destination ranks", dev):
+                shard_of = assign_d[dest.to(torch.int64)]
+                del dest
+            send, block_len, lmax = _device_send(codes_d, valid, shard_of, lens_d, cfg,
+                                                 num_shards, read_id_offset, ext, dev,
+                                                 group, min_dims)
+            del codes_d, valid, shard_of, lens_d
     with stage("step", dev):
-        recv, _, _ = exchange.all_to_all_exchange(send, [send.shape[2]] * num_shards,
-                                                  group)
-        del send
+        with stage("exchange", dev):
+            recv, _, _ = exchange.all_to_all_exchange(
+                send, [send.shape[2]] * num_shards, group)
+            del send
         words, cnt, keep, pay = _count_received(recv, cfg, block_len, lmax)
     return _Step(words, cnt, keep, pay, heavy, assign, (block_len, lmax))
 

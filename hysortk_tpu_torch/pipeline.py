@@ -40,6 +40,7 @@ from .ops import merge as merge_ops
 from .ops import radix_sort
 from .ops import run_length_sum
 from .ops import wire
+from .runtime.timer import stage
 
 
 @dataclasses.dataclass
@@ -365,13 +366,15 @@ def stage_wire(
     if n % 16 or n < total + 16:
         raise ValueError(f"feed_wire: {n} slots for {total} bases (need a multiple of "
                          f"16 with 16 to spare)")
-    packed = host_staging((n // 16,), torch.int32, dev)
-    supermer_io.pack_codes_2bit_into(codes, packed.numpy())
     r = int(np.size(lengths))
-    lens = host_staging((max(r, lmax),), torch.int32, dev)
-    lens_np = lens.numpy()
-    lens_np[:r] = lengths
-    lens_np[r:] = 0
+    with stage("staging"):
+        packed = host_staging((n // 16,), torch.int32, dev)
+        lens = host_staging((max(r, lmax),), torch.int32, dev)
+    with stage("host pack"):
+        supermer_io.pack_codes_2bit_into(codes, packed.numpy())
+        lens_np = lens.numpy()
+        lens_np[:r] = lengths
+        lens_np[r:] = 0
     return packed, lens
 
 

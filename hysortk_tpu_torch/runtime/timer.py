@@ -11,8 +11,10 @@ Device-level profiling uses torch.profiler traces (runtime/profiling.py)
 instead of the reference's manual Wtime hooks.
 
 `stage` spans mark the counting paths' stages (the sharded drivers' pack,
-step, merge and result, the multi-process entries' read_shard and its
-read_index). They cost nothing unless a caller asks: inside
+step, merge and result; the supermer step's feed, plan and encode and the
+spans inside them, down to each kernel's; the wire feed's pinned staging
+and host pack; the kernel library's first load; the multi-process entries'
+read_shard and its read_index). They cost nothing unless a caller asks: inside
 `record_stages()` each span adds its seconds, ended by a synchronize of its
 device, to the dict that the block yields, per process, in the order the
 spans were entered (a span inside another comes after it).

@@ -692,7 +692,8 @@ def mix_case_words(kind: str, n_words: int, n: int, seed: int) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# Supermer routing's hard cases: the encoder (io/supermer), the run headers'
+# Supermer routing's hard cases: the encoder (io/supermer) and its device
+# twins (ops/supermer: the run table, the segment pack), the run headers'
 # fill (ops/wire.fill_run_meta) and the route's heavy pre-count. The CPU
 # tests hold them against the JAX package; chip_smoke.py phase 11 runs them
 # on the card.
@@ -758,6 +759,62 @@ def supermer_case_dest(kind: str, n: int, num_dest: int, seed: int) -> np.ndarra
     return np.repeat(vals, reps)[:n].astype(np.int32)
 
 
+RUN_TABLE_TILE = 4096  # csrc/supermer_runs.cu's positions a tile
+
+
+def run_table_cases() -> list[tuple[str, np.ndarray, np.ndarray, int]]:
+    """(name, valid bool, destination int32, max_kmers) of the run table's
+    hard cases, at sizes around the kernel's tile (RUN_TABLE_TILE):
+
+    all_invalid   no valid position (no run; every carry empty)
+    one_stretch   every position valid, one destination, over three tiles
+                  and a ragged fourth: the cap cuts a stretch whose head is
+                  tiles to the left
+    cap_one       max_kmers = 1: every valid position a run of one k-mer
+    alternating   the destination changes at every position
+    tile_edges    stretches and destination changes that end and begin at
+                  tile edges, a lone valid position on each side of an edge
+    first_last    only the first and the last position valid
+    one           n = 1, valid
+    random        ~90% valid, destinations in stretches of 1 to 400, over
+                  five tiles, max_kmers of K=95
+    sparse        ~10% valid in short stretches (gaps everywhere)
+    """
+    t = RUN_TABLE_TILE
+    rng = np.random.default_rng(67)
+    cases = []
+
+    def add(name, valid, dest, m):
+        cases.append((name, np.asarray(valid, bool), np.asarray(dest, np.int32), m))
+
+    n = 3 * t + 517
+    add("all_invalid", np.zeros(n, bool), rng.integers(0, 4, n), 236)
+    add("one_stretch", np.ones(n, bool), np.zeros(n), 236)
+    add("cap_one", rng.random(n) < 0.7, rng.integers(0, 2, n), 1)
+    add("alternating", np.ones(n, bool), np.arange(n) % 2, 236)
+    valid = np.zeros(n, bool)
+    dest = np.zeros(n, np.int32)
+    valid[t - 300: t] = True  # ends at the first edge
+    valid[t: t + 200] = True  # begins there, with another destination
+    dest[t: t + 200] = 1
+    valid[2 * t - 1] = valid[2 * t] = True  # a lone position each side
+    dest[2 * t] = 2
+    valid[2 * t + 5: 3 * t + 300] = True  # crosses the third edge
+    add("tile_edges", valid, dest, 236)
+    valid = np.zeros(n, bool)
+    valid[[0, n - 1]] = True
+    add("first_last", valid, np.zeros(n), 236)
+    add("one", np.ones(1, bool), np.zeros(1), 236)
+    n = 5 * t + 77
+    reps = rng.integers(1, 401, n)
+    add("random", rng.random(n) < 0.9,
+        np.repeat(rng.integers(0, 4, n), reps)[:n], 156)
+    reps = rng.integers(1, 30, n)
+    add("sparse", np.repeat(rng.random(n) < 0.1, reps)[:n],
+        np.repeat(rng.integers(0, 3, n), reps)[:n], 17)
+    return cases
+
+
 def fill_meta_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int]]:
     """(name, lengths int32, rid0 int32, pos0 uint32, n) of every
     fill_run_meta case:
@@ -801,7 +858,9 @@ def fill_meta_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int
 # package).
 
 
-SUPERMER_COUNTED = ("_supermer_step", "heavy_precount")  # in supermer_route
+# In supermer_route: the step, the device heavy pre-count the step runs,
+# and the host one it no longer runs.
+SUPERMER_COUNTED = ("_supermer_step", "heavy_precount_device", "heavy_precount")
 # The extension streams' device merge and host merge, as the scheduler's
 # ExtPartialStore calls them.
 SCHEDULER_COUNTED = ("merge_ext_partials_device", "merge_ext_partials")
@@ -815,7 +874,8 @@ def call_counters(stack, pipeline_mod) -> dict:
     """Count the calls of the step bodies (the overflow retry and the
     combiner re-run show in them), of the sharded entries (the facade's
     choice shows in them), of the supermer route's step and heavy
-    pre-count, and of the extension streams' device and host merges."""
+    pre-counts (device and host), and of the extension streams' device
+    and host merges."""
     from unittest import mock
 
     from .parallel import supermer_route

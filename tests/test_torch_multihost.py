@@ -255,8 +255,9 @@ def test_multihost_matches_jax_per_rank(results, scenario, ws):
     if name.startswith("supermer") or kind.startswith(SM_ONE):
         assert calls["_supermer_step"] >= 1
         assert sum(n for b, n in calls.items() if b.startswith("_shard_body")) == 0
-    if "heavy" in name and kind.startswith(SM_ONE):
-        assert calls["heavy_precount"] >= 1
+    if "heavy" in name and kind.startswith(SM_ONE):  # pre-counted on the device
+        assert calls["heavy_precount_device"] >= 1
+    assert calls["heavy_precount"] == 0  # the host pre-count is off the route
     if ext and kind in (EXT_STREAM, SM_STREAM):  # one merge, on the device
         assert calls["merge_ext_partials_device"] == 1
         assert calls["merge_ext_partials"] == 0

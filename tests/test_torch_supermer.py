@@ -449,11 +449,13 @@ def test_supermer_route_matches_jax(port_results, scenario):
     if kind in (ONE_SHOT, SEXT) or kind.startswith("count_reads_supermer") and \
             "stream" not in kind:
         assert calls["_supermer_step"] == 1
-    # The pre-count runs exactly where the JAX classifier flags a bucket
-    # (never in extension mode, nor under the plain classifier).
+    # The pre-count runs on the device exactly where the JAX classifier
+    # flags a bucket (never in extension mode, nor under the plain
+    # classifier); the host pre-count never runs.
     heavy = (not fields.get("extension") and fields.get("classifier") != "plain"
              and _jax_flags_heavy(ws, reads_kind, fields, opts.get("batch_bases")))
-    assert bool(calls["heavy_precount"]) == heavy
+    assert bool(calls["heavy_precount_device"]) == heavy
+    assert calls["heavy_precount"] == 0
     if name in HEAVY:
         assert heavy
     if name == "heavy_filtered":
