@@ -98,10 +98,19 @@ build/kernels/ at first use. Phases, each printing its findings:
      combiner forced on two spawned ranks, on the first 2^24 bases; each
      result equal to the one-shot result on the same reads after sorting by
      key, histogram included; per rank the walls, the peak device memory,
-     the bytes sent, the time in the exchange and the kernels' launches
+     the bytes sent, the time in the exchange and the kernels' launches;
+     (a)'s stage line splits the result into its spans (compaction + unmix
+     and the rank's histogram on the card, the gather, the one copy-out,
+     the histogram's all-reduce)
  10  the rest of the sharded pipeline on phase 2's reads and configuration:
      (a) count_reads_sharded_streaming, one rank with NCCL, in batches of
-     2^24 bases (the final merge timed); (b) the same on two spawned ranks
+     2^24 bases (the final merge timed; then a call under the stage spans:
+     the partials held and drained with their bytes, the hold, the merge's
+     parts (concatenate, merge runs, run-length sum + filter), the result's
+     parts and the peak device memory; then a call whose store's budget
+     check reads no room from batch 1 on, so batch 0's held partial and
+     every later one drain to the host and the host merge finishes, equal
+     to the held run); (b) the same on two spawned ranks
      sharing the card over gloo; (c) count_reads_sharded_ext, one rank at
      2^26 bases against phase 8(a), then on two ranks on phase 8(c)'s 2^24
      bases one-shot and count_reads_sharded_ext_streaming in batches of
@@ -113,8 +122,8 @@ build/kernels/ at first use. Phases, each printing its findings:
      mode. Each result exactly equal to its reference after sorting by key
      (extension mode: every occurrence as sorted (key, rid, pos) rows); no
      run calls the host flatten (every extension route feeds the wire) or
-     the host merge (the extension streams merge on the card, their merge
-     kernels launched); per rank the wall, the peak device memory, the step
+     the host merge (the streams merge on the card, their merge kernels
+     launched); per rank the wall, the peak device memory, the step
      passes, the bytes sent and the kernels' launches
  11  supermer routing (parallel/supermer_route.py: wire feed and decode,
      destination scan, bucket sizes on the card, classification and
@@ -2393,6 +2402,12 @@ def log_sharded(tag: str, ranks: list[dict], n_kept: int) -> None:
         f"one-shot result after sorting by key")
 
 
+# The spans of a sharded result (parallel/pipeline._rank_list and
+# _gather_list) that 9(a)'s, 10(a)'s and 11(a)'s lines must show.
+RESULT_SPANS = ("result", "compaction + unmix", "gather", "copy-out", "histogram",
+                "histogram all_reduce")
+
+
 def phase9_stages(codes, lengths, cfg) -> None:
     """One rank's sharded call stage by stage, a synchronize after each
     (inside phase 9(a)'s group: the exchange is one rank's)."""
@@ -2401,6 +2416,7 @@ def phase9_stages(codes, lengths, cfg) -> None:
     from hysortk_tpu_torch.ops import keybuild, mixkey, radix_sort, wire
     from hysortk_tpu_torch.parallel import exchange
     from hysortk_tpu_torch.parallel import pipeline as sharded
+    from hysortk_tpu_torch.runtime import timer
 
     stages = []
 
@@ -2438,9 +2454,19 @@ def phase9_stages(codes, lengths, cfg) -> None:
                 mixed_s, [], valid_d.sum(), cfg, 1, capacity))
         del mixed_s
         cnt, keep = timed("fused count", lambda: sharded._count_merged(merged, cfg))
-        timed("compact + D2H + unmix + all_gather + histogram",
-              lambda: sharded._gather_result(merged, cnt, keep, cfg, None, True))
+
+        def result():  # under its own spans
+            with timer.record_stages() as seconds:
+                sharded._gather_result(merged, cnt, keep, cfg, None, True)
+            return seconds
+
+        parts = timed("result", result)
+        stages.append("(" + "; ".join(f"{name} {sec * 1e3:.1f}" for name, sec in
+                                      parts.items() if name != "result") + ")")
         del codes_d, valid_d, merged, cnt, keep
+    missing = [name for name in RESULT_SPANS if name not in parts]
+    if missing:
+        raise AssertionError(f"phase 9(a)'s result entered no {missing} span")
     log(f"phase9a stages of one sharded call, second of two, ms: {'; '.join(stages)} "
         f"(the exchange itself {exchange.traffic['seconds'] * 1e3:.1f})")
 
@@ -2560,9 +2586,10 @@ def require_same_ext(what: str, got, want, want_rows=None) -> None:
 def phase10_call(entry: str, codes, lengths, fields: dict, args: tuple = (),
                  kwargs: dict | None = None) -> dict:
     """One call of a sharded entry under fresh counters (sharded_run_stats)
-    with its step passes counted, the streaming final merge timed and the
-    calls of the extension-mode host flatteners (the feed of the bucketed
-    routes before the wire) counted."""
+    with its step passes counted, the streaming final merge timed, the
+    streams' partials held and drained (scheduler.partials) and the calls
+    of the extension-mode host flatteners (the feed of the bucketed routes
+    before the wire) counted."""
     import contextlib
     from unittest import mock
 
@@ -2572,10 +2599,11 @@ def phase10_call(entry: str, codes, lengths, fields: dict, args: tuple = (),
     from hysortk_tpu_torch import testing
     from hysortk_tpu_torch.io import fasta as fasta_io
     from hysortk_tpu_torch.parallel import pipeline as sharded
+    from hysortk_tpu_torch.runtime import scheduler
 
     cfg = ht.KmerConfig(**fields)
     merge_ms = []
-    real_merge = sharded._merge_partials
+    real_merge = sharded._merge_held
 
     def timed_merge(*a, **k):
         torch.cuda.synchronize()
@@ -2594,11 +2622,13 @@ def phase10_call(entry: str, codes, lengths, fields: dict, args: tuple = (),
 
     with contextlib.ExitStack() as stack:
         calls = testing.call_counters(stack, sharded)
-        stack.enter_context(mock.patch.object(sharded, "_merge_partials", timed_merge))
+        stack.enter_context(mock.patch.object(sharded, "_merge_held", timed_merge))
         stack.enter_context(counted(fasta_io, "flatten_for_device_ext"))
         stack.enter_context(counted(sharded, "build_ext_blocks"))
+        scheduler.reset_partials()
         stats = sharded_run_stats(lambda: getattr(sharded, entry)(
             codes, lengths, cfg, *args, **(kwargs or {})), 1)
+    stats["partials"] = dict(scheduler.partials)
     stats["host_flattens"] = len(flattens)
     stats["passes"] = sum(n for name, n in calls.items() if "_shard_body" in name)
     stats["calls"] = dict(calls)
@@ -2710,10 +2740,84 @@ def phase10_minimizer_stages(codes, lengths, cfg) -> None:
         words_s, _ = timed("receive sort", lambda: radix_sort.sort_words(rows))
         del rows
         cnt, keep = timed("fused count", lambda: sharded._count_merged(words_s, cfg))
-        timed("compact + D2H + all_gather + histogram",
+        timed("result (compaction, gather, copy-out, histogram)",
               lambda: sharded._gather_result(words_s, cnt, keep, cfg, None, False))
         del codes_d, valid_d, words_s, cnt, keep, packed, lens
     log(f"phase10d stages of one minimizer call, second of two, ms: {'; '.join(stages)}")
+
+
+def phase10_stream_parts(codes, lengths, cfg, one_shot, a: dict) -> None:
+    """10(a)'s stream twice more, inside phase 10's one-rank group: under its
+    stage spans (runtime/timer.record_stages), with the partials held and
+    drained and the peak device memory; then with the budget check of its
+    store reading no room from its second check on (batch 1), so that batch
+    0's held partial drains to the host with every later one and the host
+    merge finishes: the drain logged, its result equal to the held run's
+    and the one-shot result."""
+    import contextlib
+    import logging
+    from unittest import mock
+
+    import torch
+
+    from hysortk_tpu_torch.parallel import pipeline as sharded
+    from hysortk_tpu_torch.runtime import memcheck, scheduler, timer
+
+    if a["partials"]["drained"] or not a["partials"]["held"]:
+        raise AssertionError(f"phase 10(a) drained: {a['partials']}")
+    scheduler.reset_partials()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timer.record_stages() as seconds:
+        held = sharded.count_reads_sharded_streaming(codes, lengths, cfg, STREAM_BATCH)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require_same_result("phase 10(a) under its spans", held, one_shot)
+    missing = [name for name in RESULT_SPANS + ("hold", "merge", "concatenate",
+                                                "merge runs", "run-length sum + filter")
+               if name not in seconds]
+    if missing:
+        raise AssertionError(f"phase 10(a)'s stream entered no {missing} span")
+    parts = dict(scheduler.partials)
+    log(f"phase10a stream under its spans (wall {wall * 1e3:.1f} ms; partials held "
+        f"{parts['held']} ({parts['held_bytes'] / 2**20:.1f} MiB), drained "
+        f"{parts['drained']}; peak device memory {peak / 2**30:.3f} GiB, "
+        f"{peak / max(parts['held_bytes'], 1):.1f}x the held bytes), ms: "
+        + "; ".join(f"{name} {sec * 1e3:.1f}" for name, sec in seconds.items()))
+
+    real, checks = memcheck.hbm_headroom_bytes, []
+
+    def no_room_after_batch0(device, safety=0.9):
+        checks.append(device)
+        return real(device, safety) if len(checks) == 1 else 0
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    stream_log = logging.getLogger("hysortk_tpu_torch.stream")
+    scheduler.reset_partials()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(memcheck, "hbm_headroom_bytes",
+                                              no_room_after_batch0))
+        stream_log.addHandler(handler)
+        stack.callback(stream_log.removeHandler, handler)
+        t0 = time.perf_counter()
+        drained = sharded.count_reads_sharded_streaming(codes, lengths, cfg, STREAM_BATCH)
+        wall = time.perf_counter() - t0
+    parts = dict(scheduler.partials)
+    n_batches = len(scheduler.read_batch_spans(lengths, STREAM_BATCH))
+    if parts != {"held": 0, "held_bytes": 0, "drained": n_batches}:
+        raise AssertionError(f"phase 10(a)'s forced drain: partials {parts}")
+    if not any("drained to the host" in r.getMessage() for r in records):
+        raise AssertionError("phase 10(a)'s forced drain logged no warning")
+    if not (np.array_equal(drained[0].keys, held[0].keys)
+            and np.array_equal(drained[0].counts, held[0].counts)
+            and np.array_equal(drained[1], held[1])):
+        raise AssertionError("phase 10(a)'s forced drain differs from the held run")
+    log(f"phase10a forced drain at batch 1: {n_batches} partials drained to the host "
+        f"merge (logged), wall {wall:.4f} s, keys, counts and histogram equal to the "
+        f"held run")
 
 
 def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
@@ -2752,6 +2856,7 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
         a["backend"] = "nccl"
         log_phase10("a", f"count_reads_sharded_streaming, {int(codes.size)} bases in "
                     f"batches of {STREAM_BATCH}", [a], len(one_shot[0]), stream_needed)
+        phase10_stream_parts(codes, lengths, cfg, one_shot, a)
         torch.cuda.empty_cache()
         c = phase10_call("count_reads_sharded_ext", codes, lengths, ext)
         if c["host_flattens"]:
@@ -2821,14 +2926,18 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
 
 
 def no_host_merge(phase: int, tag: str, stats: list[dict]) -> None:
-    """A spawned run's ranks merged their extension partials on the card
-    only: the host merge is the drain's, and nothing here drains."""
-    merges = [(st["calls"]["merge_ext_partials_device"], st["calls"]["merge_ext_partials"])
-              for st in stats]
-    if any(host for _, host in merges):
-        raise AssertionError(f"phase {phase}({tag}) took the host merge: {merges}")
-    if any(device for device, _ in merges):
-        log(f"phase{phase}{tag} extension merges per rank (device, host): {merges}")
+    """A spawned run's ranks merged their streams' partials (extension or
+    key) on the card only: the host merge is the drain's, and nothing here
+    drains."""
+    for what in ("ext", "key"):
+        merges = [(st["calls"][f"merge_{what}_partials_device"],
+                   st["calls"][f"merge_{what}_partials"]) for st in stats]
+        if any(host for _, host in merges):
+            raise AssertionError(f"phase {phase}({tag}) took the host merge of {what} "
+                                 f"partials: {merges}")
+        if any(device for device, _ in merges):
+            log(f"phase{phase}{tag} {what} partial merges per rank (device, host): "
+                f"{merges}; partials {[st['partials'] for st in stats]}")
 
 
 def run_spawned(workdir, phase: int, spawns: dict, inputs: dict, ext_ref, ext_rows,
@@ -3092,7 +3201,7 @@ SUPERMER_SPANS = (
     "pack", "feed", "wire feed", "staging", "host pack", "wire decode", "plan", "scan",
     "sizes", "sizes all_reduce", "encode", "destination ranks", "run table", "layout",
     "dims all_reduce", "segment pack", "step", "exchange", "receive decode + keybuild",
-    "radix sort", "fused count", "result")
+    "radix sort", "fused count") + RESULT_SPANS
 
 
 def phase11_stages(codes, lengths, cfg, range_traffic, wire_info) -> None:

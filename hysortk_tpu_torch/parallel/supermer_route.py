@@ -91,8 +91,8 @@ from ..config import KmerConfig
 from ..io import supermer as supermer_io
 from ..ops import fused_count, keybuild, minimizer, radix_sort, wire
 from ..ops import supermer as supermer_ops
-from ..pipeline import KmerList, host_histogram, resolve_device, to_host, wire_batch
-from ..runtime.scheduler import ExtPartialStore
+from ..pipeline import host_histogram, resolve_device, to_host, wire_batch
+from ..runtime.scheduler import ExtPartialStore, KeyPartialStore
 from ..runtime.timer import stage
 from . import dispatch, exchange
 from . import group as group_mod
@@ -239,21 +239,24 @@ def _allgather_entry_lists(
     return out
 
 
-def _append_heavy_entries(
-    kmerlist: KmerList, entries: tuple[np.ndarray, np.ndarray], cfg: KmerConfig
-) -> KmerList:
-    """Filter summed heavy entries by [L, U] and append them to a KmerList
-    (the entry key set is disjoint from the device's)."""
+def _heavy_tail(entries: tuple[np.ndarray, np.ndarray], cfg: KmerConfig):
+    """Summed heavy entries filtered by [L, U]: the (keys uint32, counts
+    int32) a result appends after its device rows (the entry key set is
+    disjoint from the device's), or None where none is kept."""
     uk, cnts = entries
     keep = (cnts >= cfg.lower) & (cnts <= cfg.upper)
     if not keep.any():
-        return kmerlist
-    return KmerList(
-        keys=np.concatenate([kmerlist.keys, uk[keep]]),
-        counts=np.concatenate(
-            [kmerlist.counts, cnts[keep].astype(kmerlist.counts.dtype)]),
-        k=cfg.k,
-    )
+        return None
+    return uk[keep], cnts[keep].astype(np.int32)
+
+
+def _tail_histogram(tail, cfg: KmerConfig):
+    """The histogram of a heavy tail's counts over [0, cfg.upper] (int64),
+    or None: added once to a summed histogram, since every rank holds the
+    same summed entries."""
+    if tail is None:
+        return None
+    return host_histogram(tail[1], cfg.upper).astype(np.int64)
 
 
 def wire_nbytes(streams: list[tuple[np.ndarray, ...]]) -> int:
@@ -541,37 +544,43 @@ def _step_ext_rows(step: _Step):
     return sharded._ext_rows(step.words, step.cnt, step.keep, *step.payloads, False)
 
 
-def supermer_ext_partial(codes, lengths, cfg: KmerConfig, group, device,
-                         read_id_offset: int = 0, min_dims=(0, 1)):
+def _step_rows(step: _Step, cfg: KmerConfig) -> sharded.RankRows:
+    """A step's kept rows on the device (parallel/pipeline._rank_list)."""
+    return sharded._rank_list(step.words, step.cnt, step.keep, cfg, False,
+                              sharded._bounds(cfg)[1])
+
+
+def rank_ext_partial(codes, lengths, cfg: KmerConfig, group, device,
+                     read_id_offset: int = 0, min_dims=(0, 1)):
     """Extension mode on the global reads: the rank's share through one
-    step, then every rank's rows in rank order as one ExtPartial
-    (parallel/pipeline._gather_ext)."""
+    step, its rows as an ExtPartial on its device (_step_ext_rows)."""
     dev = group_mod.rank_device(device)
     mine, lens, first = sharded._rank_share(codes, lengths, group)
     step = _supermer_step(mine, lens, cfg, group, dev,
                           read_id_offset=read_id_offset + first, min_dims=min_dims)
-    return sharded._gather_ext(_step_ext_rows(step), group, dev)
+    return _step_ext_rows(step)
 
 
 def _supermer_one_shot(codes, lengths, cfg: KmerConfig, group, device,
                        read_id_offset: int = 0, min_dims=(0, 1)):
     """The one-shot entries on the global reads: the rank's share through
     one step, then every rank's list in rank order (the heavy entries after
-    it, as one ascending list) and its histogram, on every rank."""
-    if cfg.extension:
-        kmerlist = sharded._ext_list(supermer_ext_partial(
-            codes, lengths, cfg, group, device, read_id_offset, min_dims), cfg.k)
-        return kmerlist, host_histogram(kmerlist.counts, cfg.upper)
+    it, as one ascending list) and its histogram, on every rank: the rows
+    gathered from the cards and copied out once (parallel/pipeline.
+    _gather_list), the histogram the ranks' summed and the heavy entries'
+    added once."""
     dev = group_mod.rank_device(device)
+    if cfg.extension:
+        return sharded._ext_result(rank_ext_partial(
+            codes, lengths, cfg, group, device, read_id_offset, min_dims), cfg, group, dev)
     mine, lens, first = sharded._rank_share(codes, lengths, group)
     step = _supermer_step(mine, lens, cfg, group, dev,
                           read_id_offset=read_id_offset + first, min_dims=min_dims)
-    kmerlist = sharded._gather_list(
-        sharded._rank_list(step.words, step.cnt, step.keep, cfg, False,
-                           sharded._bounds(cfg)[1]), group, dev)
+    tail = None
     if step.heavy is not None:
-        kmerlist = _append_heavy_entries(kmerlist, _sum_entry_lists(step.heavy), cfg)
-    return kmerlist, host_histogram(kmerlist.counts, cfg.upper)
+        tail = _heavy_tail(_sum_entry_lists(step.heavy), cfg)
+    return sharded._gather_list(_step_rows(step, cfg), cfg, group, dev, tail,
+                                _tail_histogram(tail, cfg))
 
 
 def count_reads_supermer_exchange(
@@ -654,10 +663,11 @@ def count_reads_supermer_streaming(
 ):
     """Bounded-memory supermer routing across the ranks of `group`: batches
     of batch_bases (the same batches on every rank, cut from the global
-    lengths) go through the route with an UNFILTERED count; each rank keeps
-    its compacted partial (key, count) lists on the host and merges them at
-    the end (parallel/pipeline._merge_partials: merge by run bounds, the
-    weighted run-length sum, the [L, U] filter), the reference's
+    lengths) go through the route with an UNFILTERED count; each rank holds
+    its compacted partial (key, count) lists on its device and merges them
+    there at the end (runtime/scheduler.KeyPartialStore, with its budget
+    and drain: merge by run bounds, the weighted run-length sum, the [L, U]
+    filter), the reference's
     fixed-size supermer rounds (src/kmerops.cpp:587-643). Keys never change
     owner across batches: the bucket -> rank assignment is fixed on batch
     0, from batch 0's global sizes.
@@ -678,21 +688,22 @@ def count_reads_supermer_streaming(
     if async_depth is not None and async_depth < 1:
         raise ValueError(f"async_depth must be at least 1, got {async_depth}")
     dev = group_mod.rank_device(device)
-    kmerlist = _supermer_streaming(sharded._share_batches(codes, lengths, batch_bases, group),
-                                   cfg, group, dev)
-    return sharded._every_rank(kmerlist, cfg, group, dev)
+    rows = _supermer_streaming(sharded._share_batches(codes, lengths, batch_bases, group),
+                               cfg, group, dev)
+    return sharded._gather_list(rows, cfg, group, dev)
 
 
-def _supermer_streaming(batches, cfg: KmerConfig, group, dev) -> KmerList:
+def _supermer_streaming(batches, cfg: KmerConfig, group, dev) -> sharded.RankRows:
     """The streaming driver on the rank's batches, (codes, lengths, first
     read) of its own reads in each, as many on every rank
     (parallel/pipeline._share_batches, _own_batches). Returns the rank's
-    share of the filtered list, its heavy entries merged in."""
+    share of the filtered list on its device, its heavy entries merged in
+    (one small host run, uploaded once to join the merge)."""
     rank = dist.get_rank(group)
     cfg_pre = dataclasses.replace(cfg, unfiltered=True)
     assign = None
     dims = (0, 1)
-    parts, heavy = [], []
+    store, heavy = KeyPartialStore(cfg, dev), []
     for b_codes, b_lengths, _ in batches:
         step = _supermer_step(b_codes, b_lengths, cfg_pre, group, dev, assign=assign,
                               min_dims=dims)
@@ -700,15 +711,11 @@ def _supermer_streaming(batches, cfg: KmerConfig, group, dev) -> KmerList:
         dims = tuple(max(a, b) for a, b in zip(dims, step.dims))
         if step.heavy is not None and step.heavy[rank][0].shape[0]:
             heavy.append(step.heavy[rank])
-        with stage("result", dev):
-            idx = torch.nonzero(step.keep).squeeze(1)
-            parts.append(to_host([w[idx] for w in step.words] + [step.cnt[idx]]))
-        del step, idx
+        sharded._hold_kept(store, step.words, step.cnt, step.keep)
+        del step
     if assign is None:  # no reads: no rank saw a batch
-        return sharded._empty_list(cfg)
-    if heavy:
-        parts.append(_heavy_run(heavy))
-    words, total, keep = sharded._merge_partials(parts, cfg, dev)
+        return sharded._empty_rows(cfg, dev)
+    words, total, keep = sharded._merge_held(store, _heavy_run(heavy) if heavy else None)
     return sharded._rank_list(words, total, keep, cfg, False, cfg.upper)
 
 
@@ -729,21 +736,22 @@ def count_fasta_multihost_supermer(fasta_path: str, cfg: KmerConfig, group=None,
     from the index of the process's first record (the reference's
     MPI_Exscan of read counts, src/kmerops.cpp:66).
 
-    Returns (this rank's KmerList[Ext], the global histogram)."""
+    Returns (this rank's KmerList[Ext], the global histogram): the rank's
+    rows in one copy-out, the histogram from the cards summed by one
+    all-reduce, every rank's heavy entries' added once."""
     from . import multihost
 
     codes, lengths, rid_offset = multihost.read_my_records(fasta_path, group)
     dev = group_mod.rank_device(device)
     step = _supermer_step(codes, lengths, cfg, group, dev, read_id_offset=rid_offset)
     if cfg.extension:
-        kmerlist = sharded._ext_list(_step_ext_rows(step), cfg.k)
-    else:
-        kmerlist = sharded._rank_list(step.words, step.cnt, step.keep, cfg, False,
-                                      sharded._bounds(cfg)[1])
-        if step.heavy is not None:  # the rank's own entries, after its list
-            kmerlist = _append_heavy_entries(kmerlist, step.heavy[dist.get_rank(group)],
-                                             cfg)
-    return kmerlist, sharded._global_histogram(kmerlist.counts, cfg.upper, dev, group)
+        return multihost._own_ext(_step_ext_rows(step), cfg, group, dev)
+    tail = extra = None
+    if step.heavy is not None:  # the rank's own entries, after its list
+        tail = _heavy_tail(step.heavy[dist.get_rank(group)], cfg)
+        extra = _tail_histogram(_heavy_tail(_sum_entry_lists(step.heavy), cfg), cfg)
+    return sharded._own_list(_step_rows(step, cfg), cfg, group, dev, tail, extra)
+
 
 def count_fasta_multihost_supermer_streaming(fasta_path: str, cfg: KmerConfig,
                                              batch_bases: int = 1 << 26, group=None,
@@ -769,8 +777,9 @@ def count_fasta_multihost_supermer_streaming(fasta_path: str, cfg: KmerConfig,
     codes, lengths, _ = multihost.read_my_records(fasta_path, group)
     dev = group_mod.rank_device(device)
     batches = sharded._own_batches(codes, lengths, batch_bases, dev, group)
-    kmerlist = _supermer_streaming(batches, cfg, group, dev)
-    return kmerlist, sharded._global_histogram(kmerlist.counts, cfg.upper, dev, group)
+    return sharded._own_list(_supermer_streaming(batches, cfg, group, dev), cfg, group,
+                             dev)
+
 
 def _multihost_supermer_ext_streaming(fasta_path: str, cfg: KmerConfig,
                                       batch_bases: int, group=None, device="cuda"):
@@ -802,5 +811,5 @@ def _multihost_supermer_ext_streaming(fasta_path: str, cfg: KmerConfig,
         store.add(_step_ext_rows(step))
         del step
     with stage("merge", dev):
-        merged, _ = store.result()
-    return merged, sharded._global_histogram(merged.counts, cfg.upper, dev, group)
+        merged, hist = store.result()
+    return merged, multihost._summed(hist, dev, group)

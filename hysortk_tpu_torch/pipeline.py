@@ -279,14 +279,17 @@ class CopyRing:
         """The page-locked bytes the ring holds."""
         return sum(b.numel() for b in self.blocks)
 
-    def copy_out(self, tensors, dtypes) -> list[np.ndarray]:
+    def copy_out(self, tensors, dtypes, out=None) -> list[np.ndarray]:
         """tensors on one device -> C-contiguous host arrays of their shapes,
-        each of dtypes[i] where that is not None, else of the tensor's."""
+        each of dtypes[i] where that is not None, else of the tensor's: the
+        arrays of `out` where given (each C-contiguous, of its tensor's size
+        and that dtype), else fresh ones."""
         if len({t.device for t in tensors}) > 1:
             raise ValueError("a copy-out takes tensors on one device")
         srcs = [t.contiguous().reshape(-1) for t in tensors]
-        outs = [np.empty(tuple(t.shape), dtype=numpy_dtype(d or t.dtype))
-                for t, d in zip(tensors, dtypes)]
+        outs = list(out) if out is not None else [
+            np.empty(tuple(t.shape), dtype=numpy_dtype(d or t.dtype))
+            for t, d in zip(tensors, dtypes)]
         dsts = [torch.from_numpy(o.reshape(-1)) for o in outs]
         plan = copy_plan([(s.numel(), s.element_size()) for s in srcs], self.chunk_bytes)
         if not plan:
@@ -322,22 +325,39 @@ class CopyRing:
 RING = CopyRing()
 
 
-def to_host(tensors, dtypes=None) -> list[np.ndarray]:
+def to_host(tensors, dtypes=None, out=None) -> list[np.ndarray]:
     """A device result, a list of tensors on one device, as ordinary
     C-contiguous host arrays of their shapes (of dtypes[i], where given and
     not None: a narrowed count widened on the host). From CUDA the whole
     result crosses in one pass through the process's pinned ring (RING:
     at most 2 x COPY_CHUNK_BYTES = 128 MiB page-locked), into fresh arrays
     that own their memory; on the CPU each tensor is turned into an array
-    as it is, with no pinned memory."""
+    as it is, with no pinned memory. `out`, where given, holds the arrays
+    to fill instead (C-contiguous views into a caller's larger result, each
+    of its tensor's size and dtype): they are filled and returned, on the
+    CPU by one copy each."""
     tensors = list(tensors)
     dtypes = [None] * len(tensors) if dtypes is None else list(dtypes)
-    if len(dtypes) != len(tensors):
-        raise ValueError(f"{len(dtypes)} dtypes for {len(tensors)} tensors")
+    if len(dtypes) != len(tensors) or (out is not None and len(out) != len(tensors)):
+        raise ValueError(f"{len(dtypes)} dtypes and {len(out or tensors)} arrays for "
+                         f"{len(tensors)} tensors")
+    if out is not None:
+        for t, d, o in zip(tensors, dtypes, out):
+            if (o.size != t.numel() or o.dtype != numpy_dtype(d or t.dtype)
+                    or not o.flags.c_contiguous):
+                raise ValueError(f"a {o.dtype} array of {o.size} for a tensor of "
+                                 f"{t.numel()}")
     if not tensors or tensors[0].device.type == "cpu":
-        return [(t if d is None else t.to(d)).contiguous().numpy()
-                for t, d in zip(tensors, dtypes)]
-    return RING.copy_out(tensors, dtypes)
+        arrays = [(t if d is None else t.to(d)).contiguous().numpy()
+                  for t, d in zip(tensors, dtypes)]
+        if out is None:
+            return arrays
+        for o, a in zip(out, arrays):
+            o.reshape(-1)[:] = a.reshape(-1)
+        return list(out)
+    if out is None:
+        return RING.copy_out(tensors, dtypes)
+    return RING.copy_out(tensors, dtypes, out)
 
 
 def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -406,16 +426,22 @@ def compact_keys(
     return KmerList(keys=keys.view(np.uint32), counts=counts, k=k)
 
 
+def counts_histogram(counts: torch.Tensor, upper: int) -> torch.Tensor:
+    """`host_histogram` of `counts` where they lie: (upper + 1,) int64,
+    hist[c] the number of counts equal to c, by one torch.bincount. A count
+    above upper (cfg.unfiltered's results) is clamped to upper + 1, a bin
+    the slice drops, so the bincount is sized by upper, never by the
+    unfiltered bound."""
+    kept = counts.to(torch.int64).clamp(max=upper + 1)
+    return torch.bincount(kept, minlength=upper + 2)[: upper + 1]
+
+
 def device_histogram(cnt: torch.Tensor, keep_idx: torch.Tensor, upper: int) -> np.ndarray:
     """`host_histogram` of the kept counts cnt[keep_idx], computed on the
-    device: (upper + 1,) int32, hist[c] the number of kept k-mers counted c;
-    only those upper + 1 integers cross to the host. A count above upper
-    (cfg.unfiltered's results) is clamped to upper + 1, a bin the slice
-    drops, so the bincount is sized by upper, never by the unfiltered
-    bound."""
+    device (counts_histogram): (upper + 1,) int32; only those upper + 1
+    integers cross to the host."""
     calls["device_histogram"] += 1
-    kept = cnt[keep_idx].clamp(max=upper + 1)
-    return to_host([torch.bincount(kept, minlength=upper + 2)[: upper + 1].to(torch.int32)])[0]
+    return to_host([counts_histogram(cnt[keep_idx], upper).to(torch.int32)])[0]
 
 
 def kept_result(

@@ -25,7 +25,9 @@ runs the extension pipeline unfiltered, the per-batch (key, count,
 occurrences) partials stay on the device and merge there once
 (ExtPartialStore, shared with the sharded and multi-process extension
 streams), draining to the host merge only past the memory budget or on
-running out of device memory.
+running out of device memory. The sharded and multi-process streams hold
+their per-batch (key, count) partials the same way (KeyPartialStore, the
+same budget and drain) and merge them once on the rank's device.
 """
 
 from __future__ import annotations
@@ -62,9 +64,11 @@ from ..pipeline import (
     pull_prefix,
     resolve_device,
     to_device,
+    to_host,
 )
 from . import memcheck
 from .profiling import annotate
+from .timer import stage
 
 _LOG = logging.getLogger("hysortk_tpu_torch.stream")
 
@@ -167,86 +171,231 @@ def suggest_pipe_depth(
 # 3.57x at 2^26 bases in batches of 2^24 (678 MiB held), 3.99x at 2^24 in
 # batches of 2^22; 6 keeps a margin.
 EXT_MERGE_FACTOR = 6.0
+# Device bytes that merge_key_partials_device and the rank's result after it
+# take beyond the partials merged, per byte held (KeyPartialStore's budget):
+# the rows' concatenation, the run merge's output and ping-pong buffer, the
+# sum's head and totals, the filter's mask, then the kept rows' index, their
+# gather, unmix and histogram. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_smoke.py phase 10(a)): the whole stream peaked at 0.960 GiB, 3.7x the
+# 268 MiB held, at 2^26 bases in batches of 2^24; 6 keeps a margin.
+KEY_MERGE_FACTOR = 6.0
+
+# What the streamed stores merged, where (reset_partials clears it): the
+# partials merged on the device and their bytes, and those merged on the host
+# after a drain.
+partials = {"held": 0, "held_bytes": 0, "drained": 0}
 
 
-class ExtPartialStore:
-    """The per-batch extension-mode partials of one streamed call, held on
-    their device (pipeline.ExtPartial, made ascending as they arrive) and
-    merged there once (pipeline.merge_ext_partials_device).
+def reset_partials() -> None:
+    for name in partials:
+        partials[name] = 0
 
-    The budget: a partial is held while EXT_MERGE_FACTOR x the bytes held
-    with it fits the device's headroom (memcheck.hbm_headroom_bytes, as
-    _consolidation_group_size sizes its group; no budget on the CPU) and
-    the occurrences held stay below 2^31. The drain: when a partial would
-    not fit, or the sort of a partial as it is held (ascending_partial) or
-    the device merge raises torch.cuda.OutOfMemoryError (nothing wider: a
-    failed kernel build or launch ends the run), the held partials go to
-    the host (ExtPartial.to_host, one copy-out each), every later partial
-    goes there too, and the host merge (pipeline.merge_ext_partials)
-    finishes, with a logged warning. Nothing else takes the host merge."""
+
+class _PartialStore:
+    """The per-batch partials of one streamed call, held on their device and
+    merged there once; the budget and the drain that every streamed store
+    shares.
+
+    The budget: a partial is held while `factor` x the bytes held with it
+    fits the device's headroom (memcheck.hbm_headroom_bytes, as
+    _consolidation_group_size sizes its group; no budget on the CPU). The
+    drain: when a partial would not fit, or holding it or the device merge
+    raises torch.cuda.OutOfMemoryError (nothing wider: a failed kernel build
+    or launch ends the run), the held partials go to the host (one copy-out
+    each), every later partial goes there too, and the host merge finishes,
+    with a logged warning. Nothing else takes the host merge. A subclass
+    says what a partial is: its bytes, its form as held (`_hold`), its copy
+    on the host, and the two merges."""
+
+    what = ""  # the partials' name in the log
+    holding = ""  # what `_hold` does, in the log
+    factor = 1.0
 
     def __init__(self, cfg: KmerConfig, device):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.held: list[ExtPartial] = []
-        self.drained: list[KmerListExt] | None = None  # the host's, after a drain
+        self.held: list = []
+        self.drained: list | None = None  # the host's, after a drain
 
     def held_bytes(self) -> int:
-        return sum(p.nbytes for p in self.held)
+        return sum(self._nbytes(p) for p in self.held)
 
-    def _fits(self, part: ExtPartial) -> bool:
-        if sum(p.n_occ for p in self.held) + part.n_occ >= 2**31:
-            return False
+    def _fits(self, part) -> bool:
         headroom = memcheck.hbm_headroom_bytes(self.device)
-        need = EXT_MERGE_FACTOR * (self.held_bytes() + part.nbytes)
+        need = self.factor * (self.held_bytes() + self._nbytes(part))
         return headroom is None or need <= headroom
 
     def _drain(self) -> None:
         t0 = time.perf_counter()
         nbytes = self.held_bytes()
-        self.drained = (self.drained or []) + [p.to_host(self.cfg.k) for p in self.held]
+        self.drained = (self.drained or []) + [self._to_host(p) for p in self.held]
         self.held.clear()
-        _LOG.warning("extension partials drained to the host: %.1f MB in %.2fs; the "
-                     "host merge finishes", nbytes / 1e6, time.perf_counter() - t0)
+        _LOG.warning("%s partials drained to the host: %.1f MB in %.2fs; the "
+                     "host merge finishes", self.what, nbytes / 1e6,
+                     time.perf_counter() - t0)
 
-    def add(self, part: ExtPartial) -> None:
-        """Hold one batch's partial on the store's device (copied there where
-        it lies elsewhere, as a gloo gather leaves it; sorted first where it
-        is not ascending), or send it to the host after a drain."""
+    def add(self, part) -> None:
+        """Hold one batch's partial on the store's device (`_on_device`,
+        then `_hold`), or send it to the host after a drain."""
         if self.drained is None:
-            part = part.to(self.device)
+            part = self._on_device(part)
             if not self._fits(part):
-                _LOG.warning("extension partials: %d held and the next would pass the "
-                             "device budget; draining to the host", len(self.held))
+                _LOG.warning("%s partials: %d held and the next would pass the "
+                             "device budget; draining to the host", self.what,
+                             len(self.held))
             else:
                 try:
-                    self.held.append(ascending_partial(part))
+                    self.held.append(self._hold(part))
                     return
                 except torch.cuda.OutOfMemoryError:
-                    _LOG.warning("sorting an extension partial ran out of device "
-                                 "memory; draining to the host")
+                    _LOG.warning("%s ran out of device memory; draining to the host",
+                                 self.holding)
                 if self.device.type == "cuda":
                     torch.cuda.empty_cache()
             self._drain()
-        # The host merge sorts its partials itself: this one goes as it is.
-        self.drained.append(part.to_host(self.cfg.k))
+        # The host merge takes its partials as they come: this one goes as it is.
+        self.drained.append(self._to_host(part))
 
-    def result(self) -> tuple[KmerListExt, np.ndarray]:
-        """The merged, filtered list and its histogram over [0, cfg.upper]."""
+    def result(self, *extra):
+        """The merge of every partial (with `extra`, as the subclass's merges
+        take it): on the device unless a partial drained or the device merge
+        runs out of memory."""
         if self.drained is None:
             try:
-                return merge_ext_partials_device(self.held, self.cfg)
+                out = self._merge_device(*extra)
+                partials["held"] += len(self.held)
+                partials["held_bytes"] += self.held_bytes()
+                return out
             except torch.cuda.OutOfMemoryError:
                 # The held partials are unmodified; the drain runs outside
                 # this handler, where the failed merge's frames are gone.
-                _LOG.warning("device merge of extension partials ran out of device "
-                             "memory; draining to the host")
+                _LOG.warning("device merge of %s partials ran out of device memory; "
+                             "draining to the host", self.what)
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()
             self._drain()
+        partials["drained"] += len(self.drained)
+        return self._merge_host(*extra)
+
+    def _on_device(self, part):
+        return part
+
+    def _hold(self, part):
+        return part
+
+
+class ExtPartialStore(_PartialStore):
+    """The per-batch extension-mode partials of one streamed call, held on
+    their device (pipeline.ExtPartial, made ascending as they arrive) and
+    merged there once (pipeline.merge_ext_partials_device), under
+    _PartialStore's budget and drain with EXT_MERGE_FACTOR; the occurrences
+    held also stay below 2^31. The sort of a partial as it is held
+    (ascending_partial) may drain as the merge does; the drain's host merge
+    is pipeline.merge_ext_partials."""
+
+    what = "extension"
+    holding = "sorting an extension partial"
+    factor = EXT_MERGE_FACTOR
+
+    def _nbytes(self, part: ExtPartial) -> int:
+        return part.nbytes
+
+    def _fits(self, part: ExtPartial) -> bool:
+        if sum(p.n_occ for p in self.held) + part.n_occ >= 2**31:
+            return False
+        return super()._fits(part)
+
+    def _on_device(self, part: ExtPartial) -> ExtPartial:
+        # Copied there where it lies elsewhere, as a gloo gather leaves it.
+        return part.to(self.device)
+
+    def _hold(self, part: ExtPartial) -> ExtPartial:
+        return ascending_partial(part)
+
+    def _to_host(self, part: ExtPartial) -> KmerListExt:
+        return part.to_host(self.cfg.k)
+
+    def _merge_device(self) -> tuple[KmerListExt, np.ndarray]:
+        """The merged, filtered list and its histogram over [0, cfg.upper]."""
+        return merge_ext_partials_device(self.held, self.cfg)
+
+    def _merge_host(self) -> tuple[KmerListExt, np.ndarray]:
         merged = merge_ext_partials(self.drained, self.cfg.lower, self.cfg.upper,
                                     self.cfg.k, self.cfg.words)
         return merged, host_histogram(merged.counts, self.cfg.upper)
+
+
+def merge_key_rows(rows, bounds, cfg: KmerConfig):
+    """W key word rows and a count row, int32, ascending runs between the
+    slot offsets `bounds` -> (words, total, keep) where they lie: one merge
+    of the runs at their exact bounds (ops/merge.merge_runs_at), the
+    weighted run-length sum of the counts (ops/run_length_sum), the [L, U]
+    filter on the totals."""
+    w = cfg.words
+    dev = rows[0].device
+    if bounds[-1]:
+        with stage("merge runs", dev):
+            rows = merge_ops.merge_runs_at(rows, w, bounds)
+    with stage("run-length sum + filter", dev):
+        head, total = sum_ops.run_length_sum_fused(rows[:w], rows[w])
+        keep = count_ops.frequency_filter(head, total, cfg.lower, cfg.upper)
+    return rows[:w], total, keep
+
+
+def _bounds_of(lengths) -> np.ndarray:
+    return np.cumsum([0] + [int(n) for n in lengths])
+
+
+def merge_key_partials_device(parts, cfg: KmerConfig):
+    """The partials (each W key word tensors and a count tensor, int32, one
+    ascending run) merged on their device (merge_key_rows), not modified:
+    their rows end to end, then the merge at the partials' bounds."""
+    with stage("concatenate", parts[0][0].device):
+        rows = [torch.cat([p[i] for p in parts]) for i in range(cfg.words + 1)]
+    return merge_key_rows(rows, _bounds_of(p[0].shape[0] for p in parts), cfg)
+
+
+def merge_key_partials(parts, cfg: KmerConfig, device):
+    """merge_key_partials_device on host partials (each W key word arrays and
+    a count array, int32): their rows end to end on the host, uploaded once
+    (pipeline.to_device), merged on `device`. The drain's path, and the
+    plain version."""
+    dev = torch.device(device)
+    rows = [to_device(np.concatenate([p[i] for p in parts]), dev)
+            for i in range(cfg.words + 1)]
+    return merge_key_rows(rows, _bounds_of(p[0].shape[0] for p in parts), cfg)
+
+
+class KeyPartialStore(_PartialStore):
+    """The per-batch (key, count) partials of a sharded stream on one rank:
+    each batch's kept rows, W key word tensors and the count tensor, one
+    ascending run, held on the rank's device and merged there once
+    (merge_key_partials_device) under _PartialStore's budget and drain with
+    KEY_MERGE_FACTOR; the drain's host merge is merge_key_partials. The merge
+    runs no collective, so one rank may drain while another holds. `result`
+    takes one more run, a small host partial (the supermer route's heavy
+    entries), uploaded once to join the merge."""
+
+    what = "key"
+    holding = "holding a key partial"
+    factor = KEY_MERGE_FACTOR
+
+    def _nbytes(self, part) -> int:
+        return sum(t.numel() * t.element_size() for t in part)
+
+    def _to_host(self, part) -> list[np.ndarray]:
+        return to_host(part)
+
+    def _merge_device(self, extra=None):
+        """(words, total, keep) on the device."""
+        parts = list(self.held)
+        if extra is not None:
+            parts.append([to_device(a, self.device) for a in extra])
+        return merge_key_partials_device(parts, self.cfg)
+
+    def _merge_host(self, extra=None):
+        parts = self.drained + ([extra] if extra is not None else [])
+        return merge_key_partials(parts, self.cfg, self.device)
 
 
 def count_reads_streaming_ext(

@@ -862,8 +862,10 @@ def fill_meta_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int
 # and the host one it no longer runs.
 SUPERMER_COUNTED = ("_supermer_step", "heavy_precount_device", "heavy_precount")
 # The extension streams' device merge and host merge, as the scheduler's
-# ExtPartialStore calls them.
-SCHEDULER_COUNTED = ("merge_ext_partials_device", "merge_ext_partials")
+# ExtPartialStore calls them, and the key streams', as its KeyPartialStore
+# calls them.
+SCHEDULER_COUNTED = ("merge_ext_partials_device", "merge_ext_partials",
+                     "merge_key_partials_device", "merge_key_partials")
 COUNTED = ("_shard_body_range", "_shard_body_range_combiner", "_shard_body_bucketed",
            "_shard_body_ext_range", "_shard_body_ext_bucketed", "count_reads_sharded",
            "count_reads_sharded_ext", "count_reads_sharded_streaming", *SUPERMER_COUNTED,
@@ -874,8 +876,8 @@ def call_counters(stack, pipeline_mod) -> dict:
     """Count the calls of the step bodies (the overflow retry and the
     combiner re-run show in them), of the sharded entries (the facade's
     choice shows in them), of the supermer route's step and heavy
-    pre-counts (device and host), and of the extension streams' device
-    and host merges."""
+    pre-counts (device and host), and of the streams' device and host
+    merges (extension and key partials)."""
     from unittest import mock
 
     from .parallel import supermer_route
@@ -893,6 +895,69 @@ def call_counters(stack, pipeline_mod) -> dict:
 
         stack.enter_context(mock.patch.object(mod, name, counted))
     return calls
+
+
+# The host crossings copy_counters counts, by the name every module that
+# makes them imports.
+CROSSINGS = ("to_host", "to_device", "host_histogram")
+
+
+def copy_counters(stack) -> dict:
+    """Record the crossings of a counted call: each `to_host` call's
+    element count (every array of the call), each `to_device` call's, and
+    each `host_histogram` call's, under their names, wherever the port's
+    counting modules (parallel/pipeline, supermer_route and multihost, the
+    scheduler and the single-device pipeline) call them."""
+    from unittest import mock
+
+    from . import pipeline as root
+    from .parallel import multihost, supermer_route
+    from .parallel import pipeline as sharded
+    from .runtime import scheduler
+
+    seen = {name: [] for name in CROSSINGS}
+    for name in CROSSINGS:
+        real = getattr(root, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            out = _real(*a, **k)
+            arrays = out if isinstance(out, list) else [out]
+            seen[_name].append(sum(int(x.numel()) if isinstance(x, torch.Tensor)
+                                   else int(np.size(x)) for x in arrays))
+            return out
+
+        for mod in (root, sharded, supermer_route, multihost, scheduler):
+            if getattr(mod, name, None) is real:
+                stack.enter_context(mock.patch.object(mod, name, spy))
+    return seen
+
+
+def _fault_patches(stack, job: dict, rank: int) -> None:
+    """The memory faults a job asks for, on the ranks of its `fault_ranks`
+    (every rank where it names none): `headroom_seq`, the device headroom
+    the streams' stores see at their successive budget checks (bytes, None
+    for no budget; the last repeats), and `merge_oom`, the key streams'
+    device merge raising torch.cuda.OutOfMemoryError."""
+    from unittest import mock
+
+    from .runtime import memcheck, scheduler
+
+    if rank not in job.get("fault_ranks", [rank]):
+        return
+    if "headroom_seq" in job:
+        seq, checks = list(job["headroom_seq"]), []
+
+        def headroom(device, safety=0.9):
+            checks.append(device)
+            return seq[min(len(checks), len(seq)) - 1]
+
+        stack.enter_context(mock.patch.object(memcheck, "hbm_headroom_bytes", headroom))
+    if job.get("merge_oom"):
+        def merge(*a, **k):
+            raise torch.cuda.OutOfMemoryError("out of memory (injected)")
+
+        stack.enter_context(mock.patch.object(scheduler, "merge_key_partials_device",
+                                              merge))
 
 
 def _run_count_job(kind: str, data, cfg, job: dict):
@@ -972,9 +1037,12 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
       cli                  argv (run under WORLD_SIZE / RANK / LOCAL_RANK of
                            the spawned group, output to <name>.<rank>.txt)
 
-    A counting job writes keys, counts, hist and each counted function's
-    calls; an extension-mode list also every k-mer's occurrences end to end
-    (occ_rid, occ_pos).
+    Any counting job also takes fault_ranks, headroom_seq and merge_oom
+    (_fault_patches). A counting job writes keys, counts, hist, each
+    counted function's calls, each host crossing's element counts
+    (copy_counters: crossings_<name>) and the streamed stores' partials
+    (scheduler.partials: held, held_bytes, drained); an extension-mode list
+    also every k-mer's occurrences end to end (occ_rid, occ_pos).
     """
     import contextlib
     import io
@@ -988,7 +1056,7 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
     from .parallel import exchange
     from .parallel import pipeline as sharded
     from .pipeline import KmerListExt
-    from .runtime import memcheck
+    from .runtime import memcheck, scheduler
 
     for job in jobs:
         data = np.load(job["inputs"]) if job.get("inputs") else None
@@ -1015,6 +1083,9 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
             cfg = KmerConfig(**job["cfg"])
             with contextlib.ExitStack() as stack:
                 calls = call_counters(stack, sharded)
+                crossings = copy_counters(stack)
+                _fault_patches(stack, job, rank)
+                scheduler.reset_partials()
                 if job.get("capacity"):  # every range route starts from it
                     stack.enter_context(mock.patch.object(
                         sharded, "range_capacity",
@@ -1032,7 +1103,11 @@ def run_rank_jobs(rank: int, jobs: Sequence[dict], out_dir: str) -> None:
             out = dict(keys=kl.keys, counts=kl.counts, hist=hist,
                        passes=np.int64(calls["_shard_body_range"]),
                        combiner_passes=np.int64(calls["_shard_body_range_combiner"]),
-                       calls=np.array([calls[n] for n in COUNTED], dtype=np.int64))
+                       calls=np.array([calls[n] for n in COUNTED], dtype=np.int64),
+                       partials=np.array([scheduler.partials[n] for n in
+                                          ("held", "held_bytes", "drained")]),
+                       **{f"crossings_{n}": np.array(v, dtype=np.int64)
+                          for n, v in crossings.items()})
             if isinstance(kl, KmerListExt):
                 out.update(occ_rid=kl.occ_rid, occ_pos=kl.occ_pos)
         np.savez(path + ".npz", **out)
