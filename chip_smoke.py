@@ -23,11 +23,17 @@ build/kernels/ at first use. Phases, each printing its findings:
      and more, runs of one slot to two tiles, equal keys across tile edges,
      every key width, ragged sizes, inputs shorter than the halo, views at
      odd offsets), the key mix's hard cases (every key width, sentinel rows,
-     top-bit and near-sentinel words, rows at odd offsets, ragged sizes), then
-     the inputs the main paths give each kernel at the size of phases
-     2 and 4, with each kernel's bound (the least time the card could take)
-     and, where one PyTorch call computes the same function, that call's
-     time
+     top-bit and near-sentinel words, rows at odd offsets, ragged sizes), the
+     wire decode's (reads of length 0, under k, k, 150 and across words,
+     segments not whole words and cut below their reads, three segments, more
+     reads than three scan tiles, stacked zero-length reads, extension mode
+     from read id 0 and 1,000,000) and the minimizer scan's (K = 15 to 96
+     with m = 1, 2, 7, 17 and k - 1, 1 to 65,537 buckets, poly-A and
+     top-bit minima; no key build launched), then the inputs the main paths
+     give each kernel at the size of phases 2 and 4 (the wire decode on
+     phase 2's wire, also in extension mode), with each kernel's bound (the
+     least time the card could take) and, where one PyTorch call computes
+     the same function, that call's time
   2  the slice at a size users run: a seeded 2^22-base genome sampled into
      150-base reads at ~16x coverage (2^26 bases), written as FASTA, then
      read_dna_buffer -> kmer_count(K=31, L=2, U=50, device="cuda") ->
@@ -40,7 +46,7 @@ build/kernels/ at first use. Phases, each printing its findings:
      read_records) and again on the written .fai, each equal to the first;
      then the same count stage by stage with a synchronize after each, for
      the stage times (pack into pinned staging, which must be pinned; H2D;
-     decode; keybuild; sort; count; compaction + D2H, with the copy-out's
+     decode, which must launch the wire_decode kernel; keybuild; sort; count; compaction + D2H, with the copy-out's
      part; the device histogram,
      equal to host_histogram), each device stage also by CUDA events, and
      the device-busy share of the one-shot call (those events' sum over the
@@ -115,7 +121,9 @@ build/kernels/ at first use. Phases, each printing its findings:
      2^26 bases against phase 8(a), then on two ranks on phase 8(c)'s 2^24
      bases one-shot and count_reads_sharded_ext_streaming in batches of
      2^22, both against phase 8(c)'s one-shot result; (d) minimizer routing
-     with the balanced dispatcher, one rank (with a stage line: scan, bucket
+     with the balanced dispatcher, one rank (one scan kernel for the plan
+     and one a pass, one decode, no key build but the keys'; with a stage
+     line: wire decode and scan, each one launch of its kernel, bucket
      sizes and plan, pack, exchange, receive sort, count, result) and four
      spawned ranks; (e) on two ranks at 2^24 bases: minimizer with
      round_robin and the combiner, kmer_hash, kmer_hash with extension
@@ -135,14 +143,16 @@ build/kernels/ at first use. Phases, each printing its findings:
      to its CPU result); the send side's hard cases (the run table's cases,
      every encoder case at K = 15, 31, 55, 95 on 1, 2 and 4 destinations,
      extension mode off and on: each kernel equal to its plain version, the
-     send tensor equal to the host encoder's); the two send-side kernels on
-     11(a)'s inputs against their plain versions, timed beside their
-     bounds, and the send tensor of phase 2's reads equal to the host
+     send tensor equal to the host encoder's); the scan kernel on 11(a)'s
+     codes (at one and four ranks' buckets), the two send-side kernels on
+     11(a)'s inputs and the decode kernel on its received segments against
+     their plain versions, timed beside their bounds, and the send tensor of phase 2's reads equal to the host
      encoder's at one and four destinations (four also in extension mode);
      (a) count_reads_sharded with routing="supermer" on phase 2's reads, one
-     rank with NCCL, best of three, then two calls more under the route's
+     rank with NCCL, best of three (one scan, two decodes and one key build a
+     call), then two calls more under the route's
      own stage spans (runtime/timer.record_stages; the second's line,
-     feed to result, logged), the wire bytes beside the range route's
+     feed to result, logged, with the kernels' spans apart), the wire bytes beside the range route's
      (9(a)), and no run boundary or run gather in the host library; the device heavy pre-count timed on (c)'s first reads
      under four ranks' buckets against the host pre-count; (b) four spawned
      ranks sharing the card
@@ -165,8 +175,9 @@ build/kernels/ at first use. Phases, each printing its findings:
      --coordinator, each process reading its own records of the FASTA and
      writing its share to <rank>.out: (a) two processes sharing the card
      over gloo and (b) one process over NCCL on phase 2's FASTA, (c)
-     --routing supermer on two processes (both send-side kernels launched in
-     each), each against phase 2; (d)
+     --routing supermer on two processes (both send-side kernels, the scan
+     and the decode launched in each; each process's wire decode and scan
+     spans), each against phase 2; (d)
      --extension --stream-batch-bases 2^24 on two processes on phase 2's
      FASTA against phase 8(a)'s one-shot extension result, its merge
      kernels launched in every process. Each time the
@@ -198,6 +209,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -470,6 +482,7 @@ def phase1_synthetic(gen):
     phase1_sum_cases(errs)
     phase1_merge_keybuild_cases(errs)
     phase1_mix_cases(errs)
+    phase1_wire_scan_cases(errs)
 
     # mix: full-range words (half with the top bit set), a sentinel tail of
     # 1/8 that must stay sentinel, at 2^26 x W=2.
@@ -680,6 +693,57 @@ def phase1_mix_cases(errs) -> None:
         f"offsets in {sum(c[4] > 0 for c in cases)})")
 
 
+def phase1_wire_scan_cases(errs) -> None:
+    """The wire decode's and the minimizer scan's hard cases
+    (hysortk_tpu_torch.testing) on the card: each kernel exactly equal to
+    its plain version (the scan where a k-mer fits, every bucket in range),
+    each case one launch of its kernel, and the scan none of the key
+    build."""
+    import torch
+
+    from hysortk_tpu_torch import _build, testing
+    from hysortk_tpu_torch.ops import minimizer, wire
+
+    def decode(packed, lengths, k, n, rid_base):
+        if rid_base is None:
+            return list(wire.decode_block(packed, lengths, k, n))
+        return list(wire.decode_block_ext(packed[0], lengths[0], k, n, rid_base))
+
+    cases = testing.wire_decode_cases()
+    for name, packed, lengths, k, n, rid_base in cases:
+        args = (torch.from_numpy(packed.view(np.int32)), torch.from_numpy(lengths))
+        before = _build.launches["wire_decode"]
+        got = decode(*(a.cuda() for a in args), k, n, rid_base)
+        torch.cuda.synchronize()
+        if _build.launches["wire_decode"] != before + 1:
+            raise AssertionError(f"wire_decode case {name} did not launch the kernel")
+        e = max_abs_err([g.cpu() for g in got], decode(*args, k, n, rid_base))
+        require_equal(f"wire_decode case {name}", e)
+        errs["wire_decode"] = max(errs["wire_decode"], e)
+    log(f"phase1 wire_decode hard cases at tiles {testing.WIRE_DECODE_TILE} (decode) and "
+        f"{testing.WIRE_SCAN_TILE} (lengths' scan): {len(cases)} equal, "
+        f"{sum(c[5] is not None for c in cases)} of them in extension mode")
+
+    scans = testing.scan_cases()
+    for name, kind, n, k, m, buckets, seed in scans:
+        codes = torch.from_numpy(testing.scan_case_codes(kind, n, m, seed))
+        before = dict(_build.launches)
+        got = minimizer.kmer_destinations(codes.cuda(), k, m, buckets).cpu()
+        if (_build.launches["minimizer_scan"] != before["minimizer_scan"] + 1
+                or _build.launches["keybuild"] != before["keybuild"]):
+            raise AssertionError(f"minimizer_scan case {name}: launches "
+                                 f"{_build.launches} after {before}")
+        if not bool(((got >= 0) & (got < buckets)).all()):
+            raise AssertionError(f"minimizer_scan case {name}: a bucket out of range")
+        fits = max(n - k + 1, 0)
+        e = max_abs_err([got[:fits]], [minimizer.kmer_destinations_plain(
+            codes, k, m, buckets)[:fits]])
+        require_equal(f"minimizer_scan case {name}", e)
+        errs["minimizer_scan"] = max(errs["minimizer_scan"], e)
+    log(f"phase1 minimizer_scan hard cases at tile {testing.SCAN_TILE}: {len(scans)} "
+        f"equal where a k-mer fits, every bucket in range, no key build launched")
+
+
 def merge_passes(n_runs: int, run_len: int) -> int:
     """How many passes merge_sorted_runs makes over n_runs runs."""
     from hysortk_tpu_torch.ops import merge
@@ -849,11 +913,38 @@ def phase1_main_path(codes_np, lengths_np, errs):
 
     from hysortk_tpu_torch import pipeline
     from hysortk_tpu_torch.ops import (
-        block_sort, fused_count, fused_sort, keybuild, mixkey, radix_sort,
+        block_sort, fused_count, fused_sort, keybuild, mixkey, radix_sort, wire,
     )
 
-    codes, valid = pipeline.device_batch(codes_np, lengths_np, slice_config(), "cuda")
-    n = codes.shape[0]
+    # The decode of phase 2's wire, as pipeline.device_batch feeds it.
+    packed, lens, n = pipeline.wire_batch(codes_np, lengths_np, slice_config(), "cuda")
+    codes, valid = wire.decode_block(packed, lens, K, n)
+    e = max_abs_err([codes, valid], list(wire.decode_block_plain(packed, lens, K, n)))
+    require_equal("wire_decode main path", e)
+    errs["wire_decode"] = max(errs["wire_decode"], e)
+    e = max_abs_err(list(wire.decode_block_ext(packed, lens, K, n, EXT_RID0)),
+                    list(wire.decode_block_ext_plain(packed, lens, K, n, EXT_RID0)))
+    require_equal("wire_decode extension mode main path", e)
+    errs["wire_decode"] = max(errs["wire_decode"], e)
+    reads = lens.numel()
+    # In: 1/4 B of words a position and 4 B a read; out: a code and a flag a
+    # position (and an int32 read id and position in extension mode). Per
+    # position a shift and a mask, an add and a compare (and two subtracts).
+    wd_bound = bound(2.25 * n + 4 * reads, 4 * n)
+    wd = dict(
+        ms=cuda_ms(lambda: wire.decode_block(packed, lens, K, n), 10),
+        plain_ms=cuda_ms(lambda: wire.decode_block_plain(packed, lens, K, n), 3),
+        bound_ms=wd_bound[0], bound_by=wd_bound[1], library_ms=None,
+    )
+    ext_bound = bound(10.25 * n + 4 * reads, 6 * n)
+    ext = dict(
+        ms=cuda_ms(lambda: wire.decode_block_ext(packed, lens, K, n, EXT_RID0), 10),
+        plain_ms=cuda_ms(lambda: wire.decode_block_ext_plain(packed, lens, K, n,
+                                                             EXT_RID0), 3),
+        bound_ms=ext_bound[0], bound_by=ext_bound[1], library_ms=None,
+    )
+    log_kernel(f"phase1 wire_decode extension mode main path n={n} ({reads} reads)", ext)
+    del packed, lens
     marked = keybuild.canonical_keys_fused(codes, valid, K)
     w = len(marked)
     e = max_abs_err(marked, keybuild.canonical_keys_plain(codes, valid, K))
@@ -1007,7 +1098,7 @@ def phase1_main_path(codes_np, lengths_np, errs):
     del one_run, long_runs
 
     times = {"keybuild": kb, "radix_sort": rs, "fused_count": fc,
-             "fused_sort": fs, "block_sort": bs, "mix_keys": mx}
+             "fused_sort": fs, "block_sort": bs, "mix_keys": mx, "wire_decode": wd}
     for name, t in times.items():
         log_kernel(f"phase1 {name} main-path n={n} K={K}", t)
     return times
@@ -1115,13 +1206,22 @@ KERNELS = {
                       "hysortk_tpu/io/supermer.py:124, :271 + "
                       "parallel/supermer_route.py:219, :641 (host numpy, no "
                       "pallas_call)"),
+    # The wire decode and the destination scan, XLA code in the JAX
+    # package: kernels the port added for its modules.
+    "wire_decode": ("hysortk_tpu_torch/csrc/wire_decode.cu",
+                    "hysortk_tpu/ops/wire.py:62 decode_block (with :25, :39, :69, "
+                    ":98; XLA, no pallas_call)"),
+    "minimizer_scan": ("hysortk_tpu_torch/csrc/minimizer_scan.cu",
+                       "hysortk_tpu/ops/minimizer.py:45 kmer_destinations (with :23, "
+                       ":34; XLA, no pallas_call)"),
 }
 # Which path's run gives each kernel its launch count in the record:
-# phase 2, phase 4(a), and for fused_sort phase 6, for block_sort phase 7,
-# for mix_keys phase 9(a), for the supermer kernels 11(a)'s first call.
-ONE_SHOT_KERNELS = ("keybuild", "radix_sort", "fused_count")
+# phase 2 (the wire decode too), phase 4(a), and for fused_sort phase 6, for
+# block_sort phase 7, for mix_keys phase 9(a), for the supermer route's
+# kernels (the scan too) 11(a)'s first call.
+ONE_SHOT_KERNELS = ("keybuild", "radix_sort", "fused_count", "wire_decode")
 STREAMING_KERNELS = ("run_length_sum", "merge_runs")
-SUPERMER_KERNELS = ("supermer_runs", "supermer_pack")
+SUPERMER_KERNELS = ("supermer_runs", "supermer_pack", "minimizer_scan")
 
 
 # --------------------------------------------------------------------------
@@ -1430,7 +1530,7 @@ def phase2_stages(codes, lengths, cfg, best_wall: float) -> None:
     import torch
 
     import hysortk_tpu_torch as ht
-    from hysortk_tpu_torch import pipeline
+    from hysortk_tpu_torch import _build, pipeline
     from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort, wire
 
     stages = []
@@ -1463,7 +1563,11 @@ def phase2_stages(codes, lengths, cfg, best_wall: float) -> None:
         packed, lens = timed("H2D", lambda: tuple(
             t.to(dev, non_blocking=True) for t in staged))
         del staged
-        codes_d, valid_d = timed("decode", lambda: wire.decode_block(packed, lens, cfg.k, n))
+        before = _build.launches["wire_decode"]
+        codes_d, valid_d = timed("decode (wire_decode kernel)", lambda: wire.decode_block(
+            packed, lens, cfg.k, n))
+        if _build.launches["wire_decode"] != before + 1:
+            raise AssertionError("phase 2's decode stage launched no wire_decode kernel")
         del packed, lens
         marked = timed("keybuild", lambda: keybuild.canonical_keys_fused(
             codes_d, valid_d, cfg.k))
@@ -1981,7 +2085,7 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = dict(_build.launches)
-    if [launches[name] for name in ONE_SHOT_KERNELS] != [1, 1, 1]:
+    if [launches[name] for name in ONE_SHOT_KERNELS] != [1] * len(ONE_SHOT_KERNELS):
         raise AssertionError(f"extension call launched {json.dumps(launches)}")
     if not isinstance(kl, ht.KmerListExt):
         raise AssertionError("extension call returned no KmerListExt")
@@ -2528,7 +2632,8 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
         for r in range(ranks):
             with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
                 stats.append(json.load(fh))
-        needed = ["keybuild", "mix_keys", "radix_sort", "merge_runs", "fused_count"]
+        needed = ["wire_decode", "keybuild", "mix_keys", "radix_sort", "merge_runs",
+                  "fused_count"]
         if f["combiner"]:
             needed.append("run_length_sum")
         for r, st in enumerate(stats):
@@ -2547,7 +2652,8 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
 
 STREAM_BATCH = 1 << 24  # phase 4(a)'s batches: four of phase 2's reads
 # The kernels every phase-10 run launches, and those of some of them.
-CORE_KERNELS = ("keybuild", "radix_sort", "fused_count")
+CORE_KERNELS = ("wire_decode", "keybuild", "radix_sort", "fused_count")
+MINIMIZER_KERNELS = CORE_KERNELS + ("minimizer_scan",)
 
 
 def ext_occurrence_rows(kl):
@@ -2696,6 +2802,7 @@ def phase10_minimizer_stages(codes, lengths, cfg) -> None:
     (inside phase 10's one-rank group)."""
     import torch
 
+    from hysortk_tpu_torch import _build
     from hysortk_tpu_torch.ops import keybuild, minimizer, radix_sort, wire
     from hysortk_tpu_torch.parallel import exchange
     from hysortk_tpu_torch.parallel import pipeline as sharded
@@ -2716,10 +2823,16 @@ def phase10_minimizer_stages(codes, lengths, cfg) -> None:
             "host partition + pack + H2D",
             lambda: sharded._rank_wire(*sharded._rank_share(codes, lengths, None)[:2],
                                        cfg, None, dev))
-        codes_d, valid_d = timed("decode", lambda: wire.decode_block(
+        before = dict(_build.launches)
+        codes_d, valid_d = timed("wire decode (kernel)", lambda: wire.decode_block(
             packed, lens, cfg.k, block_len))
-        bucket = timed("minimizer scan", lambda: minimizer.kmer_destinations(
+        bucket = timed("scan (kernel)", lambda: minimizer.kmer_destinations(
             codes_d, cfg.k, cfg.m, sharded._num_buckets(cfg, 1)))
+        if (_build.launches["wire_decode"] != before["wire_decode"] + 1
+                or _build.launches["minimizer_scan"] != before["minimizer_scan"] + 1
+                or _build.launches["keybuild"] != before["keybuild"]):
+            raise AssertionError(f"phase 10(d)'s decode and scan stages launched "
+                                 f"{_build.launches} after {before}")
         _, assign, capacity, _ = timed(
             "bucket sizes + plan (a second scan inside)",
             lambda: sharded.plan_sharded_step(codes_d, valid_d, cfg, 1, block_len))
@@ -2874,7 +2987,14 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
         require_same_result("phase 10(d) one rank", d.pop("result"), one_shot)
         d["backend"] = "nccl"
         log_phase10("d", f"minimizer (balanced), {int(codes.size)} bases", [d],
-                    len(one_shot[0]), CORE_KERNELS)
+                    len(one_shot[0]), MINIMIZER_KERNELS)
+        # The plan's scan and one a pass (as in the JAX package), one
+        # decode, and the key build only for the keys.
+        if (d["launches"]["minimizer_scan"] != 1 + d["passes"]
+                or d["launches"]["wire_decode"] != 1
+                or d["launches"]["keybuild"] != d["passes"]):
+            raise AssertionError(f"phase 10(d) launches {d['launches']} in "
+                                 f"{d['passes']} pass(es)")
         phase10_minimizer_stages(codes, lengths, dataclasses.replace(
             cfg, routing="minimizer"))
     finally:
@@ -2899,7 +3019,7 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
              ext_sub_one_shot, CORE_KERNELS + ("mix_keys",) + STREAMING_KERNELS),
             ("e", "minimizer, round_robin + combiner, 2^24 bases", "count_reads_sharded",
              "sub", dict(mini, dispatcher="round_robin", combiner=True), (), {},
-             sub_one_shot, CORE_KERNELS + ("run_length_sum",)),
+             sub_one_shot, MINIMIZER_KERNELS + ("run_length_sum",)),
             ("e", "kmer_hash, 2^24 bases", "count_reads_sharded", "sub",
              dict(base, routing="kmer_hash"), (), {}, sub_one_shot, CORE_KERNELS),
             ("e", "kmer_hash + extension, 2^24 bases", "count_reads_sharded_ext", "sub",
@@ -2907,7 +3027,7 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
         ],
         4: [
             ("d", "minimizer (balanced), 2^26 bases", "count_reads_sharded", "all", mini,
-             (), {}, one_shot, CORE_KERNELS),
+             (), {}, one_shot, MINIMIZER_KERNELS),
         ],
     }
     def no_host_flatten(tag, stats):
@@ -3115,7 +3235,29 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
     packed, lens_d, n = pipeline.wire_batch(codes, lens, cfg, dev)
     codes_d, valid = wire.decode_block(packed, lens_d, cfg.k, n)
     del packed
-    dest = minimizer.kmer_destinations(codes_d, cfg.k, cfg.m, sharded._num_buckets(cfg, 1))
+    nb = sharded._num_buckets(cfg, 1)
+    dest = minimizer.kmer_destinations(codes_d, cfg.k, cfg.m, nb)
+    fits = n - cfg.k + 1
+    e = max_abs_err([dest[:fits]], [minimizer.kmer_destinations_plain(
+        codes_d, cfg.k, cfg.m, nb)[:fits]])
+    require_equal("minimizer_scan main path", e)
+    if not bool(((dest >= 0) & (dest < nb)).all()):
+        raise AssertionError("minimizer_scan main path: a bucket out of range")
+    errs["minimizer_scan"] = max(errs["minimizer_scan"], e)
+    w = -(-cfg.m // 16)
+    # In: a code a position; out: an int32 bucket. Per position the
+    # canonical m-mer (a funnel shift, a crumb reversal, a compare and a
+    # select a word: ~25 operations), its mix (an fmix32 and a round a word,
+    # ~11, and one fmix32 more, 8), three window reads and a modulo.
+    sc_bound = bound(5 * n, (36 * w + 12) * n)
+    sc = dict(
+        ms=cuda_ms(lambda: minimizer.kmer_destinations(codes_d, cfg.k, cfg.m, nb), 10),
+        plain_ms=cuda_ms(lambda: minimizer.kmer_destinations_plain(
+            codes_d, cfg.k, cfg.m, nb), 3),
+        bound_ms=sc_bound[0], bound_by=sc_bound[1], library_ms=None,
+    )
+    log_kernel(f"phase11 minimizer_scan main path n={n} K={cfg.k} m={cfg.m} "
+               f"({nb} buckets)", sc)
     _, assign = sr._plan(dest, valid, cfg, None, True, dev, None)
     shard_of = torch.from_numpy(assign.astype(np.int32)).to(dev)[dest.to(torch.int64)]
     mk = sm_ops.max_kmers(cfg.k)
@@ -3160,9 +3302,32 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
     log_kernel(f"phase11 supermer_pack main path {gathered} bases of {r} runs "
                f"({covered} distinct) into {send.numel()} words", pk)
 
+    # The send tensor as one rank receives it: the receive side's decode of
+    # every segment in one launch (supermer_route._decode_received).
+    block_len, lmax = dims
+    segs, nw = send.shape[0], block_len // 16
+    words, seg_lens = send[:, 0, :nw], send[:, 0, nw: nw + lmax]
+    e = max_abs_err(list(wire.decode_block(words, seg_lens, cfg.k, block_len)),
+                    list(wire.decode_block_plain(words, seg_lens, cfg.k, block_len)))
+    require_equal("wire_decode received segments", e)
+    errs["wire_decode"] = max(errs["wire_decode"], e)
+    rd_bound = bound(segs * (2.25 * block_len + 4 * lmax), segs * 4 * block_len)
+    rd = dict(
+        ms=cuda_ms(lambda: wire.decode_block(words, seg_lens, cfg.k, block_len), 10),
+        plain_ms=cuda_ms(lambda: wire.decode_block_plain(words, seg_lens, cfg.k,
+                                                         block_len), 3),
+        bound_ms=rd_bound[0], bound_by=rd_bound[1], library_ms=None,
+    )
+    log_kernel(f"phase11 wire_decode received segments S={segs} of {block_len} "
+               f"positions, {lmax} supermer lengths each", rd)
+    del words, seg_lens
+
     # The send tensors against the host encoder's on the same share.
     flat, flat_valid = fasta_io.flatten_for_device(codes, lens, cfg.k, cfg.pad_multiple)
     dest4 = minimizer.kmer_destinations(codes_d, cfg.k, cfg.m, sharded._num_buckets(cfg, 4))
+    e = max_abs_err([dest4[:fits]], [minimizer.kmer_destinations_plain(
+        codes_d, cfg.k, cfg.m, sharded._num_buckets(cfg, 4))[:fits]])
+    require_equal("minimizer_scan four ranks' buckets", e)
     sizes = dispatch.bucket_sizes_device(dest4, valid, sharded._num_buckets(cfg, 4))
     assign4 = dispatch.balanced_assignment(sizes.cpu().numpy().astype(np.int64), 4)
     shard4 = torch.from_numpy(assign4.astype(np.int32)).to(dev)[dest4.to(torch.int64)]
@@ -3191,7 +3356,7 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
     log(f"phase11 send tensors of phase 2's reads equal to the host encoder's: "
         f"{'; '.join(checked)}")
     wire_info = dict(supermers=r, bases=gathered, dims=dims)
-    return {"supermer_runs": rt, "supermer_pack": pk}, wire_info
+    return {"supermer_runs": rt, "supermer_pack": pk, "minimizer_scan": sc}, wire_info
 
 
 # The spans of one supermer call (runtime/timer.stage, in the order entered)
@@ -3228,6 +3393,9 @@ def phase11_stages(codes, lengths, cfg, range_traffic, wire_info) -> None:
     if "heavy pre-count" in seconds:
         raise AssertionError("phase 2's reads flagged a heavy bucket")
     h2d = seconds["wire feed"] - seconds["staging"] - seconds["host pack"]
+    log(f"phase11a the kernels' spans: wire decode {seconds['wire decode'] * 1e3:.1f} ms, "
+        f"scan {seconds['scan'] * 1e3:.1f} ms, receive decode + keybuild "
+        f"{seconds['receive decode + keybuild'] * 1e3:.1f} ms")
     log(f"phase11a stages of one supermer call under its spans, second of two (wall "
         f"{wall * 1e3:.1f} ms), ms: "
         + "; ".join(f"{name} {sec * 1e3:.1f}" for name, sec in seconds.items())
@@ -3348,8 +3516,13 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
         log_phase10("a", f"count_reads_sharded, routing supermer, {int(codes.size)} "
                     f"bases (walls {', '.join(f'{w:.4f}' for w in walls)} s; the first "
                     f"call's line)", [a], len(one_shot[0]), needed, 11)
-        if a["launches"]["keybuild"] < 2:
-            raise AssertionError("phase 11(a) did not build the m-mer words by the kernel")
+        # The scan kernel builds its m-mer words itself: one scan, the key
+        # build once (the received segments'), the decode twice (the rank's
+        # wire, then every received segment in one launch).
+        if (a["launches"].get("minimizer_scan") != 1 or a["launches"].get("wire_decode") != 2
+                or a["launches"].get("keybuild") != 1):
+            raise AssertionError(f"phase 11(a) launched {a['launches']}: not one scan, "
+                                 f"two decodes and one key build")
         phase11_stages(codes, lengths, cfg, range_traffic, wire_info)
         # The send side ran on the card: the host library packed the wire
         # feed and found no run boundary and gathered no run.
@@ -3517,6 +3690,11 @@ def phase12_run(tag: str, what: str, fasta: str, out_root: str, n: int, flags: l
         if missing:
             raise AssertionError(f"phase 12({tag}) rank {r} launched no {missing}")
         log(f"phase12{tag} {line}; process wall {walls[r]:.2f} s")
+        spans = [f"{name} {float(m.group(1)) * 1e3:.1f} ms" for name in
+                 ("wire decode", "scan", "kernel library load")
+                 for m in [re.search(rf", {name} ([0-9.]+)", line)] if m]
+        if spans:
+            log(f"phase12{tag} rank {r} the kernels' spans: {', '.join(spans)}")
     got = sorted_lines([os.path.join(out_dir, f"{r}.out") for r in range(n)])
     if got != want_lines:
         raise AssertionError(f"phase 12({tag}): the union of {n} shares ({len(got)} "

@@ -1,26 +1,35 @@
-"""Decode of the 2-bit packed read wire, in plain torch on every device.
+"""Decode of the 2-bit packed read wire: a kernel of the slice on a CUDA
+tensor, plain torch on a CPU tensor.
 
 The port of hysortk_tpu/ops/wire.py (the receive-side parse of the
 reference's 2-bit supermer wire, src/kmerops.cpp:1096-1148): the host feeds
 (packed words, read lengths) — ~2 bits/base + 4 B/read — and the device
-rebuilds the flat (codes, valid) stream with dense bit math:
+rebuilds the flat (codes, valid) stream, in extension mode with every
+position's (read id, position in read):
 
-  * unpack: one shift/mask broadcast per 16-base word;
-  * validity: the last k-1 positions of each read (and everything past the
-    last read) cannot start a k-mer — marked by a scatter-add of +/-1
-    deltas at read boundaries (O(reads)) and one cumsum.
+  decode_block[_ext]   on a CUDA tensor the hand-written kernel
+                       csrc/wire_decode.cu (the reads' ends by one chained
+                       scan, then a thread a 16-base word); on a CPU tensor
+                       decode_block[_ext]_plain, the JAX version's dense bit
+                       math in torch: one shift/mask broadcast per word
+                       (unpack_codes), the last k-1 positions of each read
+                       (and everything past the last read) marked invalid by
+                       a scatter-add of +/-1 deltas at read boundaries and
+                       one cumsum (valid_from_lengths), read ids and
+                       positions by cumulative scans (rid_pos_from_lengths).
 
-Under supermer routing the same decode parses the received supermers, each
-one a short read, and extension mode fills every position's (read id,
-position) from per-run headers (`fill_run_meta`).
-
-This step is XLA code in the JAX package, not a Pallas kernel, so it stays
-plain torch here too. Packing lives host-side in io/supermer.py.
+decode_block also takes S segments at once (the supermer route's received
+segments, one launch for all). Under supermer routing extension mode fills
+every position's (read id, position) from per-run headers instead
+(`fill_run_meta`, plain torch on every device). Packing lives host-side in
+io/supermer.py.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import _build
 
 
 def unpack_codes(packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -63,11 +72,93 @@ def valid_from_lengths(
     return ~invalid
 
 
+def _check_wire(packed: torch.Tensor, lengths: torch.Tensor, k: int, n: int,
+                segments_allowed: bool) -> None:
+    if packed.dtype != torch.int32:
+        raise TypeError(f"need int32 packed words, got {packed.dtype}")
+    if lengths.dtype.is_floating_point or lengths.dtype == torch.bool:
+        raise TypeError(f"need integer read lengths, got {lengths.dtype}")
+    if packed.device != lengths.device:
+        raise ValueError(f"packed words on {packed.device}, lengths on {lengths.device}")
+    dims = (1, 2) if segments_allowed else (1,)
+    if packed.dim() not in dims or lengths.dim() != packed.dim():
+        raise ValueError(f"need packed words and lengths of {' or '.join(map(str, dims))} "
+                         f"matching dimension(s), got {tuple(packed.shape)} and "
+                         f"{tuple(lengths.shape)}")
+    if packed.dim() == 2 and not 1 <= packed.shape[0] == lengths.shape[0]:
+        raise ValueError(f"need one row of words and of lengths a segment, got "
+                         f"{tuple(packed.shape)} and {tuple(lengths.shape)}")
+    if k < 1 or n < 0:
+        raise ValueError(f"need k >= 1 and n >= 0, got k={k} n={n}")
+    if packed.shape[-1] < -(-n // 16):
+        raise ValueError(f"{packed.shape[-1]} words a segment hold fewer than {n} bases")
+
+
+def decode_block_plain(
+    packed: torch.Tensor, lengths: torch.Tensor, k: int, n: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the decode kernel, on any device: the
+    segments one after another, each by unpack_codes and valid_from_lengths."""
+    if packed.dim() == 2:
+        parts = [decode_block_plain(packed[s], lengths[s], k, n)
+                 for s in range(packed.shape[0])]
+        return torch.cat([c for c, _ in parts]), torch.cat([v for _, v in parts])
+    return unpack_codes(packed, n), valid_from_lengths(lengths, k, n)
+
+
 def decode_block(
     packed: torch.Tensor, lengths: torch.Tensor, k: int, n: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Wire block -> (codes int8 (n,), valid bool (n,))."""
-    return unpack_codes(packed, n), valid_from_lengths(lengths, k, n)
+    """Wire block -> (codes int8 (S * n,), valid bool (S * n,)).
+
+    One segment: packed (>= ceil(n/16),) int32 words, lengths (R,) read
+    lengths, zero-padded. S segments of n positions each, decoded back to
+    back: packed (S, >= ceil(n/16)) and lengths (S, R), a row a segment
+    (strided rows, as views of the received exchange, are read in place)."""
+    _check_wire(packed, lengths, k, n, True)
+    if packed.device.type == "cpu":
+        return decode_block_plain(packed, lengths, k, n)
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    return _decode_cuda(packed, lengths, k, n, None)
+
+
+def _decode_cuda(packed, lengths, k: int, n: int, rid_base: int | None):
+    dev = packed.device
+    if packed.dim() == 1:
+        packed, lengths = packed[None], lengths[None]
+    if packed.stride(1) != 1:
+        packed = packed.contiguous()
+    lengths = lengths.to(torch.int32)
+    if lengths.stride(1) != 1:
+        lengths = lengths.contiguous()
+    segments, reads = lengths.shape
+    if segments > 65535 or n >= 2**31 - 128 or k > 128:
+        raise ValueError(f"the decode takes at most 65535 segments of fewer than "
+                         f"2^31 - 128 positions and k <= 128, got {segments} of {n}, "
+                         f"k={k}")
+    total = segments * n
+    out = [torch.empty(total, dtype=torch.int8, device=dev),
+           torch.empty(total, dtype=torch.bool, device=dev)]
+    if rid_base is not None:
+        if not -2**31 <= rid_base < 2**31:
+            raise ValueError(f"rid_base must fit int32, got {rid_base}")
+        out += [torch.empty(total, dtype=torch.int32, device=dev) for _ in range(2)]
+    if total == 0:
+        return tuple(out)
+    lib = _build.lib()
+    scratch = torch.empty(lib.hk_wire_decode_scratch(segments, reads, n),
+                          dtype=torch.uint8, device=dev)
+    ext = [t.data_ptr() for t in out[2:]] or [None, None]
+    with torch.cuda.device(dev):
+        status = lib.hk_wire_decode(
+            packed.data_ptr(), packed.stride(0), lengths.data_ptr(), lengths.stride(0),
+            segments, reads, n, k, rid_base or 0, scratch.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), *ext,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(status, "wire decode launch")
+    _build.launches["wire_decode"] += 1
+    return tuple(out)
 
 
 def rid_pos_from_lengths(
@@ -104,13 +195,28 @@ def rid_pos_from_lengths(
     return rid, idx - last_start
 
 
+def decode_block_ext_plain(
+    packed: torch.Tensor, lengths: torch.Tensor, k: int, n: int, rid_base: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the decode kernel in extension mode, on
+    any device."""
+    codes, valid = decode_block_plain(packed, lengths, k, n)
+    rid, pos = rid_pos_from_lengths(lengths, n, rid_base)
+    return codes, valid, rid, pos
+
+
 def decode_block_ext(
     packed: torch.Tensor, lengths: torch.Tensor, k: int, n: int, rid_base: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Extension wire block -> (codes, valid, rid, pos)."""
-    codes, valid = decode_block(packed, lengths, k, n)
-    rid, pos = rid_pos_from_lengths(lengths, n, rid_base)
-    return codes, valid, rid, pos
+    """Extension wire block of one segment -> (codes int8, valid bool, rid
+    int32, pos int32 holding uint32 bits), each (n,); read ids count from
+    rid_base."""
+    _check_wire(packed, lengths, k, n, False)
+    if packed.device.type == "cpu":
+        return decode_block_ext_plain(packed, lengths, k, n, rid_base)
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    return _decode_cuda(packed, lengths, k, n, rid_base)
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:

@@ -851,6 +851,161 @@ def fill_meta_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int
 
 
 # --------------------------------------------------------------------------
+# The wire decode's and the minimizer scan's hard cases (ops/wire.decode_block
+# and decode_block_ext, csrc/wire_decode.cu; ops/minimizer.kmer_destinations,
+# csrc/minimizer_scan.cu), by the kernels' tiles. The CPU tests hold the
+# plain versions against the JAX package on them; chip_smoke.py phase 1 and
+# the `cuda` tests hold the kernels against the plain versions.
+
+WIRE_SCAN_TILE = 2048  # read lengths a tile of csrc/wire_decode.cu's scan
+WIRE_DECODE_TILE = 4096  # positions a tile of its decode: 256 threads x 16
+
+
+def _wire_words(rng, segments: int, n: int, spare: int = 0) -> np.ndarray:
+    """(S, ceil(n/16) + spare) uint32 words, the top bit set in about half."""
+    return rng.integers(0, 2**32, (segments, -(-n // 16) + spare),
+                        dtype=np.uint64).astype(np.uint32)
+
+
+def wire_decode_cases() -> list[tuple[str, np.ndarray, np.ndarray, int, int, int | None]]:
+    """(name, packed (S, words) uint32, lengths (S, R) int32, k, n, rid_base)
+    of every decode case: S segments of n positions each; rid_base None for
+    codes and validity only (decode_block), else extension mode
+    (decode_block_ext, one segment, read ids from rid_base).
+
+    edges        reads of length 0, 1, k - 1, k, k + 1 and 150 among random
+                 ones, a read that crosses a word edge, at K = 15, 31, 96
+    ragged_n     n not a multiple of 16 (the last word half used)
+    cut          n below the lengths' total: the total is cut at n
+    segments3    S = 3 segments over two decode tiles and a ragged third,
+                 each with its own reads and zero-padding
+    one_segment  the same as a (1, R) segment (the 2-D form, S = 1)
+    many_reads   more reads than three scan tiles (the look-back walks),
+                 zero-length runs across a scan tile's edge
+    long_read    one read over three decode tiles among short ones
+    tile_edges   reads that end exactly at decode tile and word edges
+    stacked      runs of zero-length reads (hundreds on one start), a tail
+                 of zero-padding longer than a scan tile
+    no_reads     R = 0: nothing valid
+    ext_*        extension mode on the edges reads with rid_base 0 and
+                 1_000_000, and on `cut` and `stacked`
+    """
+    rng = np.random.default_rng(19)
+    cases = []
+
+    def add(name, lengths, k, n, rid_base=None, spare=0):
+        lengths = np.atleast_2d(np.asarray(lengths, dtype=np.int32))
+        cases.append((name, _wire_words(rng, lengths.shape[0], n, spare), lengths,
+                      k, n, rid_base))
+
+    def edge_reads(k):
+        return np.concatenate([
+            [0, 1, k - 1, k, k + 1, 150, 0, 0], rng.integers(0, 3 * k, 30),
+            [150, 17, 0, 23, k]]).astype(np.int32)
+
+    for k in (15, 31, 96):
+        lengths = edge_reads(k)
+        total = int(lengths.sum())
+        add(f"edges-k{k}", lengths, k, -(-(total + 16) // 16) * 16, spare=2)
+    lengths = edge_reads(31)
+    total = int(lengths.sum())
+    add("ragged_n", lengths, 31, total + 21)
+    add("cut", lengths, 31, total - 103)
+    seg = [np.concatenate([rng.integers(0, 200, 60 + 20 * s), np.zeros(10 + s)])
+           for s in range(3)]
+    width = max(x.size for x in seg)
+    add("segments3", np.stack([np.pad(x, (0, width - x.size)) for x in seg]), 31,
+        2 * WIRE_DECODE_TILE + 1000)
+    add("one_segment", seg[0][None, :], 31, int(seg[0].sum()) + 16)
+    reads = rng.integers(0, 40, 3 * WIRE_SCAN_TILE + 77)
+    reads[WIRE_SCAN_TILE - 50: WIRE_SCAN_TILE + 50] = 0
+    add("many_reads", reads, 15, int(reads.sum()) + 40)
+    reads = np.concatenate([rng.integers(1, 120, 40), [3 * WIRE_DECODE_TILE + 5],
+                            rng.integers(1, 120, 40)])
+    add("long_read", reads, 31, int(reads.sum()) + 16)
+    reads = np.array([WIRE_DECODE_TILE - 16, 16, 15, 1, WIRE_DECODE_TILE - 32, 150,
+                      WIRE_DECODE_TILE - 150, 31, 33], dtype=np.int32)
+    add("tile_edges", reads, 31, int(reads.sum()) + 64)
+    reads = np.concatenate([np.zeros(300), rng.integers(1, 90, 50), np.zeros(500),
+                            rng.integers(1, 90, 50), np.zeros(WIRE_SCAN_TILE + 300)])
+    add("stacked", reads, 31, int(reads.sum()) + 48)
+    add("no_reads", np.zeros((1, 0)), 31, 100)
+    lengths = edge_reads(31)
+    total = int(lengths.sum())
+    for rid_base in (0, 1_000_000):
+        add(f"ext_edges-rid{rid_base}", lengths, 31, total + 16, rid_base)
+    add("ext_cut", lengths, 31, total - 103, 7)
+    add("ext_stacked", reads, 31, int(reads.sum()) + 48, 1_000_000)
+    return cases
+
+
+SCAN_TILE = 2048  # positions a tile of csrc/minimizer_scan.cu
+SCAN_KS = (15, 31, 55, 95, 96)
+SCAN_MS = (1, 2, 7, 17)
+SCAN_BUCKETS = (1, 3, 9, 24, 65_537)
+SCAN_KINDS = ("random", "poly_a", "top_bit")
+
+
+@functools.lru_cache(maxsize=None)
+def top_bit_motif(m: int) -> tuple[int, ...]:
+    """A 4-base motif whose repeats give canonical m-mers that all hash
+    (ops/hashes.mix_words) above 2^31: every window's minimum hash of a
+    stretch of them has the top bit set."""
+    from .ops import minimizer
+
+    rng = np.random.default_rng(m)
+    while True:
+        motif = rng.integers(0, 4, 4).astype(np.int8)
+        seq = torch.from_numpy(np.tile(motif, -(-(m + 8) // 4)))
+        h = minimizer.mmer_hashes(seq, m).numpy().view(np.uint32)[:4]
+        if (h >= 2**31).all():
+            return tuple(int(c) for c in motif)
+
+
+def scan_case_codes(kind: str, n: int, m: int, seed: int) -> np.ndarray:
+    """(n,) int8 codes of one scan case.
+
+    random   random codes with a poly-A stretch of 300 and a stretch of
+             the top_bit_motif across a tile edge
+    poly_a   one base everywhere (every m-mer the same, every window tied)
+    top_bit  the top_bit_motif repeated: every minimum has the top bit set
+    """
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n).astype(np.int8)
+    motif = np.array(top_bit_motif(m), dtype=np.int8)
+    if kind == "random":
+        codes[100:400] = 0
+        at = min(SCAN_TILE - 150, max(n - 300, 0))
+        codes[at: at + 300] = np.tile(motif, 75)[: codes[at: at + 300].size]
+    elif kind == "poly_a":
+        codes[:] = 0
+    elif kind == "top_bit":
+        codes[:] = np.tile(motif, -(-n // 4))[:n]
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    return codes
+
+
+def scan_cases() -> list[tuple[str, str, int, int, int, int, int]]:
+    """(name, kind, n, k, m, num_buckets, seed) of every scan case, the
+    codes scan_case_codes(kind, n, m, seed): K = 15, 31,
+    55, 95 and 96 with m = 1, 2, 7, 17 and k - 1 (where m < k), over two
+    tiles and a ragged third, the bucket counts taken in turn (1, 3, 9, 24,
+    65,537); then the poly-A and top-bit kinds, a window of 96 hashes (K =
+    96, m = 1), and inputs shorter than one window."""
+    ragged = 2 * SCAN_TILE + 333
+    pairs = [(k, m) for k in SCAN_KS for m in (*SCAN_MS, k - 1) if m < k]
+    cases = [("random", ragged, k, m, SCAN_BUCKETS[i % len(SCAN_BUCKETS)])
+             for i, (k, m) in enumerate(pairs)]
+    cases += [(kind, ragged, k, m, b) for kind in ("poly_a", "top_bit")
+              for k, m, b in ((31, 17, 24), (96, 1, 65_537), (15, 7, 3))]
+    cases += [("random", n, k, m, 9) for n, k, m in ((1, 31, 17), (40, 55, 17),
+                                                     (95, 96, 1))]
+    return [(f"{kind}-n{n}-k{k}-m{m}-b{b}", kind, n, k, m, b, 300 + i)
+            for i, (kind, n, k, m, b) in enumerate(cases)]
+
+
+# --------------------------------------------------------------------------
 # Jobs for ranks spawned by parallel/spawn.spawn_ranks: each job reads its
 # inputs from an .npz file and writes this rank's outputs to
 # <out_dir>/<name>.<rank>.npz, so that a test compares them in its own

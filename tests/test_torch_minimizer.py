@@ -234,8 +234,8 @@ def test_extend_kmer_matches_jax(k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,m", KM)
 def test_minimizer_on_cuda_matches_cpu(k, m):
-    """On a card the m-mer words come from the key-build kernel: the
-    destinations equal the CPU's at every slot where a k-mer fits."""
+    """On a card the destinations come from the scan kernel: they equal
+    the CPU's at every slot where a k-mer fits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     codes = torch.from_numpy(_codes(k, 1 << 16))

@@ -1,0 +1,112 @@
+"""The wire decode (ops/wire.decode_block, decode_block_ext) on every case
+of hysortk_tpu_torch.testing.wire_decode_cases: the plain versions against
+the JAX package on the CPU, and the kernel (csrc/wire_decode.cu) against the
+plain version on a card (`cuda` marker). Seeded numpy inputs; the tolerance
+is exact equality of every output at every position."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hysortk_tpu.ops import wire as jwire
+from hysortk_tpu_torch import _build, testing
+from hysortk_tpu_torch.ops import wire
+
+CASES = testing.wire_decode_cases()
+IDS = [case[0] for case in CASES]
+
+
+def _tensors(case, device="cpu"):
+    _, packed, lengths, k, n, rid_base = case
+    return (torch.from_numpy(packed.view(np.int32)).to(device),
+            torch.from_numpy(lengths).to(device), k, n, rid_base)
+
+
+def _decode(packed, lengths, k, n, rid_base):
+    if rid_base is None:
+        return wire.decode_block(packed, lengths, k, n)
+    return wire.decode_block_ext(packed[0], lengths[0], k, n, rid_base)
+
+
+def _jax_decode(case):
+    """The JAX package's decode, segment by segment, as numpy arrays (read
+    ids and positions as int32 bit patterns)."""
+    _, packed, lengths, k, n, rid_base = case
+    if rid_base is not None:
+        out = jwire.decode_block_ext(jnp.asarray(packed[0]), jnp.asarray(lengths[0]), k, n,
+                                     rid_base)
+        return [np.asarray(o).view(np.int32) if np.asarray(o).dtype == np.uint32
+                else np.asarray(o) for o in out]
+    parts = [jwire.decode_block(jnp.asarray(packed[s]), jnp.asarray(lengths[s]), k, n)
+             for s in range(packed.shape[0])]
+    return [np.concatenate([np.asarray(p[i]) for p in parts]) for i in range(2)]
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_decode_matches_jax(case):
+    got = _decode(*_tensors(case))
+    want = _jax_decode(case)
+    assert [g.dtype for g in got] == [torch.int8, torch.bool, torch.int32,
+                                      torch.int32][: len(got)]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == (case[1].shape[0] * case[4],)
+        assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[1].shape[0] == 1 and c[5] is None],
+                         ids=[c[0] for c in CASES if c[1].shape[0] == 1 and c[5] is None])
+def test_one_segment_forms_agree(case):
+    """A (1, R) segment decodes as its 1-D form does."""
+    packed, lengths, k, n, _ = _tensors(case)
+    flat = wire.decode_block(packed[0], lengths[0], k, n)
+    rows = wire.decode_block(packed, lengths, k, n)
+    assert all(torch.equal(a, b) for a, b in zip(flat, rows))
+
+
+def test_decode_rejects_what_the_kernel_does_not_take():
+    packed = torch.zeros(4, dtype=torch.int32)
+    lengths = torch.tensor([10, 20], dtype=torch.int32)
+    with pytest.raises(TypeError):
+        wire.decode_block(packed.to(torch.int64), lengths, 31, 64)
+    with pytest.raises(ValueError):  # fewer words than bases
+        wire.decode_block(packed, lengths, 31, 65)
+    with pytest.raises(ValueError):  # extension mode takes one segment
+        wire.decode_block_ext(packed[None], lengths[None], 31, 64, 0)
+    with pytest.raises(ValueError):  # a row of lengths a row of words
+        wire.decode_block(packed.view(2, 2), lengths[None], 31, 32)
+    with pytest.raises(ValueError):
+        wire.decode_block(packed.to("meta"), lengths.to("meta"), 31, 64)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_decode_kernel_matches_plain(case):
+    _cuda_or_skip()
+    before = _build.launches["wire_decode"]
+    got = _decode(*_tensors(case, "cuda"))
+    torch.cuda.synchronize()
+    assert _build.launches["wire_decode"] == before + (case[4] > 0)
+    want = _decode(*_tensors(case))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_reads_strided_segments():
+    """The received exchange's form: each segment's words and lengths as
+    views into one (S, 1, width) tensor, at odd word counts."""
+    _cuda_or_skip()
+    _, packed, lengths, k, n, _ = next(c for c in CASES if c[0] == "segments3")
+    nw = packed.shape[1]
+    recv = torch.from_numpy(np.concatenate(
+        [packed.view(np.int32), lengths], axis=1)[:, None, :].copy())
+    want = wire.decode_block(recv[:, 0, :nw], recv[:, 0, nw:], k, n)
+    recv = recv.cuda()
+    got = wire.decode_block(recv[:, 0, :nw], recv[:, 0, nw:], k, n)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
