@@ -27,9 +27,15 @@ build/kernels/ at first use. Phases, each printing its findings:
      wire decode's (reads of length 0, under k, k, 150 and across words,
      segments not whole words and cut below their reads, three segments, more
      reads than three scan tiles, stacked zero-length reads, extension mode
-     from read id 0 and 1,000,000) and the minimizer scan's (K = 15 to 96
+     from read id 0 and 1,000,000), the minimizer scan's (K = 15 to 96
      with m = 1, 2, 7, 17 and k - 1, 1 to 65,537 buckets, poly-A and
-     top-bit minima; no key build launched), then the inputs the main paths
+     top-bit minima, equal at every position; no key build launched), the
+     sized scan's (the buckets with the valid k-mers of each: block seams
+     of four geometries, bins on both sides of the shared-memory cap,
+     empty, full and seeded masks and reads with zero-length reads) and the
+     run layout's (the run table's cases at 1, 2, 4 and 257 destinations,
+     caps on and across tile edges, 9,000 buckets, field by field against
+     its plain composition), then the inputs the main paths
      give each kernel at the size of phases 2 and 4 (the wire decode on
      phase 2's wire, also in extension mode), with each kernel's bound (the
      least time the card could take) and, where one PyTorch call computes
@@ -121,10 +127,11 @@ build/kernels/ at first use. Phases, each printing its findings:
      2^26 bases against phase 8(a), then on two ranks on phase 8(c)'s 2^24
      bases one-shot and count_reads_sharded_ext_streaming in batches of
      2^22, both against phase 8(c)'s one-shot result; (d) minimizer routing
-     with the balanced dispatcher, one rank (one scan kernel for the plan
-     and one a pass, one decode, no key build but the keys'; with a stage
-     line: wire decode and scan, each one launch of its kernel, bucket
-     sizes and plan, pack, exchange, receive sort, count, result) and four
+     with the balanced dispatcher, one rank (one sized scan for the plan
+     and one scan a pass, one decode, no key build but the keys'; with a
+     stage line: wire decode and scan, each one launch of its kernel, bucket
+     sizes and plan with dispatch.bucket_sizes_device and the bincount
+     stubbed to raise, pack, exchange, receive sort, count, result) and four
      spawned ranks; (e) on two ranks at 2^24 bases: minimizer with
      round_robin and the combiner, kmer_hash, kmer_hash with extension
      mode. Each result exactly equal to its reference after sorting by key
@@ -134,23 +141,28 @@ build/kernels/ at first use. Phases, each printing its findings:
      launched); per rank the wall, the peak device memory, the step
      passes, the bytes sent and the kernels' launches
  11  supermer routing (parallel/supermer_route.py: wire feed and decode,
-     destination scan, bucket sizes on the card, classification and
-     dispatch, the send side on the card (heavy pre-count, the run table
-     and segment pack kernels), all_to_all, receive-side decode, key build,
+     destination scan with the bucket sizes in its epilogue, classification
+     and dispatch, the send side on the card (heavy pre-count, the run
+     layout and segment pack kernels), all_to_all, receive-side decode, key build,
      sort, count) with phase 2's configuration: first the encoder's and
      fill_run_meta's hard cases of hysortk_tpu_torch.testing on the card
      (each case's route result equal to kmer_count's, fill_run_meta equal
-     to its CPU result); the send side's hard cases (the run table's cases,
-     every encoder case at K = 15, 31, 55, 95 on 1, 2 and 4 destinations,
-     extension mode off and on: each kernel equal to its plain version, the
-     send tensor equal to the host encoder's); the scan kernel on 11(a)'s
-     codes (at one and four ranks' buckets), the two send-side kernels on
-     11(a)'s inputs and the decode kernel on its received segments against
-     their plain versions, timed beside their bounds, and the send tensor of phase 2's reads equal to the host
-     encoder's at one and four destinations (four also in extension mode);
-     (a) count_reads_sharded with routing="supermer" on phase 2's reads, one
-     rank with NCCL, best of three (one scan, two decodes and one key build a
-     call), then two calls more under the route's
+     to its CPU result); the send side's hard cases (every encoder case at
+     K = 15, 31, 55, 95 on 1, 2 and 4 destinations, extension mode off and
+     on: each kernel equal to its plain version, the send tensor equal to
+     the host encoder's); the sized scan on 11(a)'s codes and validity (at
+     one and four ranks' buckets; beside its bound, its design's integer
+     floor at the card's INT32 rate), the run layout and the pack on 11(a)'s
+     inputs and the decode kernel on its received segments against their
+     plain versions, timed beside their bounds, and the send tensor of phase
+     2's reads equal to the host encoder's at one and four destinations
+     (four also in extension mode); (a) count_reads_sharded with
+     routing="supermer" on phase 2's reads, one rank with NCCL, best of
+     three (one scan, one run layout, two decodes and one key build a call),
+     one call more with dispatch.bucket_sizes_device, supermer's
+     segment_layout, run_table and run_table_plain stubbed to raise (equal,
+     one scan and one run layout launched), then two calls more under the
+     route's
      own stage spans (runtime/timer.record_stages; the second's line,
      feed to result, logged, with the kernels' spans apart), the wire bytes beside the range route's
      (9(a)), and no run boundary or run gather in the host library; the device heavy pre-count timed on (c)'s first reads
@@ -253,6 +265,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # The data sheet's only rate outside the tensor cores (float32); the
 # kernels' integer operations are held against it.
 OPS_PER_S = 67e12
+# The card's 32-bit integer rate, which no data sheet table gives: 64 INT32
+# lanes an SM (half the 128 float32 lanes), 132 SMs, 1.98 GHz boost. Printed
+# beside the minimizer scan's bound as its design's integer floor.
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+INT32_RATE_SOURCE = ("64 INT32 lanes an SM, NVIDIA H100 Tensor Core GPU Architecture "
+                     "white paper; 132 SMs at the SXM part's 1.98 GHz boost clock")
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -694,15 +712,16 @@ def phase1_mix_cases(errs) -> None:
 
 
 def phase1_wire_scan_cases(errs) -> None:
-    """The wire decode's and the minimizer scan's hard cases
-    (hysortk_tpu_torch.testing) on the card: each kernel exactly equal to
-    its plain version (the scan where a k-mer fits, every bucket in range),
+    """The wire decode's, the minimizer scan's and the run layout's hard
+    cases (hysortk_tpu_torch.testing) on the card: each kernel exactly
+    equal to its plain version (the scan at every position, its sizes too),
     each case one launch of its kernel, and the scan none of the key
     build."""
     import torch
 
     from hysortk_tpu_torch import _build, testing
     from hysortk_tpu_torch.ops import minimizer, wire
+    from hysortk_tpu_torch.ops import supermer as sm_ops
 
     def decode(packed, lengths, k, n, rid_base):
         if rid_base is None:
@@ -724,24 +743,64 @@ def phase1_wire_scan_cases(errs) -> None:
         f"{testing.WIRE_SCAN_TILE} (lengths' scan): {len(cases)} equal, "
         f"{sum(c[5] is not None for c in cases)} of them in extension mode")
 
+    def one_launch(what, name, before):
+        if (_build.launches[name] != before[name] + 1
+                or _build.launches["keybuild"] != before["keybuild"]):
+            raise AssertionError(f"{what}: launches {_build.launches} after {before}")
+
     scans = testing.scan_cases()
     for name, kind, n, k, m, buckets, seed in scans:
         codes = torch.from_numpy(testing.scan_case_codes(kind, n, m, seed))
         before = dict(_build.launches)
         got = minimizer.kmer_destinations(codes.cuda(), k, m, buckets).cpu()
-        if (_build.launches["minimizer_scan"] != before["minimizer_scan"] + 1
-                or _build.launches["keybuild"] != before["keybuild"]):
-            raise AssertionError(f"minimizer_scan case {name}: launches "
-                                 f"{_build.launches} after {before}")
+        one_launch(f"minimizer_scan case {name}", "minimizer_scan", before)
         if not bool(((got >= 0) & (got < buckets)).all()):
             raise AssertionError(f"minimizer_scan case {name}: a bucket out of range")
-        fits = max(n - k + 1, 0)
-        e = max_abs_err([got[:fits]], [minimizer.kmer_destinations_plain(
-            codes, k, m, buckets)[:fits]])
+        e = max_abs_err([got], [minimizer.kmer_destinations_plain(codes, k, m, buckets)])
         require_equal(f"minimizer_scan case {name}", e)
         errs["minimizer_scan"] = max(errs["minimizer_scan"], e)
-    log(f"phase1 minimizer_scan hard cases at tile {testing.SCAN_TILE}: {len(scans)} "
-        f"equal where a k-mer fits, every bucket in range, no key build launched")
+    sized = testing.sized_scan_cases()
+    for name, kind, n, k, m, buckets, seed, mask in sized:
+        codes = torch.from_numpy(testing.scan_case_codes(kind, n, m, seed))
+        valid = torch.from_numpy(testing.scan_mask(mask, n, k, seed))
+        before = dict(_build.launches)
+        got = minimizer.kmer_destinations_sized(codes.cuda(), valid.cuda(), k, m, buckets)
+        one_launch(f"minimizer_scan sized case {name}", "minimizer_scan", before)
+        e = max_abs_err([g.cpu() for g in got], list(
+            minimizer.kmer_destinations_sized_plain(codes, valid, k, m, buckets)))
+        require_equal(f"minimizer_scan sized case {name}", e)
+        errs["minimizer_scan"] = max(errs["minimizer_scan"], e)
+    log(f"phase1 minimizer_scan hard cases: {len(scans)} equal at every position, "
+        f"{len(sized)} sized cases (block seams of four geometries, {testing.SCAN_SHARED_BINS}"
+        f" shared bins and past them, empty, full and read masks) equal with their sizes, "
+        f"every bucket in range, no key build launched")
+
+    layouts = testing.run_layout_cases()
+    for name, valid, bucket, assign, m, num_dest in layouts:
+        args = (torch.from_numpy(valid).cuda(), torch.from_numpy(bucket).cuda(),
+                torch.from_numpy(assign).cuda(), m, K, num_dest)
+        before = dict(_build.launches)
+        got = sm_ops.run_layout(*args)
+        torch.cuda.synchronize()
+        one_launch(f"supermer_runs case {name}", "supermer_runs", before)
+        e = max_abs_err(*layout_rows(got, sm_ops.run_layout_plain(*args)))
+        require_equal(f"supermer_runs case {name}", e)
+        errs["supermer_runs"] = max(errs["supermer_runs"], e)
+    log(f"phase1 supermer_runs (run layout) hard cases at tile {testing.RUN_TABLE_TILE}: "
+        f"{len(layouts)} equal field by field (1 to 257 destinations, caps on and across "
+        f"tile edges, 9,000 buckets, reads with zero-length reads)")
+
+
+def layout_rows(got, want):
+    """Two SegmentLayouts as (rows, rows) for max_abs_err: the four tensors,
+    then cmax and smax as 0-d tensors."""
+    import torch
+
+    def rows(lay):
+        return [lay.src, lay.off, lay.bases, lay.dest_begin,
+                torch.tensor([lay.cmax, lay.smax], device=lay.src.device)]
+
+    return rows(got), rows(want)
 
 
 def merge_passes(n_runs: int, run_len: int) -> int:
@@ -1200,8 +1259,9 @@ KERNELS = {
     # numpy: kernels the port added for the route, not ports of Pallas
     # kernels.
     "supermer_runs": ("hysortk_tpu_torch/csrc/supermer_runs.cu",
-                      "hysortk_tpu/io/supermer.py:50 run_boundaries (host numpy, "
-                      "no pallas_call)"),
+                      "hysortk_tpu/io/supermer.py:50 run_boundaries + the per-destination "
+                      "layout of :124 encode_supermer_streams (host numpy, no "
+                      "pallas_call)"),
     "supermer_pack": ("hysortk_tpu_torch/csrc/supermer_pack.cu",
                       "hysortk_tpu/io/supermer.py:124, :271 + "
                       "parallel/supermer_route.py:219, :641 (host numpy, no "
@@ -1213,7 +1273,8 @@ KERNELS = {
                     ":98; XLA, no pallas_call)"),
     "minimizer_scan": ("hysortk_tpu_torch/csrc/minimizer_scan.cu",
                        "hysortk_tpu/ops/minimizer.py:45 kmer_destinations (with :23, "
-                       ":34; XLA, no pallas_call)"),
+                       ":34) + parallel/dispatch.py:23 bucket_sizes_device (XLA, no "
+                       "pallas_call)"),
 }
 # Which path's run gives each kernel its launch count in the record:
 # phase 2 (the wire decode too), phase 4(a), and for fused_sort phase 6, for
@@ -2803,8 +2864,9 @@ def phase10_minimizer_stages(codes, lengths, cfg) -> None:
     import torch
 
     from hysortk_tpu_torch import _build
+    from hysortk_tpu_torch.ops import count as count_ops
     from hysortk_tpu_torch.ops import keybuild, minimizer, radix_sort, wire
-    from hysortk_tpu_torch.parallel import exchange
+    from hysortk_tpu_torch.parallel import dispatch, exchange
     from hysortk_tpu_torch.parallel import pipeline as sharded
 
     stages = []
@@ -2833,9 +2895,15 @@ def phase10_minimizer_stages(codes, lengths, cfg) -> None:
                 or _build.launches["keybuild"] != before["keybuild"]):
             raise AssertionError(f"phase 10(d)'s decode and scan stages launched "
                                  f"{_build.launches} after {before}")
-        _, assign, capacity, _ = timed(
-            "bucket sizes + plan (a second scan inside)",
-            lambda: sharded.plan_sharded_step(codes_d, valid_d, cfg, 1, block_len))
+        # The plan's sizes come from the sized scan's epilogue: no bincount.
+        before = dict(_build.launches)
+        with refused((dispatch, "bucket_sizes_device"), (count_ops, "chunked_bincount")):
+            _, assign, capacity, _ = timed(
+                "bucket sizes + plan (the sized scan inside)",
+                lambda: sharded.plan_sharded_step(codes_d, valid_d, cfg, 1, block_len))
+        if _build.launches["minimizer_scan"] != before["minimizer_scan"] + 1:
+            raise AssertionError(f"phase 10(d)'s plan launched {_build.launches} after "
+                                 f"{before}: not one sized scan")
         words = timed("keybuild", lambda: keybuild.canonical_keys_fused(
             codes_d, valid_d, cfg.k))
         send, counts, overflow = timed(
@@ -2856,7 +2924,9 @@ def phase10_minimizer_stages(codes, lengths, cfg) -> None:
         timed("result (compaction, gather, copy-out, histogram)",
               lambda: sharded._gather_result(words_s, cnt, keep, cfg, None, False))
         del codes_d, valid_d, words_s, cnt, keep, packed, lens
-    log(f"phase10d stages of one minimizer call, second of two, ms: {'; '.join(stages)}")
+    log(f"phase10d stages of one minimizer call, second of two, ms: {'; '.join(stages)}; "
+        f"the plan ran with dispatch.bucket_sizes_device and count.chunked_bincount "
+        f"stubbed to raise")
 
 
 def phase10_stream_parts(codes, lengths, cfg, one_shot, a: dict) -> None:
@@ -3150,11 +3220,12 @@ def phase11_hard_cases() -> None:
 
 def phase11_send_cases(errs) -> None:
     """The send side's hard cases on the card, inside phase 11's one-rank
-    group: the run table's cases (testing.run_table_cases), then every
-    encoder case at K = 15, 31, 55 and 95 on 1, 2 and 4 destinations,
-    extension mode off and on: each kernel equal to its plain version on
-    the same CUDA tensors, and the send tensor equal to the host encoder's
-    `_segments(_encode(...))` on the same share."""
+    group: every encoder case at K = 15, 31, 55 and 95 on 1, 2 and 4
+    destinations, extension mode off and on (the destinations as minimizer
+    buckets under a round-robin table of three buckets a destination): each
+    kernel equal to its plain version on the same CUDA tensors, and the send
+    tensor equal to the host encoder's `_segments(_encode(...))` on the same
+    share. (The run layout's own hard cases run in phase 1.)"""
     import torch
 
     import hysortk_tpu_torch as ht
@@ -3165,12 +3236,6 @@ def phase11_send_cases(errs) -> None:
     from hysortk_tpu_torch.parallel import supermer_route as sr
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    cases = testing.run_table_cases()
-    for name, valid, dest, m in cases:
-        args = (torch.from_numpy(valid).to(dev), torch.from_numpy(dest).to(dev), m)
-        e = max_abs_err(sm_ops.run_table(*args), sm_ops.run_table_plain(*args))
-        require_equal(f"supermer_runs case {name}", e)
-        errs["supermer_runs"] = max(errs["supermer_runs"], e)
     n = 0
     for kind in testing.SUPERMER_KINDS:
         for k, m in ((15, 7), (31, 17), (55, 13), (95, 17)):
@@ -3179,6 +3244,9 @@ def phase11_send_cases(errs) -> None:
             flat, valid = fasta_io.flatten_for_device(codes, lengths, k, 256)
             for num_dest in (1, 2, 4):
                 shard_of = testing.supermer_case_dest(kind, flat.size, num_dest, 5)
+                bucket = shard_of + num_dest * np.random.default_rng(k).integers(
+                    0, 3, shard_of.size)
+                table = torch.arange(3 * num_dest, dtype=torch.int32, device=dev) % num_dest
                 for ext in (False, True):
                     what = f"{kind} k={k} S={num_dest}{' ext' if ext else ''}"
                     cfg = ht.KmerConfig(k=k, m=m, pad_multiple=256, extension=ext)
@@ -3187,12 +3255,12 @@ def phase11_send_cases(errs) -> None:
                                                    lengths, rid0, ext), cfg, dev, None)[0]
                     packed, lens_d, n_slots = pipeline.wire_batch(codes, lengths, cfg, dev)
                     codes_d, valid_d = wire.decode_block(packed, lens_d, k, n_slots)
-                    args = (valid_d, torch.from_numpy(shard_of).to(dev), sm_ops.max_kmers(k))
-                    runs = sm_ops.run_table(*args)
-                    e = max_abs_err(runs, sm_ops.run_table_plain(*args))
+                    args = (valid_d, torch.from_numpy(bucket.astype(np.int32)).to(dev),
+                            table, sm_ops.max_kmers(k), k, num_dest)
+                    layout = sm_ops.run_layout(*args)
+                    e = max_abs_err(*layout_rows(layout, sm_ops.run_layout_plain(*args)))
                     require_equal(f"supermer_runs {what}", e)
                     errs["supermer_runs"] = max(errs["supermer_runs"], e)
-                    layout = sm_ops.segment_layout(*runs, k, num_dest)
                     dims = sm_ops.segment_dims(layout.cmax, layout.smax, 256)
                     headers = sm_ops.run_headers(layout.src, lens_d, rid0) if ext else ()
                     got = sm_ops.pack_segments(codes_d, layout, *dims, headers)
@@ -3204,20 +3272,20 @@ def phase11_send_cases(errs) -> None:
                         raise AssertionError(f"phase 11 send case {what}: the send tensor "
                                              f"differs from the host encoder's")
                     n += 1
-    log(f"phase11 send cases: {len(cases)} run-table cases and {n} encoder cases, each "
-        f"kernel equal to its plain version, each send tensor equal to the host "
-        f"encoder's")
+    log(f"phase11 send cases: {n} encoder cases, each kernel equal to its plain version, "
+        f"each send tensor equal to the host encoder's")
 
 
 def phase11_kernels(codes, lengths, cfg, errs) -> dict:
-    """The send side's two kernels against their plain versions on the
-    inputs 11(a)'s step gives them (phase 2's reads on one rank: the wire
-    decoded, the destination ranks of the one-rank plan), timed beside
-    their bounds; then the send tensor against the host encoder's
-    `_segments(_encode(...))` on phase 2's reads at one destination, and at
-    four (the plan's buckets of four ranks) with and without extension
-    mode. Inside phase 11's one-rank group. Returns the kernels'
-    measurements and the share's wire (supermers, bases, segment dims)."""
+    """The send side's kernels against their plain versions on the inputs
+    11(a)'s step gives them (phase 2's reads on one rank: the wire decoded;
+    the sized scan, then the run layout of its buckets under the one-rank
+    plan, then the pack), timed beside their bounds; then the send tensor
+    against the host encoder's `_segments(_encode(...))` on phase 2's reads
+    at one destination, and at four (the plan's buckets of four ranks) with
+    and without extension mode. Inside phase 11's one-rank group. Returns
+    the kernels' measurements and the share's wire (supermers, bases,
+    segment dims)."""
     import dataclasses
 
     import torch
@@ -3236,46 +3304,57 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
     codes_d, valid = wire.decode_block(packed, lens_d, cfg.k, n)
     del packed
     nb = sharded._num_buckets(cfg, 1)
-    dest = minimizer.kmer_destinations(codes_d, cfg.k, cfg.m, nb)
-    fits = n - cfg.k + 1
-    e = max_abs_err([dest[:fits]], [minimizer.kmer_destinations_plain(
-        codes_d, cfg.k, cfg.m, nb)[:fits]])
+
+    def scan(buckets):
+        return minimizer.kmer_destinations_sized(codes_d, valid, cfg.k, cfg.m, buckets)
+
+    def scan_plain(buckets):
+        return minimizer.kmer_destinations_sized_plain(codes_d, valid, cfg.k, cfg.m, buckets)
+
+    dest, sizes = scan(nb)
+    e = max_abs_err([dest, sizes], list(scan_plain(nb)))
     require_equal("minimizer_scan main path", e)
-    if not bool(((dest >= 0) & (dest < nb)).all()):
-        raise AssertionError("minimizer_scan main path: a bucket out of range")
     errs["minimizer_scan"] = max(errs["minimizer_scan"], e)
     w = -(-cfg.m // 16)
-    # In: a code a position; out: an int32 bucket. Per position the
-    # canonical m-mer (a funnel shift, a crumb reversal, a compare and a
-    # select a word: ~25 operations), its mix (an fmix32 and a round a word,
-    # ~11, and one fmix32 more, 8), three window reads and a modulo.
-    sc_bound = bound(5 * n, (36 * w + 12) * n)
+    # In: a code and a validity byte a position; out: an int32 bucket a
+    # position and an int32 size a bucket. The design's integer operations
+    # a position: the roll of the forward and the reverse-complement words
+    # (a funnel shift a word each, ~5 more), the compare and select (3 a
+    # word), the hash (an fmix32 and a round a word, 10, one fmix32 more,
+    # 8), the base fetch, prefix, suffix and window reads (~9), the
+    # reciprocal modulo (4), the bins (~3): 16 W + 26.
+    sc_ops = (16 * w + 26) * n
+    sc_bound = bound(6 * n + 4 * nb, sc_ops)
     sc = dict(
-        ms=cuda_ms(lambda: minimizer.kmer_destinations(codes_d, cfg.k, cfg.m, nb), 10),
-        plain_ms=cuda_ms(lambda: minimizer.kmer_destinations_plain(
-            codes_d, cfg.k, cfg.m, nb), 3),
+        ms=cuda_ms(lambda: scan(nb), 10), plain_ms=cuda_ms(lambda: scan_plain(nb), 3),
         bound_ms=sc_bound[0], bound_by=sc_bound[1], library_ms=None,
     )
-    log_kernel(f"phase11 minimizer_scan main path n={n} K={cfg.k} m={cfg.m} "
+    log_kernel(f"phase11 minimizer_scan (sized) main path n={n} K={cfg.k} m={cfg.m} "
                f"({nb} buckets)", sc)
-    _, assign = sr._plan(dest, valid, cfg, None, True, dev, None)
-    shard_of = torch.from_numpy(assign.astype(np.int32)).to(dev)[dest.to(torch.int64)]
+    log(f"phase11 minimizer_scan integer-operation floor of its design: {16 * w + 26} "
+        f"operations a position x {n} = {sc_ops:.4g} at the H100's INT32 rate "
+        f"{INT32_OPS_PER_S / 1e12:.2f} T/s ({INT32_RATE_SOURCE}): "
+        f"{sc_ops / INT32_OPS_PER_S * 1e3:.4f} ms, against the byte bound "
+        f"{6 * n / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    _, assign = sr._plan(sizes, cfg, None, True, dev, None)
+    assign_d = torch.from_numpy(assign.astype(np.int32)).to(dev)
     mk = sm_ops.max_kmers(cfg.k)
-    runs = sm_ops.run_table(valid, shard_of, mk)
-    e = max_abs_err(runs, sm_ops.run_table_plain(valid, shard_of, mk))
+    layout_args = (valid, dest, assign_d, mk, cfg.k, 1)
+    layout = sm_ops.run_layout(*layout_args)
+    e = max_abs_err(*layout_rows(layout, sm_ops.run_layout_plain(*layout_args)))
     require_equal("supermer_runs main path", e)
     errs["supermer_runs"] = max(errs["supermer_runs"], e)
-    r = runs[0].numel()
-    # In: valid + int32 destination a position; out: 16 B a run. Per
-    # position a head test, a modulo and two scan steps in each of two
-    # passes.
-    rt_bound = bound(5 * n + 16 * r, 20 * n)
+    r = layout.src.numel()
+    # In: validity + int32 bucket a position and the table; out: 20 B a run
+    # (int64 source and offset, int32 length) and the bounds. Per position a
+    # table read, a head test, a modulo and two scan steps in each of the two
+    # launches.
+    rt_bound = bound(5 * n + 4 * nb + 20 * r + 8 * 2, 20 * n)
     rt = dict(
-        ms=cuda_ms(lambda: sm_ops.run_table(valid, shard_of, mk), 10),
-        plain_ms=cuda_ms(lambda: sm_ops.run_table_plain(valid, shard_of, mk), 3),
+        ms=cuda_ms(lambda: sm_ops.run_layout(*layout_args), 10),
+        plain_ms=cuda_ms(lambda: sm_ops.run_layout_plain(*layout_args), 3),
         bound_ms=rt_bound[0], bound_by=rt_bound[1], library_ms=None,
     )
-    layout = sm_ops.segment_layout(*runs, cfg.k, 1)
     dims = sm_ops.segment_dims(layout.cmax, layout.smax, cfg.pad_multiple)
     send = sm_ops.pack_segments(codes_d, layout, *dims)
     e = max_abs_err([send], [sm_ops.pack_segments_plain(codes_d, layout, *dims)])
@@ -3283,12 +3362,13 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
     errs["supermer_pack"] = max(errs["supermer_pack"], e)
     gathered = int(layout.bases.sum())
     # In: the bases the runs cover, each once (a run's first k - 1 bases
-    # may be the run before's last: runs ascend in flat order, so do their
-    # ends), 20 B of rows a run (src, off, length) and the destinations'
-    # bounds; out: the send tensor. Per gathered base a load, a mask, a
-    # shift and an or; per word a binary search over the runs.
-    starts, kmers = runs[0], runs[1]
-    ends = starts + kmers.to(torch.int64) + (cfg.k - 1)
+    # may be the run before's last: on one destination the runs ascend in
+    # flat order, so do their ends), 20 B of rows a run (src, off, length)
+    # and the destinations' bounds; out: the send tensor. Per gathered base
+    # a load, a mask, a shift and an or; per word a binary search over the
+    # runs.
+    starts = layout.src
+    ends = starts + layout.bases.to(torch.int64)
     covered = int(ends[-1] - starts[0]) - int(
         (starts[1:] - ends[:-1]).clamp(min=0).sum()) if r else 0
     pk_bound = bound(covered + 20 * r + 8 * layout.dest_begin.numel() + 4 * send.numel(),
@@ -3298,7 +3378,7 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
         plain_ms=cuda_ms(lambda: sm_ops.pack_segments_plain(codes_d, layout, *dims), 3),
         bound_ms=pk_bound[0], bound_by=pk_bound[1], library_ms=None,
     )
-    log_kernel(f"phase11 supermer_runs main path n={n} ({r} runs)", rt)
+    log_kernel(f"phase11 supermer_runs (run layout) main path n={n} ({r} runs)", rt)
     log_kernel(f"phase11 supermer_pack main path {gathered} bases of {r} runs "
                f"({covered} distinct) into {send.numel()} words", pk)
 
@@ -3324,26 +3404,26 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
 
     # The send tensors against the host encoder's on the same share.
     flat, flat_valid = fasta_io.flatten_for_device(codes, lens, cfg.k, cfg.pad_multiple)
-    dest4 = minimizer.kmer_destinations(codes_d, cfg.k, cfg.m, sharded._num_buckets(cfg, 4))
-    e = max_abs_err([dest4[:fits]], [minimizer.kmer_destinations_plain(
-        codes_d, cfg.k, cfg.m, sharded._num_buckets(cfg, 4))[:fits]])
+    nb4 = sharded._num_buckets(cfg, 4)
+    dest4, sizes4 = scan(nb4)
+    e = max_abs_err([dest4, sizes4], list(scan_plain(nb4)))
     require_equal("minimizer_scan four ranks' buckets", e)
-    sizes = dispatch.bucket_sizes_device(dest4, valid, sharded._num_buckets(cfg, 4))
-    assign4 = dispatch.balanced_assignment(sizes.cpu().numpy().astype(np.int64), 4)
-    shard4 = torch.from_numpy(assign4.astype(np.int32)).to(dev)[dest4.to(torch.int64)]
+    assign4 = dispatch.balanced_assignment(sizes4.cpu().numpy().astype(np.int64), 4)
     checked = []
-    for num_dest, shard_d, ext in ((1, shard_of, False), (4, shard4, False),
-                                   (4, shard4, True)):
+    for num_dest, dest_d, table, ext in ((1, dest, assign, False), (4, dest4, assign4, False),
+                                         (4, dest4, assign4, True)):
         c = dataclasses.replace(cfg, extension=ext)
         rid0 = EXT_RID0 if ext else 0
+        table_d = torch.from_numpy(table.astype(np.int32)).to(dev)
         t0 = time.perf_counter()
-        got = sr._device_send(codes_d, valid, shard_d, lens_d, c, num_dest, rid0, ext,
-                              dev, None)[0]
+        got = sr._device_send(codes_d, valid, dest_d, table_d, lens_d, c, num_dest, rid0,
+                              ext, dev, None)[0]
         torch.cuda.synchronize()
         t_dev = time.perf_counter() - t0
         t0 = time.perf_counter()
-        want = sr._segments(sr._encode(flat, flat_valid, pipeline.to_host([shard_d])[0],
-                                       c, num_dest, lens, rid0, ext), c, dev, None)[0]
+        shard_of = table.astype(np.int32)[pipeline.to_host([dest_d])[0]]
+        want = sr._segments(sr._encode(flat, flat_valid, shard_of, c, num_dest, lens, rid0,
+                                       ext), c, dev, None)[0]
         torch.cuda.synchronize()
         t_host = time.perf_counter() - t0
         if not torch.equal(got, want):
@@ -3364,9 +3444,54 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
 # supermer_route._supermer_step, and the wire feed's (pipeline.stage_wire).
 SUPERMER_SPANS = (
     "pack", "feed", "wire feed", "staging", "host pack", "wire decode", "plan", "scan",
-    "sizes", "sizes all_reduce", "encode", "destination ranks", "run table", "layout",
-    "dims all_reduce", "segment pack", "step", "exchange", "receive decode + keybuild",
-    "radix sort", "fused count") + RESULT_SPANS
+    "sizes all_reduce", "encode", "run layout", "dims all_reduce", "segment pack", "step",
+    "exchange", "receive decode + keybuild", "radix sort", "fused count") + RESULT_SPANS
+# The spans the route's first slices had and this one must not: the sizes,
+# the destination ranks and the layout are the scan's and the run layout's.
+SUPERMER_GONE_SPANS = ("sizes", "destination ranks", "run table", "layout")
+
+
+@contextlib.contextmanager
+def refused(*targets):
+    """Within the block, each (module, name) of `targets` raises when
+    called."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def stub(name):
+        def refuse(*args, **kwargs):
+            raise AssertionError(f"{name} was called")
+        return refuse
+
+    for mod, name, _ in saved:
+        setattr(mod, name, stub(f"{mod.__name__}.{name}"))
+    try:
+        yield
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def phase11_stubbed(codes, lengths, sm: dict, one_shot) -> None:
+    """One more 11(a) call with the torch stages the two kernels took over
+    replaced by stubs that raise (dispatch.bucket_sizes_device, the bincount
+    behind it, supermer's segment_layout and run_table): the CUDA route
+    reaches none of them, launches one scan and one run layout, and its
+    result equals phase 2's. Inside phase 11's one-rank group."""
+    from hysortk_tpu_torch.ops import supermer as sm_ops
+    from hysortk_tpu_torch.parallel import dispatch
+
+    with refused((dispatch, "bucket_sizes_device"), (sm_ops, "segment_layout"),
+                 (sm_ops, "run_table"), (sm_ops, "run_table_plain")):
+        got = phase10_call("count_reads_sharded", codes, lengths, sm)
+    require_same_result("phase 11(a) with the replaced stages stubbed", got.pop("result"),
+                        one_shot)
+    launched = {name: got["launches"].get(name, 0) for name in ("minimizer_scan",
+                                                                "supermer_runs")}
+    if set(launched.values()) != {1}:
+        raise AssertionError(f"phase 11(a) stubbed: launches {got['launches']}")
+    log(f"phase11a with dispatch.bucket_sizes_device, supermer segment_layout, run_table "
+        f"and run_table_plain stubbed to raise: equal to phase 2, launches {launched} "
+        f"(wall {got['walls'][0]:.4f} s)")
 
 
 def phase11_stages(codes, lengths, cfg, range_traffic, wire_info) -> None:
@@ -3390,11 +3515,15 @@ def phase11_stages(codes, lengths, cfg, range_traffic, wire_info) -> None:
     missing = [name for name in SUPERMER_SPANS if name not in seconds]
     if missing:
         raise AssertionError(f"phase 11(a)'s call entered no {missing} span")
+    gone = [name for name in SUPERMER_GONE_SPANS if name in seconds]
+    if gone:
+        raise AssertionError(f"phase 11(a)'s call still entered the {gone} span(s)")
     if "heavy pre-count" in seconds:
         raise AssertionError("phase 2's reads flagged a heavy bucket")
     h2d = seconds["wire feed"] - seconds["staging"] - seconds["host pack"]
     log(f"phase11a the kernels' spans: wire decode {seconds['wire decode'] * 1e3:.1f} ms, "
-        f"scan {seconds['scan'] * 1e3:.1f} ms, receive decode + keybuild "
+        f"scan (the sizes in its epilogue) {seconds['scan'] * 1e3:.1f} ms, run layout "
+        f"{seconds['run layout'] * 1e3:.1f} ms, receive decode + keybuild "
         f"{seconds['receive decode + keybuild'] * 1e3:.1f} ms")
     log(f"phase11a stages of one supermer call under its spans, second of two (wall "
         f"{wall * 1e3:.1f} ms), ms: "
@@ -3516,13 +3645,16 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
         log_phase10("a", f"count_reads_sharded, routing supermer, {int(codes.size)} "
                     f"bases (walls {', '.join(f'{w:.4f}' for w in walls)} s; the first "
                     f"call's line)", [a], len(one_shot[0]), needed, 11)
-        # The scan kernel builds its m-mer words itself: one scan, the key
-        # build once (the received segments'), the decode twice (the rank's
-        # wire, then every received segment in one launch).
+        # The scan kernel builds its m-mer words itself: one scan (the sizes
+        # in it), one run layout, the key build once (the received
+        # segments'), the decode twice (the rank's wire, then every received
+        # segment in one launch).
         if (a["launches"].get("minimizer_scan") != 1 or a["launches"].get("wire_decode") != 2
-                or a["launches"].get("keybuild") != 1):
+                or a["launches"].get("keybuild") != 1
+                or a["launches"].get("supermer_runs") != 1):
             raise AssertionError(f"phase 11(a) launched {a['launches']}: not one scan, "
-                                 f"two decodes and one key build")
+                                 f"one run layout, two decodes and one key build")
+        phase11_stubbed(codes, lengths, sm, one_shot)
         phase11_stages(codes, lengths, cfg, range_traffic, wire_info)
         # The send side ran on the card: the host library packed the wire
         # feed and found no run boundary and gathered no run.

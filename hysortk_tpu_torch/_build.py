@@ -251,12 +251,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     u32s = ctypes.POINTER(ctypes.c_uint32)
     lib.hk_mix_keys.argtypes = [ptrs, ptrs, i32, i64, u32s, i32, u32s, ptr]
     lib.hk_mix_keys.restype = i32
-    lib.hk_supermer_runs_scratch.argtypes = [i64]
-    lib.hk_supermer_runs_scratch.restype = i64
-    lib.hk_supermer_runs_count.argtypes = [ptr, ptr, i64, i32, ptr, ptr, ptr]
-    lib.hk_supermer_runs_count.restype = i32
-    lib.hk_supermer_runs_write.argtypes = [ptr, ptr, i64, i32, ptr, ptr, ptr, ptr, ptr]
-    lib.hk_supermer_runs_write.restype = i32
+    lib.hk_run_layout_scratch.argtypes = [i64, i32]
+    lib.hk_run_layout_scratch.restype = i64
+    lib.hk_run_layout_count.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32, i32, ptr, ptr,
+                                        ptr, ptr]
+    lib.hk_run_layout_count.restype = i32
+    lib.hk_run_layout_write.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32, i32, ptr, ptr,
+                                        ptr, ptr, ptr, ptr]
+    lib.hk_run_layout_write.restype = i32
     lib.hk_supermer_pack.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
                                      i32, ptr, ptr]
     lib.hk_supermer_pack.restype = i32
@@ -265,7 +267,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_wire_decode.argtypes = [ptr, i64, ptr, i64, i64, i64, i64, i32, i32, ptr,
                                    ptr, ptr, ptr, ptr, ptr]
     lib.hk_wire_decode.restype = i32
-    lib.hk_minimizer_scan.argtypes = [ptr, i64, i32, i32, ctypes.c_uint32, ptr, ptr]
+    lib.hk_minimizer_scan.argtypes = [ptr, ptr, i64, i32, i32, ctypes.c_uint32,
+                                      ctypes.c_uint64, ptr, ptr, ptr]
     lib.hk_minimizer_scan.restype = i32
     lib.hk_error_string.argtypes = [i32]
     lib.hk_error_string.restype = ctypes.c_char_p

@@ -23,23 +23,24 @@ __device__ __forceinline__ uint32_t crumb_reverse32(uint32_t x) {
   return x;
 }
 
-// fwd[0 .. W): the forward k-mer's words, bases 16w .. 16w+15 of the slot in
-// word w, whatever follows the k-mer still in the last word. key[0 .. W)
-// receives the canonical key, 16(W-1) < k <= 16W.
+// The mask of the last key word's r = k - 16(W - 1) bases (its top 2r bits).
 template <int W>
-__device__ __forceinline__ void canonical_from_forward(uint32_t (&fwd)[W], int k,
-                                                       uint32_t (&key)[W]) {
-  // The last word cut to its r bases.
+__device__ __forceinline__ uint32_t last_word_mask(int k) {
   const int r = k - 16 * (W - 1);
-  if (r < 16) fwd[W - 1] &= 0xFFFFFFFFu << (32 - 2 * r);
+  return r < 16 ? 0xFFFFFFFFu << (32 - 2 * r) : 0xFFFFFFFFu;
+}
 
-  // Twin: reverse the crumbs of the reversed word list, complement, and
-  // shift the whole key left so its first base sits at the top of word 0.
+// fwd[0 .. W): a forward k-mer's words, its last word already cut to its
+// bases. twn[0 .. W) receives its reverse complement in the same layout.
+template <int W>
+__device__ __forceinline__ void twin_from_forward(const uint32_t (&fwd)[W], int k,
+                                                  uint32_t (&twn)[W]) {
+  // Reverse the crumbs of the reversed word list, complement, and shift the
+  // whole key left so its first base sits at the top of word 0.
   uint32_t rev[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) rev[w] = ~crumb_reverse32(fwd[W - 1 - w]);
   const int shift = 32 * W - 2 * k;  // 0 when k == 16W
-  uint32_t twn[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
     if (shift == 0) {
@@ -49,8 +50,14 @@ __device__ __forceinline__ void canonical_from_forward(uint32_t (&fwd)[W], int k
       twn[w] = (rev[w] << shift) | lo;
     }
   }
+}
 
-  // Canonical = lexicographic min(fwd, twn), word 0 most significant.
+// key[0 .. W) = the lexicographic minimum of a k-mer's forward words and
+// its twin's, word 0 most significant: its canonical key.
+template <int W>
+__device__ __forceinline__ void canonical_of(const uint32_t (&fwd)[W],
+                                             const uint32_t (&twn)[W],
+                                             uint32_t (&key)[W]) {
   bool less = false, decided = false;
 #pragma unroll
   for (int w = 0; w < W; ++w) {
@@ -61,6 +68,18 @@ __device__ __forceinline__ void canonical_from_forward(uint32_t (&fwd)[W], int k
   }
 #pragma unroll
   for (int w = 0; w < W; ++w) key[w] = less ? twn[w] : fwd[w];
+}
+
+// fwd[0 .. W): the forward k-mer's words, bases 16w .. 16w+15 of the slot in
+// word w, whatever follows the k-mer still in the last word. key[0 .. W)
+// receives the canonical key, 16(W-1) < k <= 16W.
+template <int W>
+__device__ __forceinline__ void canonical_from_forward(uint32_t (&fwd)[W], int k,
+                                                       uint32_t (&key)[W]) {
+  fwd[W - 1] &= last_word_mask<W>(k);  // the last word cut to its bases
+  uint32_t twn[W];
+  twin_from_forward<W>(fwd, k, twn);
+  canonical_of<W>(fwd, twn, key);
 }
 
 // Four base codes, one per byte of v (the first in the lowest byte), as

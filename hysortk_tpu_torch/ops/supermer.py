@@ -1,6 +1,6 @@
-"""The supermer route's send side on the device: the run table and the
-segment pack, two kernels of the slice, and the torch bookkeeping between
-them.
+"""The supermer route's send side on the device: the run layout and the
+segment pack, two kernels of the slice, and the plain functions they are
+held to.
 
 The JAX package encodes supermers on the host (hysortk_tpu/io/supermer.py
 run_boundaries, encode_supermer_streams[_ext]; parallel/supermer_route.py
@@ -8,13 +8,20 @@ _pack_streams, _prepare_exchange_arrays), as the port's io/supermer.py and
 supermer_route._segments still do for the tests. Here the same send tensor
 is built where the rank's codes already lie:
 
-  run_table       (valid, destination rank) over the rank's positions ->
-                  each run's flat start, k-mer count and destination, in
-                  ascending flat order (csrc/supermer_runs.cu on a CUDA
-                  tensor, `run_table_plain` on a CPU tensor);
-  segment_layout  the runs grouped by destination in flat order, each run's
-                  base offset in its segment, the segments' run bounds and
-                  their largest base and run counts (torch ops);
+  run_layout      (valid, minimizer bucket, bucket -> rank table) over the
+                  rank's positions -> the runs grouped by destination rank
+                  in flat order within each (first base, base offset in the
+                  destination's segment, length), the destinations' run
+                  bounds and their largest base and run counts
+                  (csrc/supermer_runs.cu on a CUDA tensor, two launches and
+                  one read of (runs, cmax, smax); `run_layout_plain` on a
+                  CPU tensor);
+  run_layout_plain  its plain composition: `run_table_plain` of the ranks
+                  assign[dest], then `segment_layout` (torch ops);
+  run_table       each run's flat start, k-mer count and destination, in
+                  ascending flat order (`run_table_plain`, plain torch on any
+                  device: the tests hold it to the JAX package's
+                  run_boundaries);
   run_headers     extension mode: each run's first read id and in-read
                   position, from the read lengths (torch.searchsorted);
   pack_segments   the (S, 1, width) int32 send tensor, bit for bit what
@@ -86,44 +93,10 @@ def run_table(
     """Supermer runs of a rank's positions: valid (n,) bool k-mer starts,
     dest (n,) int32 destination ranks (read only where valid) -> (start
     int64, k-mer count int32, destination int32) per run, ascending by
-    start. A run of R k-mers spans R + k - 1 bases."""
+    start. A run of R k-mers spans R + k - 1 bases. Plain torch on any
+    device (run_layout is the kernel that lays the runs out)."""
     _check_run_inputs(valid, dest, max_kmers_)
-    if valid.device.type == "cpu":
-        return run_table_plain(valid, dest, max_kmers_)
-    if valid.device.type != "cuda":
-        raise ValueError(f"unsupported device {valid.device}")
-    return _run_table_cuda(valid.contiguous(), dest.contiguous(), max_kmers_)
-
-
-def _run_table_cuda(valid, dest, max_kmers_):
-    dev = valid.device
-    n = valid.shape[0]
-    if n == 0:
-        return (torch.zeros(0, dtype=torch.int64, device=dev),
-                torch.zeros(0, dtype=torch.int32, device=dev),
-                torch.zeros(0, dtype=torch.int32, device=dev))
-    if n >= 2**31 - 4096:
-        raise ValueError(f"run table takes n < 2^31 - 4096, got {n}")
-    lib = _build.lib()
-    scratch = torch.empty(lib.hk_supermer_runs_scratch(n), dtype=torch.uint8, device=dev)
-    n_runs = torch.empty(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.hk_supermer_runs_count(valid.data_ptr(), dest.data_ptr(), n,
-                                            max_kmers_, scratch.data_ptr(),
-                                            n_runs.data_ptr(), stream)
-        _build.check(status, "supermer run count launch")
-        runs = int(n_runs.item())
-        starts = torch.empty(runs, dtype=torch.int64, device=dev)
-        kmers = torch.empty(runs, dtype=torch.int32, device=dev)
-        run_dest = torch.empty(runs, dtype=torch.int32, device=dev)
-        status = lib.hk_supermer_runs_write(valid.data_ptr(), dest.data_ptr(), n,
-                                            max_kmers_, scratch.data_ptr(),
-                                            starts.data_ptr(), kmers.data_ptr(),
-                                            run_dest.data_ptr(), stream)
-    _build.check(status, "supermer run write launch")
-    _build.launches["supermer_runs"] += 1
-    return starts, kmers, run_dest
+    return run_table_plain(valid, dest, max_kmers_)
 
 
 @dataclasses.dataclass
@@ -159,6 +132,80 @@ def segment_layout(starts: torch.Tensor, kmers: torch.Tensor, run_dest: torch.Te
     cmax, smax = (int(v) for v in torch.stack([bases_per.max(), runs_per.max()]).cpu())
     return SegmentLayout(starts[order], off, bases.to(torch.int32), dest_begin, cmax,
                          smax)
+
+
+MAX_DEST = 8192  # csrc/supermer_runs.cu's destinations a call
+
+
+def _check_layout_inputs(valid, dest, assign, max_kmers_: int, k: int,
+                         num_dest: int) -> None:
+    _check_run_inputs(valid, dest, max_kmers_)
+    if assign.dtype != torch.int32 or assign.dim() != 1 or assign.numel() < 1:
+        raise TypeError(f"need a 1-D int32 bucket -> rank table, got {assign.dtype}"
+                        f"{tuple(assign.shape)}")
+    if assign.device != valid.device:
+        raise ValueError(f"valid on {valid.device}, the table on {assign.device}")
+    if not 1 <= num_dest <= MAX_DEST or k < 1:
+        raise ValueError(f"need 1 <= num_dest <= {MAX_DEST} and k >= 1, got "
+                         f"{num_dest}, {k}")
+
+
+def run_layout_plain(valid: torch.Tensor, dest: torch.Tensor, assign: torch.Tensor,
+                     max_kmers_: int, k: int, num_dest: int) -> SegmentLayout:
+    """The plain PyTorch version of the run-layout kernel, on any device:
+    the run table of the ranks assign[dest], then segment_layout."""
+    ranks = torch.where(valid, assign[torch.where(valid, dest, 0).to(torch.int64)], 0)
+    return segment_layout(*run_table_plain(valid, ranks, max_kmers_), k, num_dest)
+
+
+def run_layout(valid: torch.Tensor, dest: torch.Tensor, assign: torch.Tensor,
+               max_kmers_: int, k: int, num_dest: int) -> SegmentLayout:
+    """The segment layout of a rank's supermer runs: valid (n,) bool k-mer
+    starts, dest (n,) int32 minimizer buckets in [0, assign.numel()) where
+    valid, assign the bucket -> destination rank table (int32 ranks in [0,
+    num_dest)). Field by field what run_layout_plain gives."""
+    _check_layout_inputs(valid, dest, assign, max_kmers_, k, num_dest)
+    if valid.device.type == "cpu":
+        return run_layout_plain(valid, dest, assign, max_kmers_, k, num_dest)
+    if valid.device.type != "cuda":
+        raise ValueError(f"unsupported device {valid.device}")
+    return _run_layout_cuda(valid.contiguous(), dest.contiguous(), assign.contiguous(),
+                            max_kmers_, k, num_dest)
+
+
+def _run_layout_cuda(valid, dest, assign, max_kmers_, k, num_dest) -> SegmentLayout:
+    dev = valid.device
+    n = valid.shape[0]
+    if n == 0:
+        return SegmentLayout(torch.empty(0, dtype=torch.int64, device=dev),
+                             torch.empty(0, dtype=torch.int64, device=dev),
+                             torch.empty(0, dtype=torch.int32, device=dev),
+                             torch.zeros(num_dest + 1, dtype=torch.int64, device=dev), 0, 0)
+    if n >= 2**31 - 4096:
+        raise ValueError(f"run layout takes n < 2^31 - 4096, got {n}")
+    lib = _build.lib()
+    buckets = assign.numel()
+    scratch = torch.empty(lib.hk_run_layout_scratch(n, num_dest), dtype=torch.uint8,
+                          device=dev)
+    dest_begin = torch.empty(num_dest + 1, dtype=torch.int64, device=dev)
+    info = torch.empty(3, dtype=torch.int64, device=dev)
+    args = (valid.data_ptr(), dest.data_ptr(), assign.data_ptr(), buckets, n, max_kmers_,
+            k, num_dest, scratch.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.hk_run_layout_count(*args, dest_begin.data_ptr(), info.data_ptr(),
+                                         stream)
+        _build.check(status, "run layout count launch")
+        runs, cmax, smax = (int(v) for v in info.cpu())
+        src = torch.empty(runs, dtype=torch.int64, device=dev)
+        off = torch.empty(runs, dtype=torch.int64, device=dev)
+        bases = torch.empty(runs, dtype=torch.int32, device=dev)
+        if runs:
+            status = lib.hk_run_layout_write(*args, dest_begin.data_ptr(), src.data_ptr(),
+                                             off.data_ptr(), bases.data_ptr(), stream)
+            _build.check(status, "run layout write launch")
+    _build.launches["supermer_runs"] += 1
+    return SegmentLayout(src, off, bases, dest_begin, cmax, smax)
 
 
 def segment_dims(cmax: int, smax: int, pad_multiple: int,

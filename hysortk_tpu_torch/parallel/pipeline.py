@@ -389,9 +389,8 @@ def _bucket_sizes(codes, valid, cfg: KmerConfig, num_shards: int, group):
     dispatcher's input (reference Reduce of task sizes,
     src/kmerops.cpp:1157-1199); the local matrix gives the exact
     per-(source, destination) maxima of the assignment."""
-    num_buckets = _num_buckets(cfg, num_shards)
-    bucket = minimizer.kmer_destinations(codes, cfg.k, cfg.m, num_buckets)
-    sizes = dispatch.bucket_sizes_device(bucket, valid, num_buckets)
+    _, sizes = minimizer.kmer_destinations_sized(codes, valid, cfg.k, cfg.m,
+                                                 _num_buckets(cfg, num_shards))
     sizes = sizes.to(group_mod.collective_device(codes.device, group))
     local = [torch.empty_like(sizes) for _ in range(num_shards)]
     dist.all_gather(local, sizes, group=group)

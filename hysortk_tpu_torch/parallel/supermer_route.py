@@ -31,13 +31,14 @@ between hosts, every rank shares here:
 Per step, on every rank, all on the rank's device but the plan:
 
   the 2-bit wire of the rank's reads (pipeline.wire_batch) -> decode
-  (ops/wire) -> destination scan (ops/minimizer) -> bucket sizes
-  (dispatch.bucket_sizes_device, one all-reduce) -> classification and
-  assignment on the host (num_buckets integers) -> heavy pre-count (key
-  build, radix sort and fused count over the heavy positions; only the
-  distinct heavy keys reach the host, one all-gather) -> the run table
-  (ops/supermer.run_table) -> per-destination layout (torch ops; segment
-  dims by one all-reduce MAX) -> the segment pack (ops/supermer.
+  (ops/wire) -> destination scan with the bucket sizes in its epilogue
+  (ops/minimizer.kmer_destinations_sized; one all-reduce) ->
+  classification and assignment on the host (num_buckets integers) ->
+  heavy pre-count (key build, radix sort and fused count over the heavy
+  positions; only the distinct heavy keys reach the host, one all-gather)
+  -> the run layout (ops/supermer.run_layout: the runs grouped by
+  destination rank, the bucket -> rank table read inside the kernel;
+  segment dims by one all-reduce MAX) -> the segment pack (ops/supermer.
   pack_segments) -> all_to_all (parallel/exchange) -> one flat unpack and
   the validity of each received segment (ops/wire) -> key build -> radix
   sort -> fused count -> compact and gather of every rank's list
@@ -71,7 +72,7 @@ multi-process entries. Their streams batch the rank's own reads, the batch
 count agreed by all-reduce MAX (a rank that runs out feeds empty batches),
 the assignment fixed on batch 0 as above.
 
-The send side launches two kernels of its own, the run table
+The send side launches two kernels of its own, the run layout
 (csrc/supermer_runs.cu) and the segment pack (csrc/supermer_pack.cu);
 besides them the path launches the key build (the m-mer words of the
 destination scan, the heavy keys, the k-mer words), the radix sort and the
@@ -298,20 +299,18 @@ def split_stream(
 # phase 11(a) stage line and the CLI's multi-process line read.
 
 
-def _plan(dest: torch.Tensor, valid: torch.Tensor, cfg: KmerConfig, assign,
-          classify: bool, dev, group) -> tuple[np.ndarray, np.ndarray]:
-    """(types, assign): the global bucket sizes, counted on the device
-    (dispatch.bucket_sizes_device) and summed by one all-reduce on the
+def _plan(sizes: torch.Tensor, cfg: KmerConfig, assign, classify: bool, dev,
+          group) -> tuple[np.ndarray, np.ndarray]:
+    """(types, assign): the rank's bucket sizes (counted by the scan,
+    minimizer.kmer_destinations_sized) summed by one all-reduce on the
     collective device, the heavy buckets where `classify` and
     cfg.classifier ask for them, and the bucket -> rank assignment where
     `assign` is None (heavy buckets carry no dispatch load). Only the
     num_buckets sizes reach the host; every rank computes the same."""
     num_shards = dist.get_world_size(group)
     num_buckets = sharded._num_buckets(cfg, num_shards)
-    with stage("sizes", dev):
-        sizes = dispatch.bucket_sizes_device(dest, valid, num_buckets).to(torch.int64)
     with stage("sizes all_reduce", dev):
-        sizes = sizes.to(group_mod.collective_device(dev, group))
+        sizes = sizes.to(torch.int64).to(group_mod.collective_device(dev, group))
         dist.all_reduce(sizes, op=dist.ReduceOp.SUM, group=group)
         sizes = sizes.cpu().numpy()
     types = np.zeros(num_buckets, np.int32)
@@ -455,21 +454,20 @@ class _Step:
     dims: tuple[int, int]  # (block_len, lmax)
 
 
-def _device_send(codes: torch.Tensor, valid: torch.Tensor, shard_of: torch.Tensor,
-                 read_lengths: torch.Tensor, cfg: KmerConfig, num_shards: int,
-                 read_id_offset: int, ext: bool, dev, group, min_dims=(0, 1)):
+def _device_send(codes: torch.Tensor, valid: torch.Tensor, dest: torch.Tensor,
+                 assign: torch.Tensor, read_lengths: torch.Tensor, cfg: KmerConfig,
+                 num_shards: int, read_id_offset: int, ext: bool, dev, group,
+                 min_dims=(0, 1)):
     """The send tensor of `_segments(_encode(...))`, built on the rank's
-    device: the run table (ops/supermer.run_table), the per-destination
-    layout, the segment dims (the most of any rank by one all-reduce MAX,
-    pinned from below by min_dims), in extension mode each run's headers
-    from the read lengths, then the segment pack (ops/supermer.
-    pack_segments). Returns (send, block_len, lmax)."""
-    with stage("run table", dev):
-        starts, kmers, run_dest = supermer_ops.run_table(valid, shard_of,
-                                                         supermer_ops.max_kmers(cfg.k))
-    with stage("layout", dev):
-        layout = supermer_ops.segment_layout(starts, kmers, run_dest, cfg.k, num_shards)
-        del starts, kmers, run_dest
+    device from the minimizer buckets `dest` and the bucket -> rank table
+    `assign` (int32 on the device): the run layout (ops/supermer.run_layout:
+    the runs grouped by destination rank), the segment dims (the most of any
+    rank by one all-reduce MAX, pinned from below by min_dims), in extension
+    mode each run's headers from the read lengths, then the segment pack
+    (ops/supermer.pack_segments). Returns (send, block_len, lmax)."""
+    with stage("run layout", dev):
+        layout = supermer_ops.run_layout(valid, dest, assign,
+                                         supermer_ops.max_kmers(cfg.k), cfg.k, num_shards)
     with stage("dims all_reduce", dev):
         cmax, smax = sharded._all_reduce_host(np.array([layout.cmax, layout.smax]),
                                               dist.ReduceOp.MAX, dev, group)
@@ -508,10 +506,10 @@ def _supermer_step(codes, lengths, cfg: KmerConfig, group, dev, *, assign=None,
                 codes_d, valid = wire.decode_block(packed, lens_d, cfg.k, n)
                 del packed
         with stage("plan", dev):
-            with stage("scan", dev):
-                dest = minimizer.kmer_destinations(codes_d, cfg.k, cfg.m,
-                                                   sharded._num_buckets(cfg, num_shards))
-            types, assign = _plan(dest, valid, cfg, assign, not ext, dev, group)
+            with stage("scan", dev):  # the buckets and their sizes, one kernel
+                dest, sizes = minimizer.kmer_destinations_sized(
+                    codes_d, valid, cfg.k, cfg.m, sharded._num_buckets(cfg, num_shards))
+            types, assign = _plan(sizes, cfg, assign, not ext, dev, group)
             assign_d = torch.from_numpy(np.asarray(assign, dtype=np.int32)).to(dev)
             heavy = None
             if (types == dispatch.HEAVY).any():
@@ -520,13 +518,10 @@ def _supermer_step(codes, lengths, cfg: KmerConfig, group, dev, *, assign=None,
                         codes_d, valid, dest, types, assign_d, cfg.k, num_shards)
                     heavy = _allgather_entry_lists(per_shard, group, dev)
         with stage("encode", dev):
-            with stage("destination ranks", dev):
-                shard_of = assign_d[dest.to(torch.int64)]
-                del dest
-            send, block_len, lmax = _device_send(codes_d, valid, shard_of, lens_d, cfg,
-                                                 num_shards, read_id_offset, ext, dev,
+            send, block_len, lmax = _device_send(codes_d, valid, dest, assign_d, lens_d,
+                                                 cfg, num_shards, read_id_offset, ext, dev,
                                                  group, min_dims)
-            del codes_d, valid, shard_of, lens_d
+            del codes_d, valid, dest, lens_d
     with stage("step", dev):
         with stage("exchange", dev):
             recv, _, _ = exchange.all_to_all_exchange(

@@ -815,6 +815,77 @@ def run_table_cases() -> list[tuple[str, np.ndarray, np.ndarray, int]]:
     return cases
 
 
+def _ranks_to_buckets(rng, ranks: np.ndarray, num_dest: int, per_dest: int = 3):
+    """Buckets and a round-robin bucket -> rank table (per_dest buckets a
+    destination) under which each position's rank is `ranks`."""
+    assign = (np.arange(per_dest * num_dest) % num_dest).astype(np.int32)
+    pick = rng.integers(0, per_dest, ranks.size)
+    return (ranks + num_dest * pick).astype(np.int32), assign
+
+
+def run_layout_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int, int]]:
+    """(name, valid bool, bucket int32, assign int32, max_kmers, num_dest) of
+    the run layout's hard cases: the layout of the runs of ranks
+    assign[bucket] (csrc/supermer_runs.cu, tiles of RUN_TABLE_TILE):
+
+    <case>-S<d>  every run_table_cases() case at d = 1, 2, 4 and 257
+                 destinations, its destinations taken mod d (at 4 none is
+                 2: an empty destination; at 257 most are empty), three
+                 buckets a destination
+    cap_edge     at 2 destinations, stretches whose max_kmers cap falls one
+                 before, on and one after a tile edge
+    cap_two_edges  a cap longer than two tiles: one run over two tile edges,
+                 a tile whose only entry is the run it continues
+    buckets      more buckets than csrc/supermer_runs.cu stages in shared
+                 memory (9,000: the table read from device memory), 64
+                 destinations
+    dest257      257 destinations in stretches of 1 to 40 positions, ~80%
+                 valid, over three tiles
+    zero_length  the k-mer starts of reads with zero-length reads among
+                 them (scan_mask "reads") at K = 31, 4 destinations
+    """
+    t = RUN_TABLE_TILE
+    rng = np.random.default_rng(71)
+    cases = []
+    for name, valid, dest, m in run_table_cases():
+        for d in (1, 2, 4, 257):
+            ranks = dest.astype(np.int64) % d
+            if d == 4:
+                ranks[ranks == 2] = 3
+            bucket, assign = _ranks_to_buckets(rng, ranks, d)
+            cases.append((f"{name}-S{d}", valid, bucket, assign, m, d))
+    n = 3 * t + 200
+    valid = np.ones(n, bool)
+    m = 100
+    # A stretch starts after each gap, its caps every m positions on: one
+    # falls one before the first edge, one on the second, one after the
+    # third.
+    valid[[t - 2 * m - 2, 2 * t - 2 * m - 1, 3 * t - 2 * m]] = False
+    ranks = (np.arange(n) >= t + 900).astype(np.int64)
+    bucket, assign = _ranks_to_buckets(rng, ranks, 2)
+    cases.append(("cap_edge", valid, bucket, assign, m, 2))
+    # One run over two tile edges: a cap longer than two tiles.
+    n = 3 * t + 517
+    bucket, assign = _ranks_to_buckets(rng, np.zeros(n, np.int64), 2)
+    cases.append(("cap_two_edges", np.ones(n, bool), bucket, assign, 2 * t + 808, 2))
+    n = 2 * t + 999
+    assign = rng.integers(0, 64, 9000).astype(np.int32)
+    reps = rng.integers(1, 60, n)
+    cases.append(("buckets", rng.random(n) < 0.85,
+                  np.repeat(rng.integers(0, 9000, n), reps)[:n].astype(np.int32), assign,
+                  236, 64))
+    n = 3 * t + 11
+    reps = rng.integers(1, 41, n)
+    ranks = np.repeat(rng.integers(0, 257, n), reps)[:n]
+    bucket, assign = _ranks_to_buckets(rng, ranks, 257)
+    cases.append(("dest257", rng.random(n) < 0.8, bucket, assign, 17, 257))
+    n = 2 * t + 77
+    reps = rng.integers(1, 30, n)
+    bucket, assign = _ranks_to_buckets(rng, np.repeat(rng.integers(0, 4, n), reps)[:n], 4)
+    cases.append(("zero_length", scan_mask("reads", n, 31, 7), bucket, assign, 220, 4))
+    return cases
+
+
 def fill_meta_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int]]:
     """(name, lengths int32, rid0 int32, pos0 uint32, n) of every
     fill_run_meta case:
@@ -939,7 +1010,7 @@ def wire_decode_cases() -> list[tuple[str, np.ndarray, np.ndarray, int, int, int
     return cases
 
 
-SCAN_TILE = 2048  # positions a tile of csrc/minimizer_scan.cu
+SCAN_TILE = 2048  # the first scan kernel's tile; scan_cases keep its sizes
 SCAN_KS = (15, 31, 55, 95, 96)
 SCAN_MS = (1, 2, 7, 17)
 SCAN_BUCKETS = (1, 3, 9, 24, 65_537)
@@ -1003,6 +1074,77 @@ def scan_cases() -> list[tuple[str, str, int, int, int, int, int]]:
                                                      (95, 96, 1))]
     return [(f"{kind}-n{n}-k{k}-m{m}-b{b}", kind, n, k, m, b, 300 + i)
             for i, (kind, n, k, m, b) in enumerate(cases)]
+
+
+SCAN_SHARED_BINS = 2048  # buckets csrc/minimizer_scan.cu counts in shared memory
+SCAN_MASKS = ("seeded", "none", "all")
+
+
+def scan_geometry(k: int, m: int) -> tuple[int, int, int]:
+    """(strip, threads, out) of csrc/minimizer_scan.cu at (k, m): the
+    positions a thread rolls, the threads of a block and the positions a
+    block outputs (the kernel's `geometry`)."""
+    w = k - m + 1
+    strip = w * max(1, 16 // w)
+    threads = min(256, (4096 // strip) // 32 * 32)
+    return strip, threads, (threads * strip - w) & ~15
+
+
+def scan_mask(mask: str, n: int, k: int, seed: int) -> np.ndarray:
+    """(n,) bool validity of a sized scan case.
+
+    seeded  ~70% of the positions, at random
+    none    no position
+    all     every position, the last k - 1 too (their buckets wrap)
+    reads   the k-mer starts of reads of 0 to 3k bases, a fifth of them
+            empty (zero-length reads), cut at n
+    """
+    rng = np.random.default_rng(seed)
+    if mask == "seeded":
+        return rng.random(n) < 0.7
+    if mask in ("none", "all"):
+        return np.full(n, mask == "all")
+    if mask != "reads":
+        raise ValueError(f"unknown mask {mask!r}")
+    lengths = rng.integers(0, 3 * k, n // k + 2)
+    lengths[rng.random(lengths.size) < 0.2] = 0
+    ends = np.cumsum(lengths)
+    pos = np.arange(n)
+    read = np.searchsorted(ends, pos, side="right")
+    return pos + k <= ends[np.minimum(read, ends.size - 1)]
+
+
+def sized_scan_cases() -> list[tuple[str, str, int, int, int, int, int, str]]:
+    """(name, kind, n, k, m, num_buckets, seed, mask) of the sized scan's
+    hard cases (the codes scan_case_codes(kind, n, m, seed), the mask
+    scan_mask(mask, n, k, seed)), by the redesigned kernel's geometry
+    (scan_geometry):
+
+    edges    n at one block's output T, 2T - 1 and 2T + 1 (the blocks'
+             seams, where each block's last segment only feeds the one
+             before it) at (K, m) = (31, 17) (strip 15, T = 3824), (96, 1)
+             (a window of 96, 32 threads), (20, 19) (w = 2, a strip of 8
+             segments) and (23, 15) (w = 9, a strip of 9)
+    bins     255 buckets (a copy of the bins a warp), 257 (one copy a
+             block), SCAN_SHARED_BINS (the cap), one past it and 65,537
+             (counted by global atomics)
+    masks    every mask of scan_mask at (31, 17), among them the reads
+             with zero-length reads
+    top_bit  every minimum's hash with its top bit set, every mask
+    """
+    cases = []
+    for k, m in ((31, 17), (96, 1), (20, 19), (23, 15)):
+        out = scan_geometry(k, m)[2]
+        for n in (out, 2 * out - 1, 2 * out + 1):
+            cases.append(("edges", "random", n, k, m, 3, "seeded"))
+    ragged = 2 * scan_geometry(31, 17)[2] + 333
+    for b in (255, 257, SCAN_SHARED_BINS, SCAN_SHARED_BINS + 1, 65_537):
+        cases.append(("bins", "random", ragged, 31, 17, b, "seeded"))
+    for mask in (*SCAN_MASKS, "reads"):
+        cases.append(("masks", "random", ragged, 31, 17, 3, mask))
+        cases.append(("top_bit", "top_bit", ragged, 31, 17, 24, mask))
+    return [(f"{group}-n{n}-k{k}-m{m}-b{b}-{mask}", kind, n, k, m, b, 500 + i, mask)
+            for i, (group, kind, n, k, m, b, mask) in enumerate(cases)]
 
 
 # --------------------------------------------------------------------------

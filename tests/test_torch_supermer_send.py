@@ -1,9 +1,10 @@
 """The supermer route's send side on the device against the host encoder and
 the JAX package, on the CPU.
 
-The device send side (parallel/supermer_route._device_send: the run table
-and the segment pack of ops/supermer, their plain versions here, and the
-torch bookkeeping between them) must build the very tensor that the host
+The device send side (parallel/supermer_route._device_send: the run layout
+and the segment pack of ops/supermer, their plain versions here) must
+build, from minimizer buckets and a bucket -> rank table, the very tensor
+that the host
 path builds from the same share, `_segments(_encode(...))` (the JAX
 package's encoder, which the port keeps as the reference), and its words
 and columns those of the JAX package's own exchange arrays
@@ -12,7 +13,12 @@ testing.SUPERMER_KINDS case at K = 15, 31, 55 and 95, on 1, 2 and 4
 destinations, extension mode off and on (with read id offsets, one of them
 wrapping past 2^31), with and without segment dims pinned from below. The
 run table equals hysortk_tpu.io.supermer.run_boundaries, on the encoder
-cases and on testing.run_table_cases; the device heavy pre-count equals
+cases and on testing.run_table_cases; the run layout equals the layout
+built from run_boundaries of the ranks assign[bucket] on every
+testing.run_layout_cases case (the run-table cases at 1, 2, 4 and 257
+destinations, some empty; caps at and across tile edges, a table of 9,000
+buckets, 257 destinations, reads with zero-length reads); the device heavy
+pre-count equals
 hysortk_tpu.parallel.supermer_route.heavy_precount. One step of the route
 calls neither the host flatten nor the host library's run boundaries and
 run gather. Tolerance everywhere: exact equality.
@@ -95,9 +101,14 @@ def test_device_send_equals_host_segments(one_rank, kind, k, num_dest, ext):
 
     codes_d, valid_d, lens_d, n = _device_block(codes, lengths, k)
     assert n == flat.size and np.array_equal(valid_d.numpy(), valid)
+    # Buckets whose round-robin rank is shard_of: the send side maps them.
+    bucket = shard_of + num_dest * np.random.default_rng(k).integers(0, 3, shard_of.size)
+    assign = (np.arange(3 * num_dest) % num_dest).astype(np.int32)
+    assert np.array_equal(assign[bucket], shard_of)
     got, block_len, lmax = route._device_send(
-        codes_d, valid_d, torch.from_numpy(shard_of), lens_d, cfg, num_dest, rid_offset,
-        ext, CPU, None, min_dims)
+        codes_d, valid_d, torch.from_numpy(bucket.astype(np.int32)),
+        torch.from_numpy(assign), lens_d, cfg, num_dest, rid_offset, ext, CPU, None,
+        min_dims)
     assert (block_len, lmax) == (want_bl, want_lmax)
     assert got.dtype == torch.int32 and got.shape == want.shape
     assert torch.equal(got, want)
@@ -172,6 +183,84 @@ def test_run_table_checks_its_inputs():
         supermer_ops.run_table(valid, torch.zeros(7, dtype=torch.int32), 4)
     with pytest.raises(ValueError):
         supermer_ops.run_table(valid, torch.zeros(8, dtype=torch.int32), 0)
+
+
+LAYOUT_CASES = testing.run_layout_cases()
+LAYOUT_K = 31
+
+
+def _jax_layout(valid, bucket, assign, m, k, num_dest):
+    """The layout built from the JAX package's run_boundaries of the ranks
+    assign[bucket]: the runs grouped by rank in flat order, each run's
+    offset the bases of its rank's runs before it. (src, off, bases,
+    dest_begin, cmax, smax)."""
+    ranks = np.where(valid, assign[np.where(valid, bucket, 0)], 0)
+    k_jax = supermer_ops.MAX_SUPERMER_LEN + 1 - m  # run_boundaries caps at m k-mers
+    starts, jbases, rdest = jsupermer.run_boundaries(valid, ranks, k_jax)
+    kmers = np.asarray(jbases, np.int64) - (k_jax - 1)
+    order = np.argsort(rdest, kind="stable")
+    bases = kmers[order] + k - 1
+    rdest = np.asarray(rdest, np.int64)[order]
+    runs_per = np.bincount(rdest, minlength=num_dest)
+    bases_per = np.bincount(rdest, weights=bases, minlength=num_dest).astype(np.int64)
+    dest_begin = np.concatenate([[0], np.cumsum(runs_per)])
+    off = np.cumsum(bases) - bases - (np.cumsum(bases_per) - bases_per)[rdest]
+    return (np.asarray(starts, np.int64)[order], off, bases, dest_begin,
+            int(bases_per.max(initial=0)), int(runs_per.max(initial=0)))
+
+
+def _layout_fields(layout):
+    return (layout.src, layout.off, layout.bases, layout.dest_begin, layout.cmax,
+            layout.smax)
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES, ids=lambda c: c[0])
+def test_run_layout_matches_jax(case):
+    """The run layout (its plain composition on the CPU) equals, field by
+    field, the layout of the JAX package's run_boundaries of the ranks
+    assign[bucket]."""
+    _, valid, bucket, assign, m, num_dest = case
+    got = supermer_ops.run_layout(torch.from_numpy(valid), torch.from_numpy(bucket),
+                                  torch.from_numpy(assign), m, LAYOUT_K, num_dest)
+    assert got.src.dtype == got.off.dtype == got.dest_begin.dtype == torch.int64
+    assert got.bases.dtype == torch.int32 and got.dest_begin.shape == (num_dest + 1,)
+    want = _jax_layout(valid, bucket, assign, m, LAYOUT_K, num_dest)
+    for g, w in zip(_layout_fields(got)[:4], want[:4]):
+        assert np.array_equal(g.numpy(), w)
+    assert (got.cmax, got.smax) == want[4:]
+
+
+def test_run_layout_cases_reach_their_edges():
+    """Empty destinations, a table past the kernel's shared-memory one, a
+    cap on a tile edge, one run over two tile edges."""
+    cases = {c[0]: c for c in LAYOUT_CASES}
+    _, valid, bucket, assign, m, d = cases["random-S257"]
+    ranks = assign[bucket[valid]]
+    assert d == 257 and np.unique(ranks).size < 257
+    _, valid, bucket, assign, m, d = cases["random-S4"]
+    assert 2 not in set(assign[bucket[valid]].tolist())
+    assert cases["buckets"][3].size > 8192
+    starts = supermer_io.run_boundaries_plain(*cases["cap_edge"][1:2],
+                                              np.zeros(cases["cap_edge"][1].size, np.int32),
+                                              cases["cap_edge"][4])[0]
+    tile = testing.RUN_TABLE_TILE
+    assert {tile - 1, 2 * tile, 3 * tile + 1} <= set(starts.tolist())
+    _, valid, _, _, m, _ = cases["cap_two_edges"]
+    assert m > 2 * tile and valid.all()
+
+
+def test_run_layout_checks_its_inputs():
+    valid = torch.ones(8, dtype=torch.bool)
+    bucket = torch.zeros(8, dtype=torch.int32)
+    assign = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        supermer_ops.run_layout(valid, bucket, assign.to(torch.int64), 4, 31, 1)
+    with pytest.raises(ValueError):
+        supermer_ops.run_layout(valid, bucket[:7], assign, 4, 31, 1)
+    with pytest.raises(ValueError):
+        supermer_ops.run_layout(valid, bucket, assign, 4, 31, 0)
+    with pytest.raises(ValueError):
+        supermer_ops.run_layout(valid, bucket, assign, 4, 31, supermer_ops.MAX_DEST + 1)
 
 
 @pytest.mark.parametrize("k", [15, 31, 95])
@@ -250,15 +339,38 @@ def _need_cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", testing.run_table_cases(), ids=lambda c: c[0])
 def test_run_table_kernel_matches_plain(case):
+    """The run-table cases through the run-layout kernel (the identity
+    table: a bucket a rank), equal to the plain composition; one launch."""
     _need_cuda()
     _, valid, dest, m = case
-    args = (torch.from_numpy(valid).cuda(), torch.from_numpy(dest).cuda(), m)
+    num_dest = int(dest.max()) + 1
+    args = (torch.from_numpy(valid).cuda(), torch.from_numpy(dest).cuda(),
+            torch.arange(num_dest, dtype=torch.int32).cuda(), m, LAYOUT_K, num_dest)
     before = _build.launches["supermer_runs"]
-    got = supermer_ops.run_table(*args)
+    got = supermer_ops.run_layout(*args)
     torch.cuda.synchronize()
     assert _build.launches["supermer_runs"] == before + 1
-    for g, w in zip(got, supermer_ops.run_table_plain(*args)):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    want = supermer_ops.run_layout_plain(*args)
+    for g, w in zip(_layout_fields(got), _layout_fields(want)):
+        assert g == w if isinstance(g, int) else (g.dtype == w.dtype and torch.equal(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LAYOUT_CASES, ids=lambda c: c[0])
+def test_run_layout_kernel_matches_plain(case):
+    """The run-layout kernel against its plain composition, field by field;
+    one launch."""
+    _need_cuda()
+    _, valid, bucket, assign, m, num_dest = case
+    args = (torch.from_numpy(valid).cuda(), torch.from_numpy(bucket).cuda(),
+            torch.from_numpy(assign).cuda(), m, LAYOUT_K, num_dest)
+    before = _build.launches["supermer_runs"]
+    got = supermer_ops.run_layout(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["supermer_runs"] == before + 1
+    want = supermer_ops.run_layout_plain(*args)
+    for g, w in zip(_layout_fields(got), _layout_fields(want)):
+        assert g == w if isinstance(g, int) else (g.dtype == w.dtype and torch.equal(g, w))
 
 
 @pytest.mark.cuda
@@ -271,9 +383,10 @@ def test_pack_kernel_matches_plain(kind, ext):
             codes, lengths = _share(kind, k)
             codes_d, valid_d, lens_d, n = _device_block(codes, lengths, k)
             dest = testing.supermer_case_dest(kind, n, num_dest, 5)
-            starts, kmers, run_dest = supermer_ops.run_table(
-                valid_d.cuda(), torch.from_numpy(dest).cuda(), supermer_ops.max_kmers(k))
-            layout = supermer_ops.segment_layout(starts, kmers, run_dest, k, num_dest)
+            layout = supermer_ops.run_layout(
+                valid_d.cuda(), torch.from_numpy(dest).cuda(),
+                torch.arange(num_dest, dtype=torch.int32).cuda(),
+                supermer_ops.max_kmers(k), k, num_dest)
             block_len, lmax = supermer_ops.segment_dims(layout.cmax, layout.smax, PAD,
                                                         (0, 1))
             headers = (supermer_ops.run_headers(layout.src, lens_d.cuda(), 2**31 - 3)

@@ -2,12 +2,15 @@
 """Time a fresh process's supermer-routed count through the port's CLI, for
 one or more trees of the repository, in turns.
 
-    python3 tools/bench_torch_fresh_process.py [--tree DIR ...] [--rounds N]
+    python3 tools/bench_torch_fresh_process.py [--tree DIR[@NAME=VALUE,...] ...]
+                                               [--rounds N]
 
 Run on a machine with an sm_90 card and the CUDA toolkit. Each `--tree`
-names a checkout whose hysortk_tpu_torch the CLI runs (default: this one);
-the trees run in the order given, that order `--rounds` times (for example
-`--tree P --tree C --tree C --tree P` for parent, change, change, parent).
+names a checkout whose hysortk_tpu_torch the CLI runs (default: this one),
+optionally with variables set in its processes' environment after an `@`
+(for example `--tree .@CUDA_MODULE_LOADING=EAGER`); the turns run in the
+order given, that order `--rounds` times (for example `--tree P --tree C
+--tree C --tree P` for parent, change, change, parent).
 Each run is `python -m hysortk_tpu_torch.cli reads.fa out --routing
 supermer` as two processes joined at `--coordinator`, both on the card
 (gloo), each a fresh process: its first launches of torch's ops and of the
@@ -19,9 +22,11 @@ The reads are made from a seed into a FASTA under a temporary directory: a
 reverse-complemented, 0.5% substitutions. K=31, M=17, L=2, U=50.
 
 Prints, per run and process, the wall of the count and the spans of its
-pack (feed, wire decode, plan, scan, sizes, encode, layout) and of the
-kernel library's first load, in seconds, as one JSON line each, then the
-card's name and power limit.
+pack (feed, wire decode, plan, scan, the sizes' all-reduce, encode, the run
+layout; a tree from before the run layout prints its sizes, destination
+ranks, run table and layout spans instead) and of the kernel library's
+first load, in seconds, as one JSON line each, then the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ GENOME_BASES = 1 << 22
 READ_LEN = 150
 BASES = 1 << 26
 SPANS = ("pack", "feed", "wire decode", "kernel library load", "plan", "scan", "sizes",
-         "encode", "layout", "step", "result")
+         "sizes all_reduce", "encode", "destination ranks", "run table", "layout",
+         "run layout", "dims all_reduce", "segment pack", "step", "result")
 
 
 def write_reads(path: str) -> None:
@@ -79,9 +85,17 @@ def build(tree: str) -> None:
                    cwd=tree, env=dict(os.environ, PYTHONPATH=tree), check=True)
 
 
-def run(tree: str, fasta: str, out_dir: str, n: int = 2) -> list[dict]:
+def parse_turn(arg: str) -> tuple[str, dict]:
+    """`DIR[@NAME=VALUE,...]` -> (absolute DIR, {NAME: VALUE})."""
+    tree, _, extra = arg.partition("@")
+    env = dict(item.split("=", 1) for item in extra.split(",") if item)
+    return os.path.abspath(tree), env
+
+
+def run(tree: str, fasta: str, out_dir: str, n: int = 2, extra_env=None) -> list[dict]:
     """One two-process CLI run: each process's wall and spans."""
-    env = dict(os.environ, PYTHONPATH=tree, OMP_NUM_THREADS=str(max(1, os.cpu_count() // n)))
+    env = dict(os.environ, PYTHONPATH=tree, OMP_NUM_THREADS=str(max(1, os.cpu_count() // n)),
+               **(extra_env or {}))
     port = free_port()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "hysortk_tpu_torch.cli", fasta, out_dir, "-k", "31", "-m",
@@ -103,7 +117,7 @@ def run(tree: str, fasta: str, out_dir: str, n: int = 2) -> list[dict]:
     for line in lines:
         rec = {"wall": float(re.search(r"wall ([0-9.]+) s", line).group(1))}
         for name in SPANS:
-            m = re.search(rf"[:,] {name} ([0-9.]+)", line)
+            m = re.search(rf"[:,;] {re.escape(name)} ([0-9.]+)", line)
             rec[name] = float(m.group(1)) if m else None
         ranks.append(rec)
     return ranks
@@ -114,7 +128,8 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=None)
     ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args()
-    trees = [os.path.abspath(t) for t in (args.tree or [ROOT])]
+    turns = [parse_turn(t) for t in (args.tree or [ROOT])]
+    trees = [tree for tree, _ in turns]
     with tempfile.TemporaryDirectory(prefix="fresh_process_", dir=os.path.join(ROOT, "build")
                                      if os.path.isdir(os.path.join(ROOT, "build")) else None) as tmp:
         fasta = os.path.join(tmp, "reads.fa")
@@ -122,11 +137,12 @@ def main() -> int:
         for tree in dict.fromkeys(trees):
             build(tree)
         for rnd in range(args.rounds):
-            for i, tree in enumerate(trees):
-                ranks = run(tree, fasta, os.path.join(tmp, f"out{rnd}_{i}"))
+            for i, (tree, extra_env) in enumerate(turns):
+                ranks = run(tree, fasta, os.path.join(tmp, f"out{rnd}_{i}"),
+                            extra_env=extra_env)
                 for r, rec in enumerate(ranks):
-                    print(json.dumps({"round": rnd, "turn": i, "tree": tree, "process": r,
-                                      **rec}), flush=True)
+                    print(json.dumps({"round": rnd, "turn": i, "tree": tree,
+                                      "env": extra_env, "process": r, **rec}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())
