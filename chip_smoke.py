@@ -26,8 +26,11 @@ build/kernels/ at first use. Phases, each printing its findings:
      top-bit and near-sentinel words, rows at odd offsets, ragged sizes), the
      wire decode's (reads of length 0, under k, k, 150 and across words,
      segments not whole words and cut below their reads, three segments, more
-     reads than three scan tiles, stacked zero-length reads, extension mode
-     from read id 0 and 1,000,000), the minimizer scan's (K = 15 to 96
+     reads than three scan tiles, stacked zero-length reads, a tile of more
+     reads than it stages, read ends on tile, step, warp and word edges,
+     rows of odd strides, extension mode from read id 0, 1,000,000 and
+     2^31 - 5; the cases of several segments again as strided rows of one
+     received tensor), the minimizer scan's (K = 15 to 96
      with m = 1, 2, 7, 17 and k - 1, 1 to 65,537 buckets, poly-A and
      top-bit minima, equal at every position; no key build launched), the
      sized scan's (the buckets with the valid k-mers of each: block seams
@@ -150,13 +153,18 @@ build/kernels/ at first use. Phases, each printing its findings:
      to its CPU result); the send side's hard cases (every encoder case at
      K = 15, 31, 55, 95 on 1, 2 and 4 destinations, extension mode off and
      on: each kernel equal to its plain version, the send tensor equal to
-     the host encoder's); the sized scan on 11(a)'s codes and validity (at
+     the host encoder's); the segment pack's hard cases (testing.pack_cases:
+     run edges on its tile and word edges, 250-base runs and cut reads, runs
+     at every offset mod 16, a destination without runs, padding tiles, 1, 4
+     and 64 destinations, more runs in a tile than it stages, extension
+     mode; one launch each, equal to its plain version); the sized scan on
+     11(a)'s codes and validity (at
      one and four ranks' buckets; beside its bound, its design's integer
      floor at the card's INT32 rate), the run layout and the pack on 11(a)'s
      inputs and the decode kernel on its received segments against their
      plain versions, timed beside their bounds, and the send tensor of phase
-     2's reads equal to the host encoder's at one and four destinations
-     (four also in extension mode); (a) count_reads_sharded with
+     2's reads equal to the host encoder's at one and four destinations,
+     each with and without extension mode; (a) count_reads_sharded with
      routing="supermer" on phase 2's reads, one rank with NCCL, best of
      three (one scan, one run layout, two decodes and one key build a call),
      one call more with dispatch.bucket_sizes_device, supermer's
@@ -716,7 +724,8 @@ def phase1_wire_scan_cases(errs) -> None:
     cases (hysortk_tpu_torch.testing) on the card: each kernel exactly
     equal to its plain version (the scan at every position, its sizes too),
     each case one launch of its kernel, and the scan none of the key
-    build."""
+    build; the decode's cases of several segments again as strided rows of
+    one received tensor."""
     import torch
 
     from hysortk_tpu_torch import _build, testing
@@ -739,9 +748,29 @@ def phase1_wire_scan_cases(errs) -> None:
         e = max_abs_err([g.cpu() for g in got], decode(*args, k, n, rid_base))
         require_equal(f"wire_decode case {name}", e)
         errs["wire_decode"] = max(errs["wire_decode"], e)
-    log(f"phase1 wire_decode hard cases at tiles {testing.WIRE_DECODE_TILE} (decode) and "
-        f"{testing.WIRE_SCAN_TILE} (lengths' scan): {len(cases)} equal, "
-        f"{sum(c[5] is not None for c in cases)} of them in extension mode")
+    # The received exchange's form: each segment's words and lengths as
+    # strided views into one (S, 1, width) tensor, read in place.
+    strided = [c for c in cases if c[1].shape[0] > 1]
+    for name, packed, lengths, k, n, _ in strided:
+        nw = packed.shape[1]
+        recv = torch.from_numpy(np.concatenate(
+            [packed.view(np.int32), lengths], axis=1)[:, None, :].copy())
+        want = wire.decode_block(recv[:, 0, :nw], recv[:, 0, nw:], k, n)
+        recv = recv.cuda()
+        before = _build.launches["wire_decode"]
+        got = wire.decode_block(recv[:, 0, :nw], recv[:, 0, nw:], k, n)
+        torch.cuda.synchronize()
+        if _build.launches["wire_decode"] != before + 1:
+            raise AssertionError(f"wire_decode strided case {name} did not launch the kernel")
+        e = max_abs_err([g.cpu() for g in got], list(want))
+        require_equal(f"wire_decode strided case {name}", e)
+        errs["wire_decode"] = max(errs["wire_decode"], e)
+    log(f"phase1 wire_decode hard cases at tiles {testing.WIRE_DECODE_TILE} (decode, "
+        f"steps of {testing.WIRE_DECODE_STEP}, {testing.WIRE_DECODE_STAGED} read ends "
+        f"staged) and {testing.WIRE_SCAN_TILE} (lengths' scan): {len(cases)} equal, "
+        f"{sum(c[5] is not None for c in cases)} of them in extension mode; "
+        f"{len(strided)} of them again as strided rows of one received tensor "
+        f"({', '.join(c[0] for c in strided)})")
 
     def one_launch(what, name, before):
         if (_build.launches[name] != before[name] + 1
@@ -3276,14 +3305,53 @@ def phase11_send_cases(errs) -> None:
         f"each send tensor equal to the host encoder's")
 
 
+def phase11_pack_cases(errs) -> None:
+    """The segment pack's hard cases (testing.pack_cases) on the card:
+    each case's share over the wire and the run layout of its destinations
+    on the card, then one launch of the pack kernel, exactly equal to
+    pack_segments_plain on the same CUDA tensors."""
+    import torch
+
+    from hysortk_tpu_torch import _build, pipeline, testing
+    from hysortk_tpu_torch.config import KmerConfig
+    from hysortk_tpu_torch.ops import supermer as sm_ops
+    from hysortk_tpu_torch.ops import wire
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cases = testing.pack_cases()
+    for name, codes, lengths, k, num_dest, dest, ext in cases:
+        cfg = KmerConfig(k=k, m={15: 7, 31: 17}[k], pad_multiple=256)
+        packed, lens_d, n = pipeline.wire_batch(codes, lengths, cfg, dev)
+        codes_d, valid_d = wire.decode_block(packed, lens_d, k, n)
+        shard_of = np.zeros(n, np.int32)
+        shard_of[: dest.size] = dest
+        layout = sm_ops.run_layout(
+            valid_d, torch.from_numpy(shard_of).to(dev),
+            torch.arange(num_dest, dtype=torch.int32, device=dev), sm_ops.max_kmers(k), k,
+            num_dest)
+        dims = sm_ops.segment_dims(layout.cmax, layout.smax, 256)
+        headers = sm_ops.run_headers(layout.src, lens_d, 2**31 - 5) if ext else ()
+        before = _build.launches["supermer_pack"]
+        got = sm_ops.pack_segments(codes_d, layout, *dims, headers)
+        torch.cuda.synchronize()
+        if _build.launches["supermer_pack"] != before + 1:
+            raise AssertionError(f"supermer_pack case {name} did not launch the kernel once")
+        e = max_abs_err([got], [sm_ops.pack_segments_plain(codes_d, layout, *dims, headers)])
+        require_equal(f"supermer_pack case {name}", e)
+        errs["supermer_pack"] = max(errs["supermer_pack"], e)
+    log(f"phase11 supermer_pack hard cases at tile {testing.PACK_TILE} bases "
+        f"({testing.PACK_STAGED} runs staged): {len(cases)} equal, one launch each "
+        f"({', '.join(c[0] for c in cases)})")
+
+
 def phase11_kernels(codes, lengths, cfg, errs) -> dict:
     """The send side's kernels against their plain versions on the inputs
     11(a)'s step gives them (phase 2's reads on one rank: the wire decoded;
     the sized scan, then the run layout of its buckets under the one-rank
     plan, then the pack), timed beside their bounds; then the send tensor
     against the host encoder's `_segments(_encode(...))` on phase 2's reads
-    at one destination, and at four (the plan's buckets of four ranks) with
-    and without extension mode. Inside phase 11's one-rank group. Returns
+    at one destination and at four (the plan's buckets of four ranks), each
+    with and without extension mode. Inside phase 11's one-rank group. Returns
     the kernels' measurements and the share's wire (supermers, bases,
     segment dims)."""
     import dataclasses
@@ -3410,7 +3478,8 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
     require_equal("minimizer_scan four ranks' buckets", e)
     assign4 = dispatch.balanced_assignment(sizes4.cpu().numpy().astype(np.int64), 4)
     checked = []
-    for num_dest, dest_d, table, ext in ((1, dest, assign, False), (4, dest4, assign4, False),
+    for num_dest, dest_d, table, ext in ((1, dest, assign, False), (1, dest, assign, True),
+                                         (4, dest4, assign4, False),
                                          (4, dest4, assign4, True)):
         c = dataclasses.replace(cfg, extension=ext)
         rid0 = EXT_RID0 if ext else 0
@@ -3633,6 +3702,7 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
             raise AssertionError(f"one rank with its own card took {dist.get_backend()}")
         phase11_hard_cases()
         phase11_send_cases(errs)
+        phase11_pack_cases(errs)
         times, wire_info = phase11_kernels(codes, lengths, cfg, errs)
         torch.cuda.empty_cache()
         native.reset_calls()

@@ -262,9 +262,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_supermer_pack.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64,
                                      i32, ptr, ptr]
     lib.hk_supermer_pack.restype = i32
+    lib.hk_wire_decode_state.argtypes = [i64, i64]
+    lib.hk_wire_decode_state.restype = i64
     lib.hk_wire_decode_scratch.argtypes = [i64, i64, i64]
     lib.hk_wire_decode_scratch.restype = i64
-    lib.hk_wire_decode.argtypes = [ptr, i64, ptr, i64, i64, i64, i64, i32, i32, ptr,
+    lib.hk_wire_decode.argtypes = [ptr, i64, ptr, i64, i64, i64, i64, i32, i32, ptr, ptr,
                                    ptr, ptr, ptr, ptr, ptr]
     lib.hk_wire_decode.restype = i32
     lib.hk_minimizer_scan.argtypes = [ptr, ptr, i64, i32, i32, ctypes.c_uint32,

@@ -26,8 +26,12 @@ is built where the rank's codes already lie:
                   position, from the read lengths (torch.searchsorted);
   pack_segments   the (S, 1, width) int32 send tensor, bit for bit what
                   _segments builds from the host streams
-                  (csrc/supermer_pack.cu on a CUDA tensor,
-                  `pack_segments_plain` on a CPU tensor).
+                  (csrc/supermer_pack.cu on a CUDA tensor: one launch, a
+                  block a tile of 2048 words of one destination with its
+                  runs staged in shared memory, a word read in one stretch
+                  of the codes by two 16-byte loads, the columns by
+                  blocks of their own; `pack_segments_plain` on a CPU
+                  tensor).
 
 The rule of a run is the reference's SupermerEncoder's
 (src/kmerops.cpp:1096-1148): a maximal stretch of consecutive valid k-mer
@@ -292,6 +296,9 @@ def pack_segments(codes: torch.Tensor, layout: SegmentLayout, block_len: int,
 
 def _pack_segments_cuda(codes, layout: SegmentLayout, block_len, lmax, headers):
     dev = codes.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _pack_segments_cuda(codes, layout, block_len, lmax, headers)
     num_dest = layout.dest_begin.shape[0] - 1
     nw = block_len // 16
     send = torch.empty((num_dest, 1, nw + lmax * (3 if headers else 1)),
@@ -300,11 +307,10 @@ def _pack_segments_cuda(codes, layout: SegmentLayout, block_len, lmax, headers):
                                      layout.dest_begin, *headers)]
     rid0, pos0 = (rows[4].data_ptr(), rows[5].data_ptr()) if headers else (None, None)
     lib = _build.lib()
-    with torch.cuda.device(dev):
-        status = lib.hk_supermer_pack(
-            codes.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
-            rid0, pos0, rows[3].data_ptr(), num_dest, nw, lmax, int(bool(headers)),
-            send.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    status = lib.hk_supermer_pack(
+        codes.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
+        rid0, pos0, rows[3].data_ptr(), num_dest, nw, lmax, int(bool(headers)),
+        send.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(status, "supermer pack launch")
     _build.launches["supermer_pack"] += 1
     return send

@@ -8,8 +8,12 @@ rebuilds the flat (codes, valid) stream, in extension mode with every
 position's (read id, position in read):
 
   decode_block[_ext]   on a CUDA tensor the hand-written kernel
-                       csrc/wire_decode.cu (the reads' ends by one chained
-                       scan, then a thread a 16-base word); on a CPU tensor
+                       csrc/wire_decode.cu (two launches: the reads' ends by
+                       a look-back scan, then a block a tile of 16384
+                       positions with its reads' ends staged in shared
+                       memory, a thread four 16-base words; the look-back's
+                       descriptors kept zeroed between calls per device and
+                       stream, no memset); on a CPU tensor
                        decode_block[_ext]_plain, the JAX version's dense bit
                        math in torch: one shift/mask broadcast per word
                        (unpack_codes), the last k-1 positions of each read
@@ -21,11 +25,15 @@ position's (read id, position in read):
 decode_block also takes S segments at once (the supermer route's received
 segments, one launch for all). Under supermer routing extension mode fills
 every position's (read id, position) from per-run headers instead
-(`fill_run_meta`, plain torch on every device). Packing lives host-side in
-io/supermer.py.
+(`fill_run_meta`, plain torch on every device). The host packs the wire
+(pipeline.stage_wire: io/supermer.pack_codes_2bit_into, the host
+library's 2-bit pack).
 """
 
 from __future__ import annotations
+
+import functools
+import threading
 
 import torch
 
@@ -125,6 +133,9 @@ def decode_block(
 
 def _decode_cuda(packed, lengths, k: int, n: int, rid_base: int | None):
     dev = packed.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _decode_cuda(packed, lengths, k, n, rid_base)
     if packed.dim() == 1:
         packed, lengths = packed[None], lengths[None]
     if packed.stride(1) != 1:
@@ -147,18 +158,45 @@ def _decode_cuda(packed, lengths, k: int, n: int, rid_base: int | None):
     if total == 0:
         return tuple(out)
     lib = _build.lib()
-    scratch = torch.empty(lib.hk_wire_decode_scratch(segments, reads, n),
-                          dtype=torch.uint8, device=dev)
     ext = [t.data_ptr() for t in out[2:]] or [None, None]
-    with torch.cuda.device(dev):
+    with _STATE_LOCK:
+        stream = torch.cuda.current_stream().cuda_stream
+        state, work = _buffers(dev, stream, *_decode_bytes(lib, segments, reads, n))
         status = lib.hk_wire_decode(
             packed.data_ptr(), packed.stride(0), lengths.data_ptr(), lengths.stride(0),
-            segments, reads, n, k, rid_base or 0, scratch.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), *ext,
-            torch.cuda.current_stream().cuda_stream)
+            segments, reads, n, k, rid_base or 0, state.data_ptr(), work.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), *ext, stream)
+        if status:
+            # A launch that did not run may leave the state dirty.
+            _STATE.pop((dev, stream), None)
     _build.check(status, "wire decode launch")
     _build.launches["wire_decode"] += 1
     return tuple(out)
+
+
+# The decode's buffers, per device and stream: its state (the lengths'
+# look-back descriptors in csrc/wire_decode.cu), zeroed once and left zero
+# by every call, and its work buffer (the read ends and the tiles' first
+# reads, written anew by every call). Calls on one stream run in order; the
+# lock keeps two threads' launches from interleaving.
+_STATE: dict = {}
+_STATE_LOCK = threading.Lock()
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_bytes(lib, segments: int, reads: int, n: int) -> tuple[int, int]:
+    """(state bytes, work bytes) of a decode of these dimensions."""
+    return (lib.hk_wire_decode_state(segments, reads),
+            lib.hk_wire_decode_scratch(segments, reads, n))
+
+
+def _buffers(dev, stream: int, state_bytes: int, work_bytes: int):
+    bufs = _STATE.setdefault((dev, stream), [None, None])
+    if bufs[0] is None or bufs[0].numel() < state_bytes:
+        bufs[0] = torch.zeros(max(state_bytes, 1 << 12), dtype=torch.uint8, device=dev)
+    if bufs[1] is None or bufs[1].numel() < work_bytes:
+        bufs[1] = torch.empty(max(work_bytes, 1 << 12), dtype=torch.uint8, device=dev)
+    return bufs
 
 
 def rid_pos_from_lengths(

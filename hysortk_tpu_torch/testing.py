@@ -929,7 +929,9 @@ def fill_meta_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int
 # the `cuda` tests hold the kernels against the plain versions.
 
 WIRE_SCAN_TILE = 2048  # read lengths a tile of csrc/wire_decode.cu's scan
-WIRE_DECODE_TILE = 4096  # positions a tile of its decode: 256 threads x 16
+WIRE_DECODE_TILE = 16384  # positions a tile of its decode: 256 threads x 4 words
+WIRE_DECODE_STEP = 4096  # positions the tile's 256 threads decode at once
+WIRE_DECODE_STAGED = 2048  # read ends a decode tile stages in shared memory
 
 
 def _wire_words(rng, segments: int, n: int, spare: int = 0) -> np.ndarray:
@@ -958,8 +960,18 @@ def wire_decode_cases() -> list[tuple[str, np.ndarray, np.ndarray, int, int, int
     stacked      runs of zero-length reads (hundreds on one start), a tail
                  of zero-padding longer than a scan tile
     no_reads     R = 0: nothing valid
+    over_stage   a decode tile holding more reads than it stages in shared
+                 memory (WIRE_DECODE_STAGED), short and zero-length ones,
+                 between tiles that stage theirs
+    thread_edges reads ending on decode tile edges, on the edges of the
+                 tile's steps (WIRE_DECODE_STEP), of a warp's 512 positions
+                 and of words, each exactly and one position either side
+    odd_strides  S = 3 segments of an odd number of words and of lengths a
+                 row (every row but the first starts off a 16-byte edge)
     ext_*        extension mode on the edges reads with rid_base 0 and
-                 1_000_000, and on `cut` and `stacked`
+                 1_000_000, on `cut`, `stacked`, `over_stage` and
+                 `thread_edges`, and with rid_base 2^31 - 5 (read ids wrap
+                 past int32)
     """
     rng = np.random.default_rng(19)
     cases = []
@@ -1001,12 +1013,126 @@ def wire_decode_cases() -> list[tuple[str, np.ndarray, np.ndarray, int, int, int
                             rng.integers(1, 90, 50), np.zeros(WIRE_SCAN_TILE + 300)])
     add("stacked", reads, 31, int(reads.sum()) + 48)
     add("no_reads", np.zeros((1, 0)), 31, 100)
+    stacked = reads
+    t = WIRE_DECODE_TILE
+    # Tile 1 holds ~3000 reads of 0 to 4 bases (more than it stages); tiles
+    # 0 and 2 hold reads of 100 to 150.
+    many = rng.integers(0, 5, WIRE_DECODE_STAGED + 1000)
+    head = rng.integers(100, 151, t // 150)
+    over = np.concatenate([head, [t + 7 - int(head.sum())], many,
+                           rng.integers(100, 151, 200)])
+    add("over_stage", over, 31, int(over.sum()) + 20)
+    ends = sorted({e + d for e in (t, 2 * t, t + WIRE_DECODE_STEP, t + 2 * WIRE_DECODE_STEP,
+                                   t + 512, t + 1024, 2 * t - 512, 16 * 37, t + 16 * 301)
+                   for d in (-1, 0, 1)})
+    edges = np.diff(np.concatenate([[0], ends, [2 * t + 300]]))
+    add("thread_edges", edges, 31, 2 * t + 400)
+    seg = [np.concatenate([rng.integers(0, 200, 61 + 20 * s), np.zeros(10 + s)])
+           for s in range(3)]
+    width = max(x.size for x in seg) | 1
+    n_odd = t + 1001
+    add("odd_strides", np.stack([np.pad(x, (0, width - x.size)) for x in seg]), 31,
+        n_odd, spare=1 - (-(-n_odd // 16)) % 2)
     lengths = edge_reads(31)
     total = int(lengths.sum())
     for rid_base in (0, 1_000_000):
         add(f"ext_edges-rid{rid_base}", lengths, 31, total + 16, rid_base)
     add("ext_cut", lengths, 31, total - 103, 7)
-    add("ext_stacked", reads, 31, int(reads.sum()) + 48, 1_000_000)
+    add("ext_stacked", stacked, 31, int(stacked.sum()) + 48, 1_000_000)
+    add("ext_over_stage", over, 31, int(over.sum()) + 20, 3)
+    add("ext_thread_edges", edges, 31, 2 * t + 400, 11)
+    add("ext_rid_wrap", lengths, 31, total + 16, 2**31 - 5)
+    return cases
+
+
+def _reads_to_ends(rng, ends, lo: int, hi: int) -> np.ndarray:
+    """Read lengths in [lo, hi] whose running sums pass through every one
+    of the ascending `ends`: each gap split into the fewest reads of at
+    most hi bases, as even as can be, in a random order."""
+    out = []
+    prev = 0
+    for end in ends:
+        gap = end - prev
+        parts = -(-gap // hi)
+        if gap // parts < lo:
+            raise ValueError(f"a gap of {gap} bases takes no reads of {lo} to {hi}")
+        base = np.full(parts, gap // parts)
+        base[: gap - int(base.sum())] += 1
+        rng.shuffle(base)
+        out.extend(int(x) for x in base)
+        prev = end
+    return np.asarray(out, dtype=np.int32)
+
+
+PACK_TILE = 32768  # bases a word block of csrc/supermer_pack.cu: 256 threads x 8 words
+PACK_STAGED = 1024  # runs a word block stages in shared memory
+
+
+def pack_cases() -> list[tuple[str, np.ndarray, np.ndarray, int, int, np.ndarray, bool]]:
+    """(name, codes int8, read lengths int32, k, num_dest, destination int32
+    per base of the reads, extension mode) of the segment pack's hard cases
+    (ops/supermer.pack_segments, csrc/supermer_pack.cu): the rank's reads,
+    which the wire carries and the decode flattens, with every k-mer start
+    sent to the destination of its first base. Runs are whole reads where
+    one destination holds a read of at most MAX_SUPERMER_LEN bases.
+
+    tile_edges   one destination, reads of k to 250 bases whose runs end on
+                 the pack's tile edges (PACK_TILE), one base before, at and
+                 one after an edge, and on and beside word edges
+    max_len      one destination: runs of MAX_SUPERMER_LEN bases, reads
+                 longer than it (cut into runs that share k - 1 bases with
+                 the run before: words across the cut read two stretches)
+    offsets      four destinations by read, runs starting at every byte
+                 offset mod 16 of the codes and of their segments
+    skewed       four destinations: one holds most reads, destination 3
+                 none (a row of padding and zero lengths), and the others'
+                 later tiles are all padding
+    dests64      64 destinations by read, four without a run (7, 23, 40
+                 and the last)
+    short_runs   k = 15, destinations that change at every position of a
+                 stretch: 15-base runs, more of them in a tile than it
+                 stages (PACK_STAGED)
+    *_ext        extension mode (read ids from 2^31 - 5, wrapping)
+    """
+    from .io.supermer import MAX_SUPERMER_LEN
+
+    rng = np.random.default_rng(212)
+    t = PACK_TILE
+    cases = []
+
+    def add(name, lengths, k, num_dest, dest_of_read=None, dest=None, ext=False):
+        lengths = np.asarray(lengths, dtype=np.int32)
+        total = int(lengths.sum())
+        codes = rng.integers(0, 4, total).astype(np.int8)
+        if dest is None:
+            dest = np.repeat(np.asarray(dest_of_read, dtype=np.int32), lengths)
+        cases.append((name, codes, lengths, k, num_dest, dest.astype(np.int32), ext))
+
+    ends = sorted([t - 1, 2 * t, 3 * t + 1, 16 * 101, 16 * 700 + 1, 2 * t + 16 * 5 - 1])
+    tile_edges = _reads_to_ends(rng, ends + [3 * t + 500], 31, MAX_SUPERMER_LEN)
+    zeros = np.zeros(tile_edges.size, np.int32)
+    add("tile_edges", tile_edges, 31, 1, zeros)
+    longest = np.concatenate([np.full(40, MAX_SUPERMER_LEN),
+                              rng.integers(MAX_SUPERMER_LEN + 1, 700, 20),
+                              rng.integers(31, MAX_SUPERMER_LEN, 40)])
+    rng.shuffle(longest)
+    add("max_len", longest, 31, 1, np.zeros(longest.size))
+    offsets = np.tile(31 + np.arange(16), 12)
+    add("offsets", offsets, 31, 4, rng.integers(0, 4, offsets.size))
+    skewed = rng.integers(31, 200, 500)
+    owner = np.where(rng.random(skewed.size) < 0.9, 0, rng.integers(1, 3, skewed.size))
+    add("skewed", skewed, 31, 4, owner)
+    many = rng.integers(31, 200, 400)
+    add("dests64", many, 31, 64,
+        rng.choice(np.setdiff1d(np.arange(64), [7, 23, 40, 63]), many.size))
+    short = rng.integers(100, 250, 300)
+    dest = rng.integers(0, 4, int(short.sum()))
+    stretch = min(2 * t, dest.size)
+    dest[:stretch] = np.arange(stretch) % 4
+    add("short_runs", short, 15, 4, dest=dest)
+    add("tile_edges_ext", tile_edges, 31, 1, zeros, ext=True)
+    add("skewed_ext", skewed, 31, 4, owner, ext=True)
+    add("short_runs_ext", short, 15, 4, dest=dest, ext=True)
     return cases
 
 

@@ -41,6 +41,7 @@ from hysortk_tpu_torch import _build, testing
 from hysortk_tpu_torch.config import KmerConfig
 from hysortk_tpu_torch.io import fasta, native
 from hysortk_tpu_torch.io import supermer as supermer_io
+from hysortk_tpu_torch.io.supermer import MAX_SUPERMER_LEN
 from hysortk_tpu_torch.ops import supermer as supermer_ops
 from hysortk_tpu_torch.ops import wire
 from hysortk_tpu_torch.parallel import supermer_route as route
@@ -129,6 +130,94 @@ def test_device_send_equals_host_segments(one_rank, kind, k, num_dest, ext):
     if ext:
         assert np.array_equal(seg[:, nw + lmax: nw + 2 * lmax], rid0[0])
         assert np.array_equal(seg[:, nw + 2 * lmax:].view(np.uint32), pos0[0])
+
+
+PACK_CASES = testing.pack_cases()
+PACK_IDS = [case[0] for case in PACK_CASES]
+PACK_M = {15: 7, 31: 17}
+
+
+def _pack_layout(case, device="cpu"):
+    """A pack case's share over the wire, decoded, and its run layout (one
+    bucket a destination): (codes, layout, dims, headers, lengths, n)."""
+    _, codes, lengths, k, num_dest, dest, ext = case
+    cfg = KmerConfig(k=k, m=PACK_M[k], pad_multiple=PAD)
+    packed, lens_d, n = wire_batch(codes, lengths, cfg, device)
+    codes_d, valid_d = wire.decode_block(packed, lens_d, k, n)
+    shard_of = np.zeros(n, np.int32)
+    shard_of[: dest.size] = dest
+    layout = supermer_ops.run_layout(
+        valid_d, torch.from_numpy(shard_of).to(device),
+        torch.arange(num_dest, dtype=torch.int32, device=device), supermer_ops.max_kmers(k),
+        k, num_dest)
+    dims = supermer_ops.segment_dims(layout.cmax, layout.smax, PAD)
+    headers = supermer_ops.run_headers(layout.src, lens_d, 2**31 - 5) if ext else ()
+    return codes_d, layout, dims, headers, shard_of, n
+
+
+@pytest.mark.parametrize("case", PACK_CASES, ids=PACK_IDS)
+def test_pack_cases_match_jax(one_rank, case):
+    """Each pack case's send tensor (the plain pack of the run layout) holds
+    the JAX package's exchange arrays of the same share: its words, run
+    lengths and (extension mode) read ids and positions, under its dims."""
+    name, codes, lengths, k, num_dest, _, ext = case
+    codes_d, layout, dims, headers, shard_of, n = _pack_layout(case)
+    send = supermer_ops.pack_segments(codes_d, layout, *dims, headers)
+    jcfg = JKmerConfig(k=k, m=PACK_M[k], pad_multiple=PAD, extension=ext)
+    jflat, jvalid = jfasta.flatten_for_device(codes, lengths, k, PAD)
+    assert jflat.size == n
+    packed, lens, rid0, pos0, jbl, jlmax = jroute._prepare_exchange_arrays(
+        jflat, jvalid, shard_of, lengths, 2**31 - 5 if ext else 0, jcfg, num_dest, 1, False,
+        ext, 0, 1)
+    assert (jbl, jlmax) == dims
+    block_len, lmax = dims
+    nw = block_len // 16
+    seg = send.numpy()[:, 0]
+    assert seg.shape == (num_dest, nw + lmax * (3 if ext else 1))
+    assert np.array_equal(seg[:, :nw].view(np.uint32), packed[0])
+    assert np.array_equal(seg[:, nw: nw + lmax], lens[0])
+    if ext:
+        assert np.array_equal(seg[:, nw + lmax: nw + 2 * lmax], rid0[0])
+        assert np.array_equal(seg[:, nw + 2 * lmax:].view(np.uint32), pos0[0])
+
+
+def test_pack_cases_reach_their_edges():
+    """The pack cases hold what their names say, by their run layouts: run
+    ends one base before, at and after pack tile edges and on word edges;
+    runs of MAX_SUPERMER_LEN bases and runs cut from longer reads; runs at
+    every source and segment offset mod 16; a destination without runs and
+    a tile of padding only; 1, 4 and 64 destinations; a tile of more runs
+    than it stages; extension mode."""
+    tile, staged = testing.PACK_TILE, testing.PACK_STAGED
+    by_name = {case[0]: case for case in PACK_CASES}
+    layouts = {name: _pack_layout(case) for name, case in by_name.items()
+               if not name.endswith("_ext")}
+
+    def ends(name):
+        lay = layouts[name][1]
+        return set((lay.off + lay.bases.to(torch.int64)).tolist())
+
+    assert {tile - 1, 2 * tile, 3 * tile + 1, 16 * 101, 16 * 700 + 1} <= ends("tile_edges")
+    lay = layouts["max_len"][1]
+    assert int(lay.bases.max()) == MAX_SUPERMER_LEN
+    src_end = lay.src + lay.bases.to(torch.int64)
+    assert bool((lay.src[1:] < src_end[:-1]).any())  # a cut: runs sharing bases
+    lay = layouts["offsets"][1]
+    assert set((lay.src % 16).tolist()) == set(range(16))
+    assert set((lay.off % 16).tolist()) == set(range(16))
+    lay, dims = layouts["skewed"][1], layouts["skewed"][2]
+    runs_per = torch.diff(lay.dest_begin)
+    assert int(runs_per[3]) == 0
+    seg_len = torch.zeros(4, dtype=torch.int64).scatter_add_(
+        0, torch.repeat_interleave(torch.arange(4), runs_per), lay.bases.to(torch.int64))
+    assert int(seg_len[1:3].max()) + tile <= dims[0]  # a tile of padding only
+    assert {layouts[name][1].dest_begin.numel() - 1 for name in layouts} == {1, 4, 64}
+    assert int((torch.diff(layouts["dests64"][1].dest_begin) == 0).sum()) >= 1
+    lay = layouts["short_runs"][1]
+    first_tile = int(((lay.off < tile) & (lay.off + lay.bases.to(torch.int64) > 0))[
+        lay.dest_begin[0]: lay.dest_begin[1]].sum())
+    assert first_tile > staged
+    assert [case[6] for case in PACK_CASES].count(True) == 3
 
 
 def _run_table_np(valid, dest, k):
@@ -371,6 +460,20 @@ def test_run_layout_kernel_matches_plain(case):
     want = supermer_ops.run_layout_plain(*args)
     for g, w in zip(_layout_fields(got), _layout_fields(want)):
         assert g == w if isinstance(g, int) else (g.dtype == w.dtype and torch.equal(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PACK_CASES, ids=PACK_IDS)
+def test_pack_kernel_matches_plain_on_pack_cases(case):
+    """Each pack case: one launch of the pack kernel, equal to the plain
+    version on the same CUDA tensors."""
+    _need_cuda()
+    codes_d, layout, dims, headers, _, _ = _pack_layout(case, "cuda")
+    before = _build.launches["supermer_pack"]
+    got = supermer_ops.pack_segments(codes_d, layout, *dims, headers)
+    torch.cuda.synchronize()
+    assert _build.launches["supermer_pack"] == before + 1
+    assert torch.equal(got, supermer_ops.pack_segments_plain(codes_d, layout, *dims, headers))
 
 
 @pytest.mark.cuda

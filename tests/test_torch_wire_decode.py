@@ -1,8 +1,9 @@
 """The wire decode (ops/wire.decode_block, decode_block_ext) on every case
 of hysortk_tpu_torch.testing.wire_decode_cases: the plain versions against
 the JAX package on the CPU, and the kernel (csrc/wire_decode.cu) against the
-plain version on a card (`cuda` marker). Seeded numpy inputs; the tolerance
-is exact equality of every output at every position."""
+plain version on a card (`cuda` marker), one launch a case, strided rows
+read in place. Seeded numpy inputs; the tolerance is exact equality of
+every output at every position."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -80,6 +81,42 @@ def test_decode_rejects_what_the_kernel_does_not_take():
         wire.decode_block(packed.to("meta"), lengths.to("meta"), 31, 64)
 
 
+def _tile_reads(lengths: np.ndarray, n: int) -> np.ndarray:
+    """The reads (zero-length ones too) each decode tile's positions can
+    lie in: from the read holding its first position to the one holding
+    the next tile's, as the kernel stages them."""
+    ends = np.cumsum(lengths.astype(np.int64))
+    tile = testing.WIRE_DECODE_TILE
+    firsts = np.arange(0, n + tile, tile)
+    holder = np.minimum(np.searchsorted(ends, firsts, side="right"), lengths.size - 1)
+    return holder[1:] - holder[:-1] + 1
+
+
+def test_wire_decode_cases_reach_their_edges():
+    """The new tiles' hard cases hold what their names say: a tile with more
+    reads than it stages, read ends on tile, step, warp and word edges and
+    beside them, rows of an odd number of words and lengths, and read ids
+    that wrap past int32."""
+    by_name = {c[0]: c for c in CASES}
+    _, _, lengths, _, n, _ = by_name["over_stage"]
+    per_tile = _tile_reads(lengths[0], n)
+    assert per_tile.max() + 1 > testing.WIRE_DECODE_STAGED
+    assert (per_tile + 1 <= testing.WIRE_DECODE_STAGED).sum() >= 2
+    _, _, lengths, _, n, _ = by_name["thread_edges"]
+    ends = set(np.cumsum(lengths[0]).tolist())
+    t, step = testing.WIRE_DECODE_TILE, testing.WIRE_DECODE_STEP
+    for edge in (t, 2 * t, t + step, t + 2 * step, t + 512):
+        assert {edge - 1, edge, edge + 1} <= ends
+    assert n > 2 * t
+    _, packed, lengths, _, n, _ = by_name["odd_strides"]
+    assert packed.shape[0] == 3 and packed.shape[1] % 2 == 1 and lengths.shape[1] % 2 == 1
+    assert n > t
+    _, _, lengths, _, n, rid_base = by_name["ext_rid_wrap"]
+    assert rid_base + lengths.shape[1] > 2**31
+    assert all(by_name[f"ext_{name}"][5] is not None
+               for name in ("over_stage", "thread_edges", "cut", "stacked"))
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -98,11 +135,12 @@ def test_decode_kernel_matches_plain(case):
 
 
 @pytest.mark.cuda
-def test_decode_kernel_reads_strided_segments():
+@pytest.mark.parametrize("name", ["segments3", "odd_strides"])
+def test_decode_kernel_reads_strided_segments(name):
     """The received exchange's form: each segment's words and lengths as
     views into one (S, 1, width) tensor, at odd word counts."""
     _cuda_or_skip()
-    _, packed, lengths, k, n, _ = next(c for c in CASES if c[0] == "segments3")
+    _, packed, lengths, k, n, _ = next(c for c in CASES if c[0] == name)
     nw = packed.shape[1]
     recv = torch.from_numpy(np.concatenate(
         [packed.view(np.int32), lengths], axis=1)[:, None, :].copy())
