@@ -38,7 +38,16 @@ build/kernels/ at first use. Phases, each printing its findings:
      empty, full and seeded masks and reads with zero-length reads) and the
      run layout's (the run table's cases at 1, 2, 4 and 257 destinations,
      caps on and across tile edges, 9,000 buckets, field by field against
-     its plain composition), then the inputs the main paths
+     its plain composition), the decode's run-header mode (every
+     fill_run_meta case and every decode case with random headers, on rows
+     and as strided rows of one received tensor, each one launch, equal at
+     every position to decode_block_plain + fill_run_meta, timed) and the
+     pack by destination's (n = 0, ragged tiles, nothing valid, one
+     destination, 1, 3, 4, 255 and 300 destinations (300: the radix-sort
+     composition), capacity 1 and below the counts, garbage destinations at
+     invalid slots, top-bit words, 1 to 8 rows, bucket tables of S * 3 and
+     4,800 entries, int64 destinations; send block, counts and overflow
+     equal to the plain version, timed), then the inputs the main paths
      give each kernel at the size of phases 2 and 4 (the wire decode on
      phase 2's wire, also in extension mode), with each kernel's bound (the
      least time the card could take) and, where one PyTorch call computes
@@ -131,11 +140,15 @@ build/kernels/ at first use. Phases, each printing its findings:
      bases one-shot and count_reads_sharded_ext_streaming in batches of
      2^22, both against phase 8(c)'s one-shot result; (d) minimizer routing
      with the balanced dispatcher, one rank (one sized scan for the plan
-     and one scan a pass, one decode, no key build but the keys'; with a
-     stage line: wire decode and scan, each one launch of its kernel, bucket
-     sizes and plan with dispatch.bucket_sizes_device and the bincount
-     stubbed to raise, pack, exchange, receive sort, count, result) and four
-     spawned ranks; (e) on two ranks at 2^24 bases: minimizer with
+     and one scan a pass, one decode, no key build but the keys', one pack
+     by destination a pass and the radix sort only on the received rows;
+     with a stage line: wire decode and scan, each one launch of its
+     kernel, bucket sizes and plan with dispatch.bucket_sizes_device and the
+     bincount stubbed to raise, pack (one dest_pack launch from the bucket
+     row and the table, no radix_sort), exchange, receive sort, count,
+     result, and the call's peak device memory; then the pack kernel on
+     those inputs against its plain version, timed beside its bound and a
+     stable torch.sort + index_select) and four spawned ranks; (e) on two ranks at 2^24 bases: minimizer with
      round_robin and the combiner, kmer_hash, kmer_hash with extension
      mode. Each result exactly equal to its reference after sorting by key
      (extension mode: every occurrence as sorted (key, rid, pos) rows); no
@@ -185,7 +198,10 @@ build/kernels/ at first use. Phases, each printing its findings:
      result equal to the range route's on the same reads; (d) extension mode on phase 8(c)'s 2^24 bases with read ids
      from EXT_RID0, one-shot on one rank and on two, and streamed in batches
      of 2^22 on two (merged on the card, not by the host merge), each
-     against phase 8(c)'s one-shot result; (e)
+     against phase 8(c)'s one-shot result (one rank: fill_run_meta stubbed
+     to raise, the received segments decoded with their run headers in the
+     call's second and last wire_decode launch); the run-header decode on
+     11(a)'s extension-mode send tensor, timed beside its bound; (e)
      count_reads_sharded_streaming in batches of 2^24, one rank and two
      ranks, against phase 2. Each result exactly equal after sorting by key
      (extension mode: every occurrence as sorted (key, rid, pos) rows); per
@@ -509,6 +525,7 @@ def phase1_synthetic(gen):
     phase1_merge_keybuild_cases(errs)
     phase1_mix_cases(errs)
     phase1_wire_scan_cases(errs)
+    phase1_dest_pack_cases(errs)
 
     # mix: full-range words (half with the top bit set), a sentinel tail of
     # 1/8 that must stay sentinel, at 2^26 x W=2.
@@ -771,6 +788,7 @@ def phase1_wire_scan_cases(errs) -> None:
         f"{sum(c[5] is not None for c in cases)} of them in extension mode; "
         f"{len(strided)} of them again as strided rows of one received tensor "
         f"({', '.join(c[0] for c in strided)})")
+    phase1_decode_runs_cases(errs)
 
     def one_launch(what, name, before):
         if (_build.launches[name] != before[name] + 1
@@ -818,6 +836,103 @@ def phase1_wire_scan_cases(errs) -> None:
     log(f"phase1 supermer_runs (run layout) hard cases at tile {testing.RUN_TABLE_TILE}: "
         f"{len(layouts)} equal field by field (1 to 257 destinations, caps on and across "
         f"tile edges, 9,000 buckets, reads with zero-length reads)")
+
+
+def phase1_decode_runs_cases(errs) -> None:
+    """The decode's run-header mode (ops/wire.decode_block_runs) on every
+    case of testing.decode_runs_cases (every fill_run_meta case and every
+    decode case with headers): one launch a case, equal at every position
+    to its plain version (decode_block_plain + fill_run_meta), on contiguous
+    rows and again as strided rows of one received tensor; each timed
+    beside its plain version and its bound."""
+    import torch
+
+    from hysortk_tpu_torch import _build, testing
+    from hysortk_tpu_torch.ops import wire
+
+    cases = testing.decode_runs_cases()
+    timed = []
+    for name, packed, lengths, rid0, pos0, k, n in cases:
+        rows = [packed.view(np.int32), lengths, rid0, pos0.view(np.int32)]
+        args = [torch.from_numpy(r) for r in rows]
+        want = list(wire.decode_block_runs_plain(*args, k, n))
+        nw, r = packed.shape[1], lengths.shape[1]
+        recv = torch.from_numpy(np.concatenate(rows, axis=1)[:, None, :].copy()).cuda()
+        views = (recv[:, 0, :nw], recv[:, 0, nw: nw + r], recv[:, 0, nw + r: nw + 2 * r],
+                 recv[:, 0, nw + 2 * r:])
+        for form, dev_args in (("rows", [a.cuda() for a in args]), ("strided", views)):
+            before = _build.launches["wire_decode"]
+            got = wire.decode_block_runs(*dev_args, k, n)
+            torch.cuda.synchronize()
+            if _build.launches["wire_decode"] != before + 1:
+                raise AssertionError(f"run-header decode case {name} ({form}) did not "
+                                     f"launch the kernel once")
+            e = max_abs_err([g.cpu() for g in got], want)
+            require_equal(f"wire_decode run-header case {name} ({form})", e)
+            errs["wire_decode"] = max(errs["wire_decode"], e)
+        segs = packed.shape[0]
+        b = bound(segs * (10.25 * n + 12 * r), segs * 6 * n)
+        ms = cuda_ms(lambda: wire.decode_block_runs(*views, k, n), 5)
+        pms = cuda_ms(lambda: wire.decode_block_runs_plain(*views, k, n), 2)
+        timed.append(f"{name} {ms:.4f}/{pms:.4f}/{b[0]:.4f}")
+    log(f"phase1 wire_decode run-header mode hard cases: {len(cases)} equal at every "
+        f"position to decode_block_plain + fill_run_meta, on rows and as strided rows "
+        f"of one received tensor, one launch each; kernel/plain/bound ms: "
+        f"{'; '.join(timed)}")
+
+
+def phase1_dest_pack_cases(errs) -> None:
+    """The pack by destination's hard cases (testing.dest_pack_cases) on the
+    card: the kernel (csrc/dest_pack.cu, one launch; past 255 destinations
+    the radix-sort composition, one sort) exactly equal to its plain version
+    (send block, counts, overflow), each timed beside its plain version and
+    its bound."""
+    import torch
+
+    from hysortk_tpu_torch import _build, testing
+    from hysortk_tpu_torch.parallel import exchange
+
+    import ctypes
+
+    tile, staged = ctypes.c_int(), ctypes.c_int()
+    _build.lib().hk_dest_pack_geometry(ctypes.byref(tile), ctypes.byref(staged))
+    if (tile.value, staged.value) != (testing.DEST_PACK_TILE, testing.DEST_PACK_STAGED):
+        raise AssertionError(f"dest_pack's tile {tile.value} and staged table "
+                             f"{staged.value} are not testing's, whose cases are sized "
+                             f"by them")
+    cases = testing.dest_pack_cases()
+    timed = []
+    for name, valid, dest, rows, n_words, num_shards, capacity, assign in cases:
+        host = [torch.from_numpy(valid), torch.from_numpy(dest),
+                [torch.from_numpy(r.view(np.int32)) for r in rows[:n_words]],
+                [torch.from_numpy(r.view(np.int32)) for r in rows[n_words:]]]
+        table = None if assign is None else torch.from_numpy(assign)
+        want = exchange.pack_by_destination_plain(*host, num_shards, capacity, table)
+        args = (host[0].cuda(), host[1].cuda(), [r.cuda() for r in host[2]],
+                [r.cuda() for r in host[3]], num_shards, capacity,
+                None if table is None else table.cuda())
+        before = dict(_build.launches)
+        got = exchange.pack_by_destination(*args)
+        torch.cuda.synchronize()
+        kernel = num_shards <= exchange.MAX_KERNEL_DEST
+        if (_build.launches["dest_pack"] != before["dest_pack"] + kernel
+                or _build.launches["radix_sort"] != before["radix_sort"] + (
+                    not kernel and valid.size > 0)):
+            raise AssertionError(f"dest_pack case {name} launched {_build.launches} "
+                                 f"after {before}")
+        if not (torch.equal(got[0].cpu(), want[0]) and np.array_equal(got[1], want[1])
+                and got[2] == want[2]):
+            raise AssertionError(f"dest_pack case {name}: kernel differs from plain")
+        n, width = valid.size, rows.shape[0]
+        b = bound(n * (1 + dest.itemsize + 4 * width) + 4 * width * num_shards * capacity,
+                  12 * n)
+        ms = cuda_ms(lambda: exchange.pack_by_destination(*args), 5)
+        pms = cuda_ms(lambda: exchange.pack_by_destination_plain(*args), 2)
+        timed.append(f"{name} {ms:.4f}/{pms:.4f}/{b[0]:.4f}")
+    log(f"phase1 dest_pack hard cases at tile {testing.DEST_PACK_TILE} "
+        f"({testing.DEST_PACK_STAGED} table entries staged): {len(cases)} equal to the "
+        f"plain version (send block, counts, overflow); kernel/plain/bound ms (S = 300: "
+        f"the radix-sort composition): {'; '.join(timed)}")
 
 
 def layout_rows(got, want):
@@ -1304,11 +1419,17 @@ KERNELS = {
                        "hysortk_tpu/ops/minimizer.py:45 kmer_destinations (with :23, "
                        ":34) + parallel/dispatch.py:23 bucket_sizes_device (XLA, no "
                        "pallas_call)"),
+    # The bucketed routes' pack, XLA code in the JAX package: a kernel the
+    # port added for its exchange module.
+    "dest_pack": ("hysortk_tpu_torch/csrc/dest_pack.cu",
+                  "hysortk_tpu/parallel/exchange.py:33 pack_by_destination (called at "
+                  "parallel/pipeline.py:346, :351, :1085; XLA, no pallas_call)"),
 }
 # Which path's run gives each kernel its launch count in the record:
 # phase 2 (the wire decode too), phase 4(a), and for fused_sort phase 6, for
 # block_sort phase 7, for mix_keys phase 9(a), for the supermer route's
-# kernels (the scan too) 11(a)'s first call.
+# kernels (the scan too) 11(a)'s first call, for dest_pack 10(d)'s one-rank
+# call.
 ONE_SHOT_KERNELS = ("keybuild", "radix_sort", "fused_count", "wire_decode")
 STREAMING_KERNELS = ("run_length_sum", "merge_runs")
 SUPERMER_KERNELS = ("supermer_runs", "supermer_pack", "minimizer_scan")
@@ -2743,7 +2864,7 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
 STREAM_BATCH = 1 << 24  # phase 4(a)'s batches: four of phase 2's reads
 # The kernels every phase-10 run launches, and those of some of them.
 CORE_KERNELS = ("wire_decode", "keybuild", "radix_sort", "fused_count")
-MINIMIZER_KERNELS = CORE_KERNELS + ("minimizer_scan",)
+MINIMIZER_KERNELS = CORE_KERNELS + ("minimizer_scan", "dest_pack")
 
 
 def ext_occurrence_rows(kl):
@@ -2887,9 +3008,12 @@ def log_phase10(tag: str, what: str, ranks: list[dict], n_kept: int,
     log(f"phase{phase}{tag} {what}: {n_kept} k-mers equal to the reference")
 
 
-def phase10_minimizer_stages(codes, lengths, cfg) -> None:
+def phase10_minimizer_stages(codes, lengths, cfg, errs) -> dict:
     """One rank's minimizer call stage by stage, a synchronize after each
-    (inside phase 10's one-rank group)."""
+    (inside phase 10's one-rank group), with the peak device memory of the
+    second call; then the pack kernel at this shape against its plain
+    version, timed beside its bound and the two library calls that sort
+    and gather. Returns the pack's measurements."""
     import torch
 
     from hysortk_tpu_torch import _build
@@ -2910,6 +3034,8 @@ def phase10_minimizer_stages(codes, lengths, cfg) -> None:
     dev = torch.device("cuda", torch.cuda.current_device())
     for _ in range(2):
         stages.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         packed, lens, block_len = timed(
             "host partition + pack + H2D",
             lambda: sharded._rank_wire(*sharded._rank_share(codes, lengths, None)[:2],
@@ -2935,9 +3061,14 @@ def phase10_minimizer_stages(codes, lengths, cfg) -> None:
                                  f"{before}: not one sized scan")
         words = timed("keybuild", lambda: keybuild.canonical_keys_fused(
             codes_d, valid_d, cfg.k))
+        before = dict(_build.launches)
         send, counts, overflow = timed(
-            "pack by destination", lambda: exchange.pack_by_destination(
-                valid_d, assign[bucket.to(torch.int64)], words, [], 1, capacity))
+            "pack by destination (kernel)", lambda: exchange.pack_by_destination(
+                valid_d, bucket, words, [], 1, capacity, assign))
+        if (_build.launches["dest_pack"] != before["dest_pack"] + 1
+                or _build.launches["radix_sort"] != before["radix_sort"]):
+            raise AssertionError(f"phase 10(d)'s pack stage launched {_build.launches} "
+                                 f"after {before}: not one dest_pack and no radix_sort")
 
         def all_reduce_exchange_mask():  # sharded._bucketed_exchange after its pack
             sharded._global_stats(counts, overflow, dev, None)
@@ -2953,9 +3084,61 @@ def phase10_minimizer_stages(codes, lengths, cfg) -> None:
         timed("result (compaction, gather, copy-out, histogram)",
               lambda: sharded._gather_result(words_s, cnt, keep, cfg, None, False))
         del codes_d, valid_d, words_s, cnt, keep, packed, lens
+        peak = torch.cuda.max_memory_allocated()
     log(f"phase10d stages of one minimizer call, second of two, ms: {'; '.join(stages)}; "
         f"the plan ran with dispatch.bucket_sizes_device and count.chunked_bincount "
-        f"stubbed to raise")
+        f"stubbed to raise; peak device memory of the call {peak / 2**30:.3f} GiB")
+
+    # The pack kernel on the stage line's inputs, made again.
+    packed, lens, block_len = sharded._rank_wire(
+        *sharded._rank_share(codes, lengths, None)[:2], cfg, None, dev)
+    codes_d, valid_d = wire.decode_block(packed, lens, cfg.k, block_len)
+    bucket = minimizer.kmer_destinations(codes_d, cfg.k, cfg.m, sharded._num_buckets(cfg, 1))
+    words = keybuild.canonical_keys_fused(codes_d, valid_d, cfg.k)
+    del packed, lens
+    args = (valid_d, bucket, words, [], 1, capacity, assign)
+    got = exchange.pack_by_destination(*args)
+    want = exchange.pack_by_destination_plain(*args)
+    e = max_abs_err([got[0]], [want[0]])
+    require_equal("dest_pack main path", e)
+    if not (np.array_equal(got[1], want[1]) and got[2] == want[2]):
+        raise AssertionError("dest_pack main path: counts or overflow differ from plain")
+    errs["dest_pack"] = max(errs["dest_pack"], e)
+    del got, want
+    n, width = valid_d.numel(), len(words)
+    sent = int(counts.sum())
+    # In: validity, the bucket and the rows, each once (the table: 4 B a
+    # bucket); out: the whole (S, rows, capacity) block, sent slots and
+    # padding. Per slot a table read, a ballot and the rank's few
+    # operations, a shared-memory exchange a row.
+    pk_bound = bound(n * (1 + 4 + 4 * width) + 4 * assign.numel()
+                     + 4 * width * len(counts) * capacity, n * (12 + 4 * width))
+    pk = dict(
+        ms=cuda_ms(lambda: exchange.pack_by_destination(*args), 10),
+        plain_ms=cuda_ms(lambda: exchange.pack_by_destination_plain(*args), 3),
+        bound_ms=pk_bound[0], bound_by=pk_bound[1], library_ms=None,
+    )
+    # No one call packs; two sort and gather: a stable torch.sort of the
+    # destination (the unsent slots last), then index_select of each row by
+    # its order (the destination's gather not timed).
+    key = torch.where(valid_d, assign[bucket.to(torch.int64)], 1)
+
+    def two_calls():
+        order = torch.sort(key, stable=True).indices
+        return [w.index_select(0, order) for w in words]
+
+    two_ms = cuda_ms(two_calls, 5)
+    # The kernel's two launches alone, without the wrapper's host read.
+    launch_ms = cuda_ms(lambda: exchange.launch_pack(valid_d, bucket, words, 1, capacity,
+                                                     assign), 10)
+    log_kernel(f"phase10d dest_pack main path n={n} W={width} S=1 capacity={capacity} "
+               f"({sent} slots sent), bucket + table form", pk)
+    log(f"phase10d dest_pack launches alone (no host read) {launch_ms:.4f} ms, "
+        f"{pk['bound_ms'] / launch_ms:.2f} of the bound")
+    log(f"phase10d dest_pack library: none: no one call; two calls (stable torch.sort "
+        f"of the destination + index_select of the {width} rows) {two_ms:.4f} ms")
+    del key, words, bucket, codes_d, valid_d
+    return pk
 
 
 def phase10_stream_parts(codes, lengths, cfg, one_shot, a: dict) -> None:
@@ -3033,7 +3216,7 @@ def phase10_stream_parts(codes, lengths, cfg, one_shot, a: dict) -> None:
 
 
 def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
-                    sub_one_shot, ext_sub_one_shot) -> None:
+                    sub_one_shot, ext_sub_one_shot, errs) -> tuple[dict, int]:
     """The rest of the sharded pipeline on phase 2's reads (configuration
     of phase 2): (a) sharded streaming, one rank, NCCL; (b) the same on two
     ranks sharing the card over gloo; (c) extension mode, one rank at 2^26
@@ -3043,7 +3226,9 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
     bases: minimizer with round_robin and the combiner, kmer_hash, kmer_hash
     with extension mode. Every result exactly equal to the one-shot result
     it is held against, after sorting by key (extension mode: every
-    occurrence as sorted (key, rid, pos) rows)."""
+    occurrence as sorted (key, rid, pos) rows). Returns the pack kernel's
+    measurements at 10(d)'s shape and its launches in 10(d)'s one-rank
+    call."""
     import dataclasses
 
     import torch
@@ -3088,14 +3273,17 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
         log_phase10("d", f"minimizer (balanced), {int(codes.size)} bases", [d],
                     len(one_shot[0]), MINIMIZER_KERNELS)
         # The plan's scan and one a pass (as in the JAX package), one
-        # decode, and the key build only for the keys.
+        # decode, the key build only for the keys, the pack kernel once a
+        # pass and the radix sort only for the received rows.
         if (d["launches"]["minimizer_scan"] != 1 + d["passes"]
                 or d["launches"]["wire_decode"] != 1
-                or d["launches"]["keybuild"] != d["passes"]):
+                or d["launches"]["keybuild"] != d["passes"]
+                or d["launches"]["dest_pack"] != d["passes"]
+                or d["launches"]["radix_sort"] != d["passes"]):
             raise AssertionError(f"phase 10(d) launches {d['launches']} in "
                                  f"{d['passes']} pass(es)")
-        phase10_minimizer_stages(codes, lengths, dataclasses.replace(
-            cfg, routing="minimizer"))
+        pack_times = phase10_minimizer_stages(codes, lengths, dataclasses.replace(
+            cfg, routing="minimizer"), errs)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -3120,9 +3308,11 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
              "sub", dict(mini, dispatcher="round_robin", combiner=True), (), {},
              sub_one_shot, MINIMIZER_KERNELS + ("run_length_sum",)),
             ("e", "kmer_hash, 2^24 bases", "count_reads_sharded", "sub",
-             dict(base, routing="kmer_hash"), (), {}, sub_one_shot, CORE_KERNELS),
+             dict(base, routing="kmer_hash"), (), {}, sub_one_shot,
+             CORE_KERNELS + ("dest_pack",)),
             ("e", "kmer_hash + extension, 2^24 bases", "count_reads_sharded_ext", "sub",
-             dict(ext, routing="kmer_hash"), (), rid0, ext_sub_one_shot, CORE_KERNELS),
+             dict(ext, routing="kmer_hash"), (), rid0, ext_sub_one_shot,
+             CORE_KERNELS + ("dest_pack",)),
         ],
         4: [
             ("d", "minimizer (balanced), 2^26 bases", "count_reads_sharded", "all", mini,
@@ -3142,6 +3332,7 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
                 no_host_flatten)
     del sub_rows
     log(f"phase10 {time.perf_counter() - t_phase:.1f} s in all")
+    return {"dest_pack": pack_times}, d["launches"]["dest_pack"]
 
 
 def no_host_merge(phase: int, tag: str, stats: list[dict]) -> None:
@@ -3485,8 +3676,8 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
         rid0 = EXT_RID0 if ext else 0
         table_d = torch.from_numpy(table.astype(np.int32)).to(dev)
         t0 = time.perf_counter()
-        got = sr._device_send(codes_d, valid, dest_d, table_d, lens_d, c, num_dest, rid0,
-                              ext, dev, None)[0]
+        got, recv_len, recv_lmax = sr._device_send(codes_d, valid, dest_d, table_d, lens_d,
+                                                   c, num_dest, rid0, ext, dev, None)
         torch.cuda.synchronize()
         t_dev = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -3499,6 +3690,8 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
             raise AssertionError(f"phase 11: the send tensor of phase 2's reads at "
                                  f"{num_dest} destination(s), ext={ext}, differs from "
                                  f"the host encoder's")
+        if ext and num_dest == 1:
+            phase11_decode_runs(got, recv_len, recv_lmax, c, errs)
         checked.append(f"S={num_dest}{' ext' if ext else ''} {tuple(got.shape)} "
                        f"device {t_dev * 1e3:.1f} ms, host {t_host * 1e3:.1f} ms")
         del got, want
@@ -3506,6 +3699,38 @@ def phase11_kernels(codes, lengths, cfg, errs) -> dict:
         f"{'; '.join(checked)}")
     wire_info = dict(supermers=r, bases=gathered, dims=dims)
     return {"supermer_runs": rt, "supermer_pack": pk, "minimizer_scan": sc}, wire_info
+
+
+def phase11_decode_runs(send, block_len: int, lmax: int, cfg, errs) -> None:
+    """The decode's run-header mode on an extension-mode send tensor as its
+    one destination receives it (the call of supermer_route._decode_received:
+    words, lengths, rid0 and pos0 as strided rows of it): one launch, equal
+    to its plain version (decode_block_plain + fill_run_meta), timed beside
+    its bound."""
+    from hysortk_tpu_torch import _build
+    from hysortk_tpu_torch.ops import wire
+
+    nw = block_len // 16
+    args = (send[:, 0, :nw], send[:, 0, nw: nw + lmax], send[:, 0, nw + lmax: nw + 2 * lmax],
+            send[:, 0, nw + 2 * lmax:], cfg.k, block_len)
+    before = _build.launches["wire_decode"]
+    got = wire.decode_block_runs(*args)
+    if _build.launches["wire_decode"] != before + 1:
+        raise AssertionError("the run-header decode did not launch the kernel once")
+    e = max_abs_err(list(got), list(wire.decode_block_runs_plain(*args)))
+    require_equal("wire_decode run-header mode, 11(a)'s extension-mode send tensor", e)
+    errs["wire_decode"] = max(errs["wire_decode"], e)
+    del got
+    segs = send.shape[0]
+    runs = int((send[:, 0, nw: nw + lmax] > 0).sum())
+    # In: 1/4 B of words a position, 12 B a run slot (length, rid0, pos0);
+    # out: code, flag, read id and position, 10 B a position.
+    b = bound(segs * (10.25 * block_len + 12 * lmax), segs * 6 * block_len)
+    t = dict(ms=cuda_ms(lambda: wire.decode_block_runs(*args), 10),
+             plain_ms=cuda_ms(lambda: wire.decode_block_runs_plain(*args), 3),
+             bound_ms=b[0], bound_by=b[1], library_ms=None)
+    log_kernel(f"phase11 wire_decode run-header mode, 11(a)'s extension-mode send tensor "
+               f"S={segs} of {block_len} positions, {lmax} run slots ({runs} runs)", t)
 
 
 # The spans of one supermer call (runtime/timer.stage, in the order entered)
@@ -3681,6 +3906,7 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
     import torch.distributed as dist
 
     from hysortk_tpu_torch.io import native
+    from hysortk_tpu_torch.ops import wire
     from hysortk_tpu_torch.parallel import group
 
     cfg = slice_config()
@@ -3743,13 +3969,23 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
                               dict(heavy_f, routing="range"))["result"]
         if not kept_kmers <= hk_ref[0].counts.max() <= heavy_f["upper"]:
             raise AssertionError("phase 11(c) second case: the poly-A key is not kept")
-        d = phase10_call("count_reads_sharded_ext", sub_codes, sub_lengths, ext, (), rid0)
+        # The received segments' read ids and positions come from the
+        # decode's run-header mode, in the same launch: fill_run_meta is
+        # never called, and the call decodes twice (its wire, then every
+        # received segment).
+        with refused((wire, "fill_run_meta")):
+            d = phase10_call("count_reads_sharded_ext", sub_codes, sub_lengths, ext, (),
+                             rid0)
         got = d.pop("result")
         require_same_ext("phase 11(d) one rank", got, ext_sub_one_shot)
         del got
+        if d["launches"].get("wire_decode") != 2:
+            raise AssertionError(f"phase 11(d) one rank launched {d['launches']}: the "
+                                 f"received segments not in one decode")
         d["backend"] = "nccl"
-        log_phase10("d", "count_reads_sharded_ext, routing supermer, 2^24 bases",
-                    [d], len(ext_sub_one_shot[0]), needed, 11)
+        log_phase10("d", "count_reads_sharded_ext, routing supermer, 2^24 bases (the "
+                    "receive decode one run-header launch, fill_run_meta stubbed to "
+                    "raise)", [d], len(ext_sub_one_shot[0]), needed, 11)
         torch.cuda.empty_cache()
         e = phase10_call("count_reads_sharded_streaming", codes, lengths, sm,
                          (STREAM_BATCH,))
@@ -4179,8 +4415,9 @@ def main() -> int:
         sharded_launches, sub_one_shot, range_traffic = phase9_sharded(
             workdir, codes, lengths, one_shot)
         torch.cuda.empty_cache()
-        phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot, sub_one_shot,
-                        ext_sub_one_shot)
+        pack_times, pack_launches = phase10_sharded(
+            workdir, codes, lengths, one_shot, ext_one_shot, sub_one_shot,
+            ext_sub_one_shot, errs)
         torch.cuda.empty_cache()
         supermer_times, supermer_launches = phase11_supermer(
             workdir, codes, lengths, one_shot, ext_sub_one_shot, range_traffic, errs)
@@ -4192,6 +4429,8 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     times.update(stream_times)
     times.update(supermer_times)
+    times.update(pack_times)
+    launches["dest_pack"] = pack_launches
     for name in SUPERMER_KERNELS:
         launches[name] = supermer_launches[name]
     for name in STREAMING_KERNELS:

@@ -63,7 +63,7 @@ launches = {
     "run_length_sum": 0, "merge_runs": 0,
     "fused_sort": 0, "block_sort": 0, "mix_keys": 0,
     "supermer_runs": 0, "supermer_pack": 0,
-    "wire_decode": 0, "minimizer_scan": 0,
+    "wire_decode": 0, "minimizer_scan": 0, "dest_pack": 0,
 }
 
 _lock = threading.Lock()
@@ -269,9 +269,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_wire_decode.argtypes = [ptr, i64, ptr, i64, i64, i64, i64, i32, i32, ptr, ptr,
                                    ptr, ptr, ptr, ptr, ptr]
     lib.hk_wire_decode.restype = i32
+    lib.hk_wire_decode_runs.argtypes = [ptr, i64, ptr, i64, ptr, i64, ptr, i64, i64, i64,
+                                        i64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.hk_wire_decode_runs.restype = i32
     lib.hk_minimizer_scan.argtypes = [ptr, ptr, i64, i32, i32, ctypes.c_uint32,
                                       ctypes.c_uint64, ptr, ptr, ptr]
     lib.hk_minimizer_scan.restype = i32
+    lib.hk_dest_pack_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.hk_dest_pack_geometry.restype = None
+    lib.hk_dest_pack_scratch.argtypes = [i64, i32]
+    lib.hk_dest_pack_scratch.restype = i64
+    lib.hk_dest_pack.argtypes = [ptr, ptr, i64, ptr, i32, ptrs, i32, i64, i32, i64, ptr,
+                                 ptr, ptr, ptr]
+    lib.hk_dest_pack.restype = i32
     lib.hk_error_string.argtypes = [i32]
     lib.hk_error_string.restype = ctypes.c_char_p
     return lib

@@ -119,6 +119,7 @@ struct CodeSource {
   __device__ __forceinline__ void load(int j, int64_t i, int local) {
     slot_key<W>(staged, valid, k, i, local, key[j]);
   }
+  __device__ static constexpr int num_digits() { return kRadix; }
   __device__ __forceinline__ unsigned digit(int j) const {
     return key[j][W - 1] & 0xFFu;
   }

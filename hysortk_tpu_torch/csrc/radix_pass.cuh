@@ -6,7 +6,9 @@
 // key from the base codes instead. Together they replace the TPU's bitonic
 // network (hysortk_tpu/ops/pallas_msort.py block_sort_member /
 // block_sort_keybuild and pallas_sort.py merge_levels); nothing of that
-// network's layout is carried over.
+// network's layout is carried over. dest_pack.cu runs one pass of it, with
+// the destination rank as its only digit and no histogram (each
+// destination's output starts at a fixed place).
 //
 // Bound on the H100: bytes. A sort of R rows of which W are key words moves at
 // least 4W B/slot for the histogram and 4W passes x 8R B/slot: each pass must
@@ -211,6 +213,15 @@ __device__ __forceinline__ void store_descriptor(unsigned* p, unsigned v) {
   *reinterpret_cast<volatile unsigned*>(p) = v;
 }
 
+// Words between two tiles' descriptors: `digits` rounded up to a 128-byte
+// line, so that blocks polling their neighbours' descriptors do not share a
+// line with tiles they do not wait on (a sort pass's 256 digits fill whole
+// lines already).
+constexpr int kDescLineWords = 32;
+__host__ __device__ __forceinline__ int desc_stride(int digits) {
+  return (digits + kDescLineWords - 1) / kDescLineWords * kDescLineWords;
+}
+
 // Whether tile slot `local` holds an element; a full tile needs no test.
 template <bool kFullTile>
 __device__ __forceinline__ bool in_tile(int local, int tile_n) {
@@ -220,11 +231,13 @@ __device__ __forceinline__ bool in_tile(int local, int tile_n) {
 // The lanes of the warp whose digit equals this lane's: one ballot per bit
 // of the digit, kept or inverted by the lane's own bit. Written in PTX so
 // that a bit costs four instructions (test, vote, predicated not, and).
-// Every lane of the warp calls it.
+// Digits below 2^kBits need only kBits ballots. Every lane of the warp
+// calls it.
+template <int kBits = 8>
 __device__ __forceinline__ unsigned lanes_of_digit(unsigned d) {
   unsigned peers = kFull;
 #pragma unroll
-  for (int b = 0; b < 8; ++b) {
+  for (int b = 0; b < kBits; ++b) {
     unsigned with_bit;
     asm volatile("{\n"
         "    .reg .pred p;\n"
@@ -303,16 +316,21 @@ __device__ __forceinline__ void exchange_row(PassShared<kThreads, kItems>& sh,
 }
 
 // Source supplies a tile's elements and takes them back in digit order:
+//   int num_digits()               the digits that occur (<= kRadix): a
+//                                  tile publishes and walks that many
 //   void stage(int64_t tile_base, int64_t n, unsigned char* room)
 //                                  bring the tile in (block-wide), if needed
 //   void load(int j, int64_t i, int local)   element i into item j
 //   unsigned digit(int j)                    item j's digit in this pass
 //   void scatter<kFullTile>(sh, pos, tile_n, tile_base)
 //                                  every row through exchange_row
-// hist: the 256 global counts of this pass's digit; desc: its descriptors,
-// all zero at launch. kFullTile: the tile has all its slots, so no slot is
-// tested against tile_n (all tiles but the last).
-template <int kThreads, int kItems, bool kFullTile, class Source>
+// hist: the 256 global counts of this pass's digit, or null where every
+// digit's output starts at 0 (sh.offset[d] is then the digit's slots before
+// this tile less its first slot in the tile); desc: its descriptors, all
+// zero at launch. kFullTile: the tile has all its slots, so no slot is
+// tested against tile_n (all tiles but the last). kBits: the digits lie
+// below 2^kBits.
+template <int kThreads, int kItems, bool kFullTile, class Source, int kBits = 8>
 __device__ __forceinline__ void radix_pass_body(
     Source& source, PassShared<kThreads, kItems>& sh, int tile, int tile_n,
     int64_t tile_base, const unsigned* __restrict__ hist, unsigned* desc) {
@@ -334,7 +352,7 @@ __device__ __forceinline__ void radix_pass_body(
     for (int j = 0; j < kItems; ++j) {
       const bool in = in_tile<kFullTile>(first + 32 * j, tile_n);
       const unsigned d = in ? source.digit(j) : 0u;
-      unsigned peers = lanes_of_digit(d);
+      unsigned peers = lanes_of_digit<kBits>(d);
       if (!kFullTile) {
         peers &= __ballot_sync(kFull, in);
         if (!in) peers = 1u << lane;  // its rank is not used
@@ -353,9 +371,12 @@ __device__ __forceinline__ void radix_pass_body(
   __syncthreads();
 
   // Digit `tid`: the warps' counts -> each warp's first slot; the tile's
-  // count, published at once.
+  // count, published at once. A tile's `digits` descriptors start a line
+  // of their own (desc_stride).
+  const int digits = source.num_digits();
+  const int stride = desc_stride(digits);
   int count = 0, base = 0;
-  unsigned* mine = desc + static_cast<int64_t>(tile) * kRadix + tid;
+  unsigned* mine = desc + static_cast<int64_t>(tile) * stride + tid;
   if (tid < kRadix) {
     unsigned running = 0;
 #pragma unroll
@@ -365,16 +386,16 @@ __device__ __forceinline__ void radix_pass_body(
       running += c;
     }
     count = static_cast<int>(running);
-    store_descriptor(mine, static_cast<unsigned>(count + 1) << 1);
-    base = static_cast<int>(hist[tid]);
+    if (tid < digits) store_descriptor(mine, static_cast<unsigned>(count + 1) << 1);
+    base = hist != nullptr ? static_cast<int>(hist[tid]) : 0;
   }
   int start = count;
   scan_digits(start, base, sh.scan_tmp);
   if (tid < kRadix) {
     // Decoupled look-back: this digit in the tiles before this one.
     unsigned before = 0;
-    for (int t = tile - 1; t >= 0; --t) {
-      const unsigned* theirs = desc + static_cast<int64_t>(t) * kRadix + tid;
+    for (int t = tid < digits ? tile - 1 : -1; t >= 0; --t) {
+      const unsigned* theirs = desc + static_cast<int64_t>(t) * stride + tid;
       unsigned v;
       do {
         v = load_descriptor(theirs);
@@ -385,7 +406,9 @@ __device__ __forceinline__ void radix_pass_body(
       }
       before += (v >> 1) - 1u;
     }
-    store_descriptor(mine, ((before + static_cast<unsigned>(count)) << 1) | 1u);
+    if (tid < digits) {
+      store_descriptor(mine, ((before + static_cast<unsigned>(count)) << 1) | 1u);
+    }
     sh.local_start[tid] = start;
     sh.offset[tid] = base + static_cast<int>(before) - start;
   }
@@ -403,7 +426,7 @@ __device__ __forceinline__ void radix_pass_body(
 
 // One tile of one pass: take a ticket, bring the tile in, run the body.
 // ticket: the pass's tile counter, zero at launch.
-template <int kThreads, int kItems, class Source>
+template <int kThreads, int kItems, class Source, int kBits = 8>
 __device__ __forceinline__ void radix_pass_tile(Source& source, int64_t n,
                                                 const unsigned* __restrict__ hist,
                                                 unsigned* ticket, unsigned* desc) {
@@ -422,12 +445,11 @@ __device__ __forceinline__ void radix_pass_tile(Source& source, int64_t n,
   const int64_t left = n - tile_base;
   source.stage(tile_base, n, shared_raw + sizeof(Shared));
   if (left >= Shared::kTile) {
-    radix_pass_body<kThreads, kItems, true>(source, sh, tile, Shared::kTile,
-                                            tile_base, hist, desc);
+    radix_pass_body<kThreads, kItems, true, Source, kBits>(
+        source, sh, tile, Shared::kTile, tile_base, hist, desc);
   } else {
-    radix_pass_body<kThreads, kItems, false>(source, sh, tile,
-                                             static_cast<int>(left), tile_base,
-                                             hist, desc);
+    radix_pass_body<kThreads, kItems, false, Source, kBits>(
+        source, sh, tile, static_cast<int>(left), tile_base, hist, desc);
   }
 }
 

@@ -74,6 +74,7 @@ struct RowSource {
   __device__ __forceinline__ void load(int j, int64_t i, int) {
     key[j] = rows.src[key_row][i];
   }
+  __device__ static constexpr int num_digits() { return kRadix; }
   __device__ __forceinline__ unsigned digit(int j) const {
     return (key[j] >> shift) & 0xFFu;
   }

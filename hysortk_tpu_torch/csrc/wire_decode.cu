@@ -1,6 +1,8 @@
 // The wire decode: S segments of the 2-bit packed read wire -> per position
 // the base code, whether a k-mer starts there and, in extension mode, the
-// read id and the position in the read.
+// read id and the position in the read; or, in run-header mode (the
+// supermer route's extension-mode receive side), each run's read id and
+// first position carried along it.
 //
 // No TPU kernel: the JAX package decodes in XLA (hysortk_tpu/ops/wire.py
 // unpack_codes, valid_from_lengths, decode_block, rid_pos_from_lengths,
@@ -15,7 +17,13 @@
 //     total past the segment is cut at its end;
 //   * read id = rid_base - 1 + the number of read starts at or before p
 //     (zero-length reads too, whose starts stack on the next read's), and
-//     position in read = p - the last of those starts (uint32 bits).
+//     position in read = p - the last of those starts (uint32 bits);
+//   * run-header mode (ops/wire.decode_block_runs, whose plain version is
+//     decode_block_plain + fill_run_meta): the reads are runs with headers
+//     rid0 and pos0 (per segment, strided rows read in place), and with i
+//     the last run whose start is at or before p, read id = rid0[i] and
+//     position = pos0[i] + p - start_i (uint32 wrap); with no runs at all
+//     read id 0 and position p.
 //
 // Two launches, no memset:
 //   1. scan: the read lengths, a tile of 2048 a block, each read's end in
@@ -36,7 +44,9 @@
 //      ranges, into one 16-byte store each a word; in extension mode the
 //      thread walks its 16 positions for their read ids and positions,
 //      which go through the warp's own shared buffer, so each store
-//      instruction writes 512 contiguous bytes. Its blocks zero the scan's
+//      instruction writes 512 contiguous bytes; in run-header mode the walk
+//      reads a run's two headers where it enters the run (through L1: a
+//      run holds tens of positions). Its blocks zero the scan's
 //      descriptors for the next call.
 // No array a thread indexes at run time: the compiler would keep it in
 // local memory, and one of codes and flags read and written at every
@@ -44,7 +54,8 @@
 //
 // Bound on the H100: HBM bytes. Per position 1/4 B of words in, 1 B of code
 // and 1 B of flag out (2.25 B), 8 B more with the read id and position; 4 B
-// a read in. The ends (4 B a read) are written and read once more.
+// a read in. The ends (4 B a read) are written and read once more. Run-header
+// mode reads 8 B a run more.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -103,6 +114,30 @@ struct Args {
   uint8_t* valid;
   uint32_t* rid;
   uint32_t* pos;
+  const int32_t* rid0;  // run-header mode: [segment][run] at rid0 + s * rid0_stride
+  const uint32_t* pos0;
+  int64_t rid0_stride, pos0_stride;
+};
+
+// The read id and the first position's offset of read (run) i of a segment,
+// i = -1 where the segment has no reads.
+struct ReadIds {  // extension mode: numbered from rid_base, positions from the start
+  uint32_t rid_base;
+  __device__ __forceinline__ uint32_t rid(int i) const {
+    return static_cast<uint32_t>(i) + rid_base;
+  }
+  __device__ __forceinline__ uint32_t first_pos(int) const { return 0u; }
+};
+
+struct RunHeaders {  // run-header mode: the runs' own headers
+  const int32_t* rid0;
+  const uint32_t* pos0;
+  __device__ __forceinline__ uint32_t rid(int i) const {
+    return i >= 0 ? static_cast<uint32_t>(__ldg(rid0 + i)) : 0u;
+  }
+  __device__ __forceinline__ uint32_t first_pos(int i) const {
+    return i >= 0 ? __ldg(pos0 + i) : 0u;
+  }
 };
 
 __device__ __forceinline__ int64_t warp_inclusive_sum(int64_t x) {
@@ -252,14 +287,15 @@ __device__ __forceinline__ int first_end_after(const Ends& ends, int lo, int hi,
 }
 
 // One word's 16 positions from p0: the valid flags as a 16-bit mask (bit
-// j for position p0 + j), read ids and positions. The read holding p,
-// where p lies before the lengths' total, is the last read whose start is
-// at or before p: the number of reads but the last whose end is at or
-// before p. It is the last read for every p at or past the total, and for
-// no read at all (lo = hi = -1) rid = rid_base - 1, pos = p.
-template <class Ends>
+// j for position p0 + j), read ids and positions (meta.rid(i) and
+// meta.first_pos(i) + p - start_i). The read i holding p, where p lies
+// before the lengths' total, is the last read whose start is at or before
+// p: the number of reads but the last whose end is at or before p. It is
+// the last read for every p at or past the total, and for no read at all
+// (lo = hi = -1) i = -1 with start 0.
+template <class Ends, class Meta>
 __device__ __forceinline__ uint32_t decode_word(const Ends& ends, int lo, int hi, int p0,
-                                                int count, int k, uint32_t rid_base,
+                                                int count, int k, const Meta& meta,
                                                 uint32_t rids[16], uint32_t poss[16]) {
   int i = -1, start = 0, end = 0;
   if (hi >= 0) {
@@ -267,6 +303,7 @@ __device__ __forceinline__ uint32_t decode_word(const Ends& ends, int lo, int hi
     end = ends.end(i);
     start = ends.start(i);
   }
+  uint32_t rid = meta.rid(i), off = meta.first_pos(i);
   uint32_t flags = 0;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
@@ -282,11 +319,13 @@ __device__ __forceinline__ uint32_t decode_word(const Ends& ends, int lo, int hi
           start = ends.start(i);
           end = ends.end(i);
         }
+        rid = meta.rid(i);
+        off = meta.first_pos(i);
       }
       flags |= static_cast<uint32_t>(p + k <= end) << j;
     }
-    rids[j] = static_cast<uint32_t>(i) + rid_base;
-    poss[j] = static_cast<uint32_t>(p - start);
+    rids[j] = rid;
+    poss[j] = off + static_cast<uint32_t>(p - start);
   }
   return flags;
 }
@@ -365,9 +404,13 @@ __device__ __forceinline__ void warp_store(uint32_t* stage, const uint32_t vals[
   __syncwarp();
 }
 
+// Decode modes: codes and flags; with read ids; with run headers.
+enum Mode { kFlags = 0, kReadIds = 1, kRuns = 2 };
+
 // A decode tile: positions [b * kTile, (b + 1) * kTile) of segment `seg`.
-template <bool kExt>
+template <int kMode>
 __device__ void decode_tile(const Args& a, int64_t seg, int64_t b) {
+  constexpr bool kExt = kMode != kFlags;
   __shared__ int32_t staged[kStaged];
   __shared__ __align__(16) uint32_t stage[kExt ? kWarps * 512 : 4];
   __shared__ int range[2];
@@ -413,10 +456,16 @@ __device__ void decode_tile(const Args& a, int64_t seg, int64_t b) {
       const int p0 = static_cast<int>(p0_wide);
       const uint32_t word = __ldg(packed + w);
       uint32_t flags;
-      if (kExt) {
+      if (kMode == kRuns) {
+        const RunHeaders meta{a.rid0 + seg * a.rid0_stride, a.pos0 + seg * a.pos0_stride};
         flags = in_shared
-            ? decode_word(shared_ends, lo, hi, p0, count, a.k, a.rid_base, rids, poss)
-            : decode_word(global_ends, lo, hi, p0, count, a.k, a.rid_base, rids, poss);
+            ? decode_word(shared_ends, lo, hi, p0, count, a.k, meta, rids, poss)
+            : decode_word(global_ends, lo, hi, p0, count, a.k, meta, rids, poss);
+      } else if (kMode == kReadIds) {
+        const ReadIds meta{a.rid_base};
+        flags = in_shared
+            ? decode_word(shared_ends, lo, hi, p0, count, a.k, meta, rids, poss)
+            : decode_word(global_ends, lo, hi, p0, count, a.k, meta, rids, poss);
       } else {
         flags = in_shared ? decode_flags(shared_ends, lo, hi, p0, count, a.k)
                           : decode_flags(global_ends, lo, hi, p0, count, a.k);
@@ -464,13 +513,13 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
 // Launch 2: decode tile blockIdx.x of segment blockIdx.y. The scan's
 // descriptors are read no more: the decode's blocks zero them for the
 // next call.
-template <bool kExt>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads) decode_kernel(Args a) {
   const int64_t descs = a.segments * a.scan_tiles;
   const int64_t block = static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * gridDim.y * kThreads;
   for (int64_t i = block * kThreads + threadIdx.x; i < descs; i += stride) a.desc[i] = 0;
-  decode_tile<kExt>(a, blockIdx.y, blockIdx.x);
+  decode_tile<kMode>(a, blockIdx.y, blockIdx.x);
 }
 
 }  // namespace
@@ -488,22 +537,20 @@ extern "C" int64_t hk_wire_decode_scratch(int64_t segments, int64_t reads,
   return dims(segments, reads, block_len).total;
 }
 
-// packed: segment s's ceil(block_len / 16) words at packed + s * word_stride
-// (uint32 bit patterns); lengths: its `reads` int32 lengths at lengths + s *
-// len_stride. Writes codes (S * block_len,) int8 and valid (S * block_len,)
-// bool, and with rid and pos (both or neither) the int32 read ids and
-// uint32 positions. 1 <= S <= 65535, 1 <= block_len < 2^31 - 128,
-// 0 <= reads < 2^31 - 1, 1 <= k <= 128; state: at least
-// hk_wire_decode_state bytes, zero; scratch: hk_wire_decode_scratch bytes.
-// Returns the launch's CUDA error.
-extern "C" int hk_wire_decode(const void* packed, int64_t word_stride, const void* lengths,
-                              int64_t len_stride, int64_t segments, int64_t reads,
-                              int64_t block_len, int k, int rid_base, void* state,
-                              void* scratch, void* codes, void* valid, void* rid, void* pos,
-                              void* stream) {
+namespace {
+
+// The launches of every mode: codes and flags without rid and pos, read
+// ids with them, run headers with them and `runs` (rid0 and pos0 then
+// needed where there are reads).
+int decode(const void* packed, int64_t word_stride, const void* lengths,
+           int64_t len_stride, int64_t segments, int64_t reads, int64_t block_len, int k,
+           int rid_base, bool runs, const void* rid0, int64_t rid0_stride,
+           const void* pos0, int64_t pos0_stride, void* state, void* scratch, void* codes,
+           void* valid, void* rid, void* pos, void* stream) {
   if (segments < 1 || segments > 65535 || block_len < 1 || block_len >= kEndCap - 128 ||
       reads < 0 || reads >= kEndCap || k < 1 || k > 128 ||
-      (rid == nullptr) != (pos == nullptr)) {
+      (rid == nullptr) != (pos == nullptr) || (runs && rid == nullptr) ||
+      (runs && reads > 0 && (rid0 == nullptr || pos0 == nullptr))) {
     return cudaErrorInvalidValue;
   }
   const Dims d = dims(segments, reads, block_len);
@@ -531,6 +578,10 @@ extern "C" int hk_wire_decode(const void* packed, int64_t word_stride, const voi
   a.valid = static_cast<uint8_t*>(valid);
   a.rid = static_cast<uint32_t*>(rid);
   a.pos = static_cast<uint32_t*>(pos);
+  a.rid0 = static_cast<const int32_t*>(rid0);
+  a.pos0 = static_cast<const uint32_t*>(pos0);
+  a.rid0_stride = rid0_stride;
+  a.pos0_stride = pos0_stride;
   const auto s = static_cast<cudaStream_t>(stream);
   if (reads > 0) {
     scan_kernel<<<static_cast<unsigned>(segments * d.scan_tiles), kThreads, 0, s>>>(a);
@@ -538,10 +589,48 @@ extern "C" int hk_wire_decode(const void* packed, int64_t word_stride, const voi
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(static_cast<unsigned>(d.decode_tiles), static_cast<unsigned>(segments));
-  if (rid != nullptr) {
-    decode_kernel<true><<<grid, kThreads, 0, s>>>(a);
+  if (runs) {
+    decode_kernel<kRuns><<<grid, kThreads, 0, s>>>(a);
+  } else if (rid != nullptr) {
+    decode_kernel<kReadIds><<<grid, kThreads, 0, s>>>(a);
   } else {
-    decode_kernel<false><<<grid, kThreads, 0, s>>>(a);
+    decode_kernel<kFlags><<<grid, kThreads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// packed: segment s's ceil(block_len / 16) words at packed + s * word_stride
+// (uint32 bit patterns); lengths: its `reads` int32 lengths at lengths + s *
+// len_stride. Writes codes (S * block_len,) int8 and valid (S * block_len,)
+// bool, and with rid and pos (both or neither) the int32 read ids and
+// uint32 positions. 1 <= S <= 65535, 1 <= block_len < 2^31 - 128,
+// 0 <= reads < 2^31 - 1, 1 <= k <= 128; state: at least
+// hk_wire_decode_state bytes, zero; scratch: hk_wire_decode_scratch bytes.
+// Returns the launch's CUDA error.
+extern "C" int hk_wire_decode(const void* packed, int64_t word_stride, const void* lengths,
+                              int64_t len_stride, int64_t segments, int64_t reads,
+                              int64_t block_len, int k, int rid_base, void* state,
+                              void* scratch, void* codes, void* valid, void* rid, void* pos,
+                              void* stream) {
+  return decode(packed, word_stride, lengths, len_stride, segments, reads, block_len, k,
+                rid_base, false, nullptr, 0, nullptr, 0, state, scratch, codes, valid, rid,
+                pos, stream);
+}
+
+// Run-header mode: as hk_wire_decode with rid and pos, the reads being
+// runs whose `reads` int32 read ids lie at rid0 + s * rid0_stride and
+// uint32 first positions at pos0 + s * pos0_stride for segment s (both
+// may be null where reads is 0).
+extern "C" int hk_wire_decode_runs(const void* packed, int64_t word_stride,
+                                   const void* lengths, int64_t len_stride,
+                                   const void* rid0, int64_t rid0_stride, const void* pos0,
+                                   int64_t pos0_stride, int64_t segments, int64_t reads,
+                                   int64_t block_len, int k, void* state, void* scratch,
+                                   void* codes, void* valid, void* rid, void* pos,
+                                   void* stream) {
+  return decode(packed, word_stride, lengths, len_stride, segments, reads, block_len, k, 0,
+                true, rid0, rid0_stride, pos0, pos0_stride, state, scratch, codes, valid,
+                rid, pos, stream);
 }

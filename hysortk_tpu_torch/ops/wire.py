@@ -24,10 +24,12 @@ position's (read id, position in read):
 
 decode_block also takes S segments at once (the supermer route's received
 segments, one launch for all). Under supermer routing extension mode fills
-every position's (read id, position) from per-run headers instead
-(`fill_run_meta`, plain torch on every device). The host packs the wire
-(pipeline.stage_wire: io/supermer.pack_codes_2bit_into, the host
-library's 2-bit pack).
+every position's (read id, position) from per-run headers instead:
+`decode_block_runs`, the same kernel's run-header mode, S segments with
+their headers in one launch (its plain version decode_block_plain +
+`fill_run_meta`, the JAX version's diff scatter and cumsum in torch). The
+host packs the wire (pipeline.stage_wire: io/supermer.pack_codes_2bit_into,
+the host library's 2-bit pack).
 """
 
 from __future__ import annotations
@@ -131,13 +133,20 @@ def decode_block(
     return _decode_cuda(packed, lengths, k, n, None)
 
 
-def _decode_cuda(packed, lengths, k: int, n: int, rid_base: int | None):
+def _decode_cuda(packed, lengths, k: int, n: int, rid_base: int | None, runs=None):
+    """The kernel's launch: codes and flags; with rid_base the read ids and
+    positions; with runs = (rid0, pos0) (int32, shaped as lengths) the
+    run-header mode."""
     dev = packed.device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return _decode_cuda(packed, lengths, k, n, rid_base)
+            return _decode_cuda(packed, lengths, k, n, rid_base, runs)
     if packed.dim() == 1:
         packed, lengths = packed[None], lengths[None]
+        if runs is not None:
+            runs = tuple(r[None] for r in runs)
+    if runs is not None:
+        runs = tuple(r if r.stride(1) == 1 else r.contiguous() for r in runs)
     if packed.stride(1) != 1:
         packed = packed.contiguous()
     lengths = lengths.to(torch.int32)
@@ -151,9 +160,9 @@ def _decode_cuda(packed, lengths, k: int, n: int, rid_base: int | None):
     total = segments * n
     out = [torch.empty(total, dtype=torch.int8, device=dev),
            torch.empty(total, dtype=torch.bool, device=dev)]
-    if rid_base is not None:
-        if not -2**31 <= rid_base < 2**31:
-            raise ValueError(f"rid_base must fit int32, got {rid_base}")
+    if rid_base is not None and not -2**31 <= rid_base < 2**31:
+        raise ValueError(f"rid_base must fit int32, got {rid_base}")
+    if rid_base is not None or runs is not None:
         out += [torch.empty(total, dtype=torch.int32, device=dev) for _ in range(2)]
     if total == 0:
         return tuple(out)
@@ -162,10 +171,18 @@ def _decode_cuda(packed, lengths, k: int, n: int, rid_base: int | None):
     with _STATE_LOCK:
         stream = torch.cuda.current_stream().cuda_stream
         state, work = _buffers(dev, stream, *_decode_bytes(lib, segments, reads, n))
-        status = lib.hk_wire_decode(
-            packed.data_ptr(), packed.stride(0), lengths.data_ptr(), lengths.stride(0),
-            segments, reads, n, k, rid_base or 0, state.data_ptr(), work.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), *ext, stream)
+        if runs is None:
+            status = lib.hk_wire_decode(
+                packed.data_ptr(), packed.stride(0), lengths.data_ptr(), lengths.stride(0),
+                segments, reads, n, k, rid_base or 0, state.data_ptr(), work.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), *ext, stream)
+        else:
+            rid0, pos0 = runs
+            status = lib.hk_wire_decode_runs(
+                packed.data_ptr(), packed.stride(0), lengths.data_ptr(), lengths.stride(0),
+                rid0.data_ptr(), rid0.stride(0), pos0.data_ptr(), pos0.stride(0),
+                segments, reads, n, k, state.data_ptr(), work.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), *ext, stream)
         if status:
             # A launch that did not run may leave the state dirty.
             _STATE.pop((dev, stream), None)
@@ -296,3 +313,46 @@ def fill_run_meta(
     idx = torch.arange(n, dtype=torch.int64, device=dev)
     pos = fill((pos0.to(torch.int64) & 0xFFFFFFFF) - starts) + idx
     return _wrap32(rid), _wrap32(pos)
+
+
+def decode_block_runs_plain(
+    packed: torch.Tensor, lengths: torch.Tensor, rid0: torch.Tensor, pos0: torch.Tensor,
+    k: int, n: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the decode kernel's run-header mode, on
+    any device: decode_block_plain, then fill_run_meta segment by segment."""
+    codes, valid = decode_block_plain(packed, lengths, k, n)
+    if packed.dim() == 1:
+        return (codes, valid, *fill_run_meta(lengths, rid0, pos0, n))
+    meta = [fill_run_meta(lengths[s], rid0[s], pos0[s], n) for s in range(packed.shape[0])]
+    return (codes, valid, torch.cat([m[0] for m in meta]),
+            torch.cat([m[1] for m in meta]))
+
+
+def decode_block_runs(
+    packed: torch.Tensor, lengths: torch.Tensor, rid0: torch.Tensor, pos0: torch.Tensor,
+    k: int, n: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Wire block of runs with headers -> (codes int8, valid bool, rid
+    int32, pos int32 holding uint32 bits), each (S * n,): decode_block,
+    and every position's read id and position in its read from the
+    headers of the run that holds it (fill_run_meta's function: run i,
+    the last whose start is at or before the position, gives rid0[i] and
+    pos0[i] + the offset into the run).
+
+    One segment: packed (>= ceil(n/16),), lengths, rid0, pos0 (R,); S
+    segments: (S, ...) rows, a row a segment (strided rows, as views of the
+    received exchange, are read in place). rid0 and pos0 are int32 (pos0
+    holding uint32 bits), shaped as lengths. On a CUDA tensor the decode
+    kernel's run-header mode, all S segments in one launch."""
+    _check_wire(packed, lengths, k, n, True)
+    for name, t in (("rid0", rid0), ("pos0", pos0)):
+        if t.dtype != torch.int32 or t.shape != lengths.shape or t.device != lengths.device:
+            raise ValueError(f"{name} must be int32 of the lengths' shape "
+                             f"{tuple(lengths.shape)} on {lengths.device}, got "
+                             f"{t.dtype}{tuple(t.shape)} on {t.device}")
+    if packed.device.type == "cpu":
+        return decode_block_runs_plain(packed, lengths, rid0, pos0, k, n)
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    return _decode_cuda(packed, lengths, k, n, None, (rid0, pos0))

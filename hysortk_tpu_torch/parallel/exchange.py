@@ -2,7 +2,8 @@
 
 The port of hysortk_tpu/parallel/exchange.py: `pack_sorted_ranges` (range
 routing), `pack_by_destination` (the bucketed routings: minimizer and
-kmer_hash), `mask_invalid_slots`, `all_to_all_exchange`. The JAX package moves fixed (S, capacity) blocks with one
+kmer_hash; on the card the kernel csrc/dest_pack.cu), `mask_invalid_slots`,
+`all_to_all_exchange`. The JAX package moves fixed (S, capacity) blocks with one
 `lax.all_to_all` per array over the mesh axis; here every key and payload
 row of a step rides ONE `dist.all_to_all_single` of an (S, rows, capacity)
 tensor, and the per-destination counts a second, small one. Slot capacity
@@ -29,10 +30,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import _build
 from ..ops import radix_sort
 from . import group as group_mod
 
 traffic = {"calls": 0, "bytes_sent": 0, "seconds": 0.0}
+MAX_KERNEL_DEST = 255  # the pack kernel's S + 1 digits fit one byte
 
 
 def reset_traffic() -> None:
@@ -75,6 +78,75 @@ def pack_sorted_ranges(
     return send, counts, overflow
 
 
+def _pack_inputs(valid, dest, words, payloads, num_shards: int, capacity: int,
+                 assign) -> list[torch.Tensor]:
+    """Check pack_by_destination's arguments; the rows, key rows first."""
+    rows = list(words) + list(payloads)
+    n = dest.shape[0] if dest.dim() == 1 else -1
+    if valid.dtype != torch.bool or valid.dim() != 1 or valid.shape[0] != n:
+        raise ValueError(f"need (n,) bool validity and (n,) destinations, got "
+                         f"{valid.dtype}{tuple(valid.shape)} and {tuple(dest.shape)}")
+    if dest.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"need int32 or int64 destinations, got {dest.dtype}")
+    if not 1 <= len(rows) <= radix_sort.MAX_ROWS:
+        raise ValueError(f"need 1 to {radix_sort.MAX_ROWS} rows, got {len(rows)}")
+    for r in rows:
+        if r.dtype != torch.int32 or r.dim() != 1 or r.shape[0] != n:
+            raise ValueError(f"every row must be an (n,) int32 tensor, n = {n}")
+    if assign is not None and (assign.dtype != torch.int32 or assign.dim() != 1
+                               or dest.dtype != torch.int32 or assign.numel() == 0):
+        raise ValueError("a bucket -> rank table takes a non-empty (buckets,) int32 table "
+                         "and int32 buckets")
+    if any(t.device != dest.device for t in [valid, *rows]
+           + ([assign] if assign is not None else [])):
+        raise ValueError("every tensor of the pack must lie on one device")
+    if num_shards < 1 or capacity < 0:
+        raise ValueError(f"need num_shards >= 1 and capacity >= 0, got {num_shards}, "
+                         f"{capacity}")
+    return rows
+
+
+def _dest_key(valid, dest, num_shards: int, assign) -> torch.Tensor:
+    """Each slot's int64 destination rank (through `assign` where given),
+    num_shards where the slot is not valid or its rank lies outside [0,
+    num_shards): the digit the pack kernel groups by."""
+    if assign is not None:
+        dest = assign[torch.where(valid, dest, 0).to(torch.int64)]
+    dest = dest.to(torch.int64)
+    return torch.where(valid & (dest >= 0) & (dest < num_shards), dest, num_shards)
+
+
+def pack_by_destination_plain(
+    valid: torch.Tensor,
+    dest: torch.Tensor,
+    words: Sequence[torch.Tensor],
+    payloads: Sequence[torch.Tensor],
+    num_shards: int,
+    capacity: int,
+    assign: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, np.ndarray, bool]:
+    """The plain PyTorch version of the pack kernel, on any device: one
+    stable torch.sort of the destination (num_shards where a slot is not
+    sent), a bincount, and each slot's place in its destination from the
+    sorted order; launches none of the port's kernels."""
+    rows = _pack_inputs(valid, dest, words, payloads, num_shards, capacity, assign)
+    dev = dest.device
+    n = dest.shape[0]
+    send = torch.full((num_shards, len(rows), capacity), -1, dtype=torch.int32,
+                      device=dev)
+    key = _dest_key(valid, dest, num_shards, assign)
+    key_s, order = torch.sort(key, stable=True)
+    counts_all = torch.bincount(key, minlength=num_shards + 1)
+    starts = torch.cumsum(counts_all, 0) - counts_all
+    place = torch.arange(n, device=dev) - starts[key_s]
+    sent = (key_s < num_shards) & (place < capacity)
+    d, c, src = key_s[sent], place[sent], order[sent]
+    for r, row in enumerate(rows):
+        send[d, r, c] = row[src]
+    counts = counts_all[:num_shards].cpu().numpy()
+    return send, counts, bool((counts > capacity).any())
+
+
 def pack_by_destination(
     valid: torch.Tensor,
     dest: torch.Tensor,
@@ -82,31 +154,90 @@ def pack_by_destination(
     payloads: Sequence[torch.Tensor],
     num_shards: int,
     capacity: int,
+    assign: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, np.ndarray, bool]:
     """Group the valid slots by destination into an (S, rows, capacity)
-    send block: row s holds the first `capacity` slots bound for rank s,
-    every key row and then every payload row; slots past the count hold the
-    all-ones sentinel.
+    send block: row s holds the first `capacity` slots bound for rank s, in
+    input order, every key row and then every payload row; slots past the
+    count hold the all-ones sentinel.
 
-    The JAX version sorts [dest, *words, *payloads] together, which is up
-    to 9 rows for extension mode at K > 80; here only the destination is
-    sorted, with the slot index as its payload (ops/radix_sort: 2 rows at
-    any key width), and the rows are gathered by index. A destination's
-    slots therefore keep their input order instead of key order; the
-    receive side sorts again, so the counted keys are the same.
+    The JAX version sorts [dest, *words, *payloads] together and orders a
+    destination's slots by key; here they keep their input order (stable),
+    and the receive side sorts again, so the counted keys are the same.
 
-    valid: (N,) bool; dest: (N,) int in [0, S) at valid slots. Returns
-    (send (S, rows, capacity) int32, counts (S,) int64 on the host,
-    overflow: some destination has more than `capacity` slots).
+    valid: (N,) bool; dest: (N,) int32 or int64, the rank in [0, S) at
+    valid slots, or with `assign` (a (buckets,) int32 bucket -> rank table)
+    the int32 bucket; anything at invalid slots. Returns (send (S, rows,
+    capacity) int32, counts (S,) int64 on the host, uncapped, overflow: some
+    destination has more than `capacity` slots).
+
+    On a CPU tensor the plain version; on a CUDA tensor the hand-written
+    kernel csrc/dest_pack.cu (one stable pass whose digit is the
+    destination, and a pad launch; one host read of the counts) for up to
+    255 destinations. Past 255 (S + 1 digits no longer fit one byte) the
+    destination is sorted by the radix-sort kernel with the slot index as
+    payload and the rows are gathered: a rule on S alone.
     """
+    rows = _pack_inputs(valid, dest, words, payloads, num_shards, capacity, assign)
+    if dest.device.type == "cpu":
+        return pack_by_destination_plain(valid, dest, words, payloads, num_shards,
+                                         capacity, assign)
+    if dest.device.type != "cuda":
+        raise ValueError(f"unsupported device {dest.device}")
+    if num_shards > MAX_KERNEL_DEST:
+        return _pack_sorted(valid, dest, rows, num_shards, capacity, assign)
+    return _pack_cuda(valid, dest, rows, num_shards, capacity, assign)
+
+
+def _pack_cuda(valid, dest, rows, num_shards: int, capacity: int, assign):
+    send, counts = launch_pack(valid, dest, rows, num_shards, capacity, assign)
+    host = counts.cpu().numpy().astype(np.int64)
+    return send, host[:num_shards], bool(host[num_shards])
+
+
+def launch_pack(valid, dest, rows, num_shards: int, capacity: int, assign):
+    """The pack kernel's two launches on CUDA tensors, with no host read:
+    (send (S, rows, capacity) int32, counts (S + 1,) int32 on the card, the
+    uncapped counts and then the overflow flag). Up to MAX_KERNEL_DEST
+    destinations; the arguments as pack_by_destination checks them."""
+    dev = dest.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return launch_pack(valid, dest, rows, num_shards, capacity, assign)
+    n = dest.shape[0]
+    if n >= 2**31 or capacity >= 2**31:
+        raise ValueError(f"the pack takes n and capacity below 2^31, got {n}, {capacity}")
+    valid, dest = valid.contiguous(), dest.contiguous()
+    rows = [r.contiguous() for r in rows]
+    if assign is not None:
+        assign = assign.contiguous()
+    lib = _build.lib()
+    send = torch.empty((num_shards, len(rows), capacity), dtype=torch.int32, device=dev)
+    counts = torch.empty(num_shards + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.hk_dest_pack_scratch(n, num_shards), dtype=torch.int32,
+                          device=dev)
+    status = lib.hk_dest_pack(
+        valid.data_ptr(), dest.data_ptr(), dest.element_size() // 4,
+        None if assign is None else assign.data_ptr(),
+        0 if assign is None else assign.numel(), _build.pointer_array(rows), len(rows),
+        n, num_shards, capacity, send.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(status, "dest pack launch")
+    _build.launches["dest_pack"] += 1
+    return send, counts
+
+
+def _pack_sorted(valid, dest, rows, num_shards: int, capacity: int, assign):
+    """More than MAX_KERNEL_DEST destinations on the card: the radix-sort
+    kernel on the destination with the slot index as payload, a bincount
+    and a gather per row."""
     dev = dest.device
     n = dest.shape[0]
-    rows = list(words) + list(payloads)
     send = torch.empty((num_shards, len(rows), capacity), dtype=torch.int32,
                        device=dev)
     if n == 0:
         return send.fill_(-1), np.zeros(num_shards, dtype=np.int64), False
-    dest_key = torch.where(valid, dest.to(torch.int32), num_shards)
+    dest_key = _dest_key(valid, dest, num_shards, assign).to(torch.int32)
     (dest_s,), (order,) = radix_sort.sort_words(
         [dest_key], [torch.arange(n, dtype=torch.int32, device=dev)])
     counts_d = torch.bincount(dest_s.to(torch.int64), minlength=num_shards + 1)

@@ -315,14 +315,16 @@ def _global_stats(counts: np.ndarray, overflow: bool, dev, group):
 
 
 def _bucketed_exchange(valid, dest, words, payloads, num_shards: int,
-                       capacity: int, group):
+                       capacity: int, group, assign=None):
     """The bucketed routes' exchange: pack the valid slots by destination
-    (exchange.pack_by_destination), then the global stats, so that on an
-    overflow every rank returns before the exchange, (None, totals, True);
-    else the received rows flattened, key rows with the sentinel past each
-    source's count, then payload rows: (rows, totals, False)."""
+    (exchange.pack_by_destination; `dest` the ranks, or with `assign` the
+    buckets that the table maps to ranks inside the pack), then the global
+    stats, so that on an overflow every rank returns before the exchange,
+    (None, totals, True); else the received rows flattened, key rows with
+    the sentinel past each source's count, then payload rows: (rows,
+    totals, False)."""
     send, counts, overflow = exchange.pack_by_destination(
-        valid, dest, words, payloads, num_shards, capacity)
+        valid, dest, words, payloads, num_shards, capacity, assign)
     totals, overflow = _global_stats(counts, overflow, send.device, group)
     if overflow:
         return None, totals, True
@@ -362,13 +364,13 @@ def _shard_body_bucketed(codes, valid, *, assign, cfg: KmerConfig,
         local_cnt, sent = fused_count.run_length_count_filter(words, 1, 2**31 - 1)
         bucket = pay_s[0] if bucket is not None else None
         payloads = [local_cnt]
-    if bucket is not None:
-        dest = assign[bucket.to(torch.int64)]
+    if bucket is not None:  # the pack maps buckets to ranks by the table
+        dest, table = bucket, assign
     else:
-        dest = _hash_destinations(words, num_shards)
+        dest, table = _hash_destinations(words, num_shards), None
     del bucket
     rows, totals, overflow = _bucketed_exchange(sent, dest, words, payloads,
-                                                num_shards, capacity, group)
+                                                num_shards, capacity, group, table)
     del words, dest, sent, payloads
     if overflow:
         return None, None, None, totals, True

@@ -410,18 +410,18 @@ def _decode_received(recv: torch.Tensor, cfg: KmerConfig, block_len: int, lmax: 
     """The S received segments -> (codes, valid, [rid, pos]) over
     S * block_len slots: the codes and each segment's validity from its
     supermer lengths by one decode of all S segments, read in place from
-    the received tensor (ops/wire.decode_block), and in extension mode each
-    segment's (rid, pos) from its run headers (ops/wire.fill_run_meta)."""
-    num_shards = recv.shape[0]
+    the received tensor (ops/wire.decode_block), in extension mode with
+    every position's (rid, pos) from its run's headers in the same launch
+    (ops/wire.decode_block_runs)."""
     nw = block_len // 16
     lens = recv[:, 0, nw: nw + lmax]
-    codes, valid = wire.decode_block(recv[:, 0, :nw], lens, cfg.k, block_len)
     if recv.shape[2] == nw + lmax:
+        codes, valid = wire.decode_block(recv[:, 0, :nw], lens, cfg.k, block_len)
         return codes, valid, []
-    meta = [wire.fill_run_meta(lens[i], recv[i, 0, nw + lmax: nw + 2 * lmax],
-                               recv[i, 0, nw + 2 * lmax:], block_len)
-            for i in range(num_shards)]
-    return codes, valid, [torch.cat([m[0] for m in meta]), torch.cat([m[1] for m in meta])]
+    codes, valid, rid, pos = wire.decode_block_runs(
+        recv[:, 0, :nw], lens, recv[:, 0, nw + lmax: nw + 2 * lmax],
+        recv[:, 0, nw + 2 * lmax:], cfg.k, block_len)
+    return codes, valid, [rid, pos]
 
 
 def _count_received(recv, cfg: KmerConfig, block_len: int, lmax: int):

@@ -1064,6 +1064,119 @@ def _reads_to_ends(rng, ends, lo: int, hi: int) -> np.ndarray:
     return np.asarray(out, dtype=np.int32)
 
 
+def decode_runs_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray,
+                                       np.ndarray, int, int]]:
+    """(name, packed (S, words) uint32, lengths (S, R) int32, rid0 (S, R)
+    int32, pos0 (S, R) uint32, k, n) of every case of the decode's
+    run-header mode (ops/wire.decode_block_runs): every fill_meta_cases case
+    as one segment (stacked zero-length runs, pad runs at and past the
+    total, int32 differences that wrap) with random words at K = 31, and
+    every wire_decode_cases case (a total past the segment, no runs at all,
+    three segments, stacked runs, a tile of more runs than it stages, odd
+    strides; extension mode's cases by their lengths alone) with random
+    headers: read ids of either sign, pos0 with the top bit set in about
+    half."""
+    rng = np.random.default_rng(23)
+    cases = []
+    for name, lengths, rid0, pos0, n in fill_meta_cases():
+        cases.append((f"fill_{name}", _wire_words(rng, 1, n, 1), lengths[None],
+                      rid0[None], pos0[None], 31, n))
+    for name, packed, lengths, k, n, _ in wire_decode_cases():
+        rid0 = rng.integers(-(2**31), 2**31, lengths.shape, dtype=np.int64).astype(np.int32)
+        pos0 = rng.integers(0, 2**32, lengths.shape, dtype=np.uint64).astype(np.uint32)
+        cases.append((f"wire_{name}", packed, lengths, rid0, pos0, k, n))
+    return cases
+
+
+# --------------------------------------------------------------------------
+# The pack by destination's hard cases (parallel/exchange.pack_by_destination,
+# csrc/dest_pack.cu), by the kernel's tile. The CPU tests hold the plain
+# version against the JAX package and a stable counting scatter on them;
+# chip_smoke.py phase 1 and the `cuda` tests hold the kernel against the
+# plain version.
+
+# chip_smoke.py phase 1 holds both against the kernel's hk_dest_pack_geometry.
+DEST_PACK_TILE = 4096  # slots a tile of csrc/dest_pack.cu: 256 threads x 16
+DEST_PACK_STAGED = 4096  # bucket -> rank entries it stages in shared memory
+
+
+def dest_pack_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int, int,
+                                     int, np.ndarray | None]]:
+    """(name, valid (n,) bool, dest (n,) int32 or int64, rows (R, n) uint32,
+    n_words, num_shards, capacity, assign) of every pack case: rows[:n_words]
+    are the key rows, the rest payload rows; with `assign` (an int32 bucket
+    -> rank table) dest holds int32 buckets. Invalid slots hold garbage
+    destinations (num_shards and past it, negative, 2^31 - 1; buckets past
+    the table).
+
+    empty        n = 0
+    ragged       n not a multiple of the tile, four destinations
+    all_invalid  no slot is sent
+    one_dest     every valid slot to one of four destinations
+    s1 .. s300   1, 3, 4, 255 and 300 destinations (300: past the kernel's
+                 255, the radix-sort composition on the card)
+    cap1         capacity 1, one slot short of a tile
+    overflow     capacity below the counts: the first slots in input order
+    top_bit      all-ones and top-bit words
+    rows1, rows8 one row; six key words and two payloads
+    table*       a bucket row and a table of S * 3 entries at 4 and 255
+                 destinations, and one of 4800 entries (more than the
+                 kernel stages)
+    dest64       int64 destinations (kmer_hash's), garbage past 2^32
+    """
+    rng = np.random.default_rng(29)
+    t = DEST_PACK_TILE
+    cases = []
+
+    def add(name, n, num_shards, n_words, n_payloads, capacity=None, valid_p=0.8,
+            table=None, wide=False, rows=None, dest=None):
+        valid = rng.random(n) < valid_p
+        if dest is None:
+            dest = rng.integers(0, num_shards, n)
+        assign = None
+        if table is not None:
+            assign = rng.integers(0, num_shards, table).astype(np.int32)
+            dest = rng.integers(0, table, n)
+            junk = np.array([table, table + 99, -1, -(2**31), 2**31 - 1])
+        elif wide:
+            junk = np.array([num_shards, -1, 2**40, -(2**40), 2**33 + 1])
+        else:
+            junk = np.array([num_shards, num_shards + 7, -1, -(2**31), 2**31 - 1])
+        dest = np.where(valid, dest, rng.choice(junk, n))
+        dest = dest.astype(np.int64 if wide else np.int32)
+        if rows is None:
+            rows = rng.integers(0, 2**32, (n_words + n_payloads, n),
+                                dtype=np.uint64).astype(np.uint32)
+        if capacity is None:
+            capacity = max(n, 1)
+        cases.append((name, valid, dest, rows, n_words, num_shards, capacity, assign))
+
+    add("empty", 0, 3, 1, 0, capacity=8)
+    add("ragged", 3 * t + 77, 4, 2, 1)
+    add("all_invalid", t + 5, 3, 2, 0, capacity=100, valid_p=0.0)
+    add("one_dest", 2 * t + 9, 4, 2, 0, valid_p=0.9,
+        dest=np.full(2 * t + 9, 2))
+    add("s1", 2 * t + 1, 1, 2, 0)
+    add("s3", 2 * t + 333, 3, 3, 1)
+    add("s4", t, 4, 2, 2)
+    add("s255", 3 * t + 11, 255, 2, 0, capacity=2 * (3 * t + 11) // 255)
+    add("s300", 2 * t + 5, 300, 1, 1, capacity=2 * (2 * t + 5) // 300)
+    add("cap1", t - 1, 4, 2, 0, capacity=1)
+    add("overflow", 2 * t + 100, 3, 2, 1, capacity=(2 * t + 100) // 6)
+    n = t + 300
+    top = np.where(rng.random((3, n)) < 0.5, np.uint32(0xFFFFFFFF),
+                   np.uint32(0x80000000) | rng.integers(0, 2**31, (3, n)).astype(np.uint32))
+    add("top_bit", n, 4, 2, 1, rows=top.astype(np.uint32))
+    add("rows1", t + 1, 4, 1, 0)
+    add("rows8", 2 * t + 3, 4, 6, 2, capacity=(2 * t + 3) // 5)
+    add("table", 2 * t + 17, 4, 2, 0, table=4 * 3)
+    add("table255", 2 * t + 17, 255, 2, 1, table=255 * 3,
+        capacity=3 * (2 * t + 17) // 255)
+    add("table_big", 2 * t + 17, 16, 2, 0, table=4800)
+    add("dest64", 2 * t + 41, 3, 2, 2, wide=True)
+    return cases
+
+
 PACK_TILE = 32768  # bases a word block of csrc/supermer_pack.cu: 256 threads x 8 words
 PACK_STAGED = 1024  # runs a word block stages in shared memory
 

@@ -97,6 +97,10 @@ SCENARIOS = [
      dict(batch_bases=1500, read_id_offset=3)),
     ("ext_stream_k15", 2, "random", dict(K15, extension=True), SEXT_STREAM,
      dict(batch_bases=600)),
+    # Six key words and two payload rows: 8 rows a batch through the pack.
+    ("ext_stream_kmer_hash_k95", 2, "very_long", dict(K95, extension=True,
+                                                       routing="kmer_hash"), SEXT_STREAM,
+     dict(batch_bases=1500)),
     ("ext_stream_supermer", 2, "random", dict(EXT, routing="supermer"), SEXT_STREAM,
      dict(batch_bases=600, read_id_offset=2)),
     # A device budget of one byte: every partial drains to the host merge.
@@ -263,6 +267,10 @@ def test_sharded_route_matches_jax(port_results, scenario):
         drained = bool(opts.get("headroom"))
         assert calls["merge_ext_partials_device"] == (not drained)
         assert calls["merge_ext_partials"] == drained
+    if name == "ext_stream_kmer_hash_k95":  # several batches, a pass each
+        n_batches = len(jsharded.batch_spans(jfasta.reads_to_codes(
+            _reads(reads_kind))[1], opts["batch_bases"]))
+        assert n_batches >= 2 and bodies["_shard_body_ext_bucketed"] >= 2
     if name.endswith("overflow"):  # the capacity doubled and the pass re-ran
         assert sum(bodies.values()) > 1 + (kind == STREAM)
     if name in ("minimizer", "minimizer_combiner", "minimizer_skewed", "ext",

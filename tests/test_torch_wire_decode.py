@@ -148,3 +148,69 @@ def test_decode_kernel_reads_strided_segments(name):
     recv = recv.cuda()
     got = wire.decode_block(recv[:, 0, :nw], recv[:, 0, nw:], k, n)
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+RUNS_CASES = testing.decode_runs_cases()
+RUNS_IDS = [case[0] for case in RUNS_CASES]
+
+
+def _runs_tensors(case, device="cpu"):
+    _, packed, lengths, rid0, pos0, k, n = case
+    return (torch.from_numpy(packed.view(np.int32)).to(device),
+            torch.from_numpy(lengths).to(device), torch.from_numpy(rid0).to(device),
+            torch.from_numpy(pos0.view(np.int32)).to(device), k, n)
+
+
+@pytest.mark.parametrize("case", RUNS_CASES, ids=RUNS_IDS)
+def test_plain_decode_runs_matches_jax(case):
+    """The run-header mode's plain version against the JAX package's
+    decode_block + fill_run_meta, segment by segment, at every position."""
+    _, packed, lengths, rid0, pos0, k, n = case
+    got = wire.decode_block_runs(*_runs_tensors(case))
+    assert [g.dtype for g in got] == [torch.int8, torch.bool, torch.int32, torch.int32]
+    for s in range(packed.shape[0]):
+        codes, valid = jwire.decode_block(jnp.asarray(packed[s]), jnp.asarray(lengths[s]), k, n)
+        rid, pos = jwire.fill_run_meta(jnp.asarray(lengths[s]), jnp.asarray(rid0[s]),
+                                       jnp.asarray(pos0[s]), n)
+        part = slice(s * n, (s + 1) * n)
+        for g, w in zip(got, (codes, valid, rid, pos)):
+            w = np.asarray(w)
+            assert np.array_equal(g[part].numpy(), w.view(np.int32) if w.dtype == np.uint32
+                                  else w)
+
+
+def test_decode_runs_cases_reach_their_edges():
+    by_name = {c[0]: c for c in RUNS_CASES}
+    assert {"fill_zero_pad", "fill_wrap", "wire_cut", "wire_no_reads", "wire_stacked",
+            "wire_segments3", "wire_over_stage"} <= set(by_name)
+    assert by_name["wire_no_reads"][2].shape[1] == 0
+    _, _, lengths, _, _, _, n = by_name["wire_cut"]
+    assert lengths.sum() > n
+    _, _, lengths, _, _, _, n = by_name["fill_zero_pad"]
+    assert (lengths[0, -9:] == 0).all() and lengths.sum() < n
+    assert (by_name["fill_wrap"][4] >= 2**31).any()
+    assert all((c[4] >= 2**31).any() for c in RUNS_CASES
+               if c[0].startswith("wire_") and c[4].size >= 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RUNS_CASES, ids=RUNS_IDS)
+def test_decode_runs_kernel_matches_plain(case):
+    """One launch a case, on contiguous rows and on the received exchange's
+    form: words, lengths, rid0 and pos0 as views into one (S, 1, width)
+    tensor."""
+    _cuda_or_skip()
+    want = wire.decode_block_runs(*_runs_tensors(case))
+    before = _build.launches["wire_decode"]
+    got = wire.decode_block_runs(*_runs_tensors(case, "cuda"))
+    torch.cuda.synchronize()
+    assert _build.launches["wire_decode"] == before + 1
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    _, packed, lengths, rid0, pos0, k, n = case
+    nw, r = packed.shape[1], lengths.shape[1]
+    recv = torch.from_numpy(np.concatenate(
+        [packed.view(np.int32), lengths, rid0, pos0.view(np.int32)],
+        axis=1)[:, None, :].copy()).cuda()
+    got = wire.decode_block_runs(recv[:, 0, :nw], recv[:, 0, nw: nw + r],
+                                 recv[:, 0, nw + r: nw + 2 * r], recv[:, 0, nw + 2 * r:], k, n)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
