@@ -47,17 +47,29 @@ build/kernels/ at first use. Phases, each printing its findings:
      composition), capacity 1 and below the counts, garbage destinations at
      invalid slots, top-bit words, 1 to 8 rows, bucket tables of S * 3 and
      4,800 entries, int64 destinations; send block, counts and overflow
-     equal to the plain version, timed), then the inputs the main paths
-     give each kernel at the size of phases 2 and 4 (the wire decode on
-     phase 2's wire, also in extension mode), with each kernel's bound (the
-     least time the card could take) and, where one PyTorch call computes
-     the same function, that call's time
+     equal to the plain version, timed) and the result stage's (kept rows:
+     one to six key words, U = 255, 256, 65535, 65536 and the unfiltered
+     clamp, no row and every row kept, top-bit and sentinel keys, mixed
+     keys unmixed, n = 0, 1 and a tile - 1, + 1, an empty tile between kept
+     ones, in each mode: histogram with slots and offsets, the sentinel tail
+     to a pad, the output that does not sync, and the histogram-only
+     launch; gathered runs: a run longer than many tiles, zero-length runs,
+     more runs in a tile than it stages, aligned runs; the kernels' tiles
+     against testing's), then the inputs the main paths give each kernel
+     at the size of phases 2 and 4 (the wire decode on phase 2's wire, also
+     in extension mode; kept_rows at phase 2's, 9(a)'s and 8(a)'s shapes
+     and gather_runs at 8(a)'s, beside torch.nonzero + index_select +
+     bincount), with each kernel's bound (the least time the card could
+     take) and, where one PyTorch call computes the same function, that
+     call's time
   2  the slice at a size users run: a seeded 2^22-base genome sampled into
      150-base reads at ~16x coverage (2^26 bases), written as FASTA, then
      read_dna_buffer -> kmer_count(K=31, L=2, U=50, device="cuda") ->
      print_kmer_histogram -> write_output_file; every kernel's launch
-     count must rise, each call's histogram must come from the device
-     (pipeline.device_histogram), and the result must equal the plain
+     count must rise, each call's rows and histogram must come from one
+     kept_rows launch, one call more must run with torch.nonzero,
+     torch.bincount, torch.repeat_interleave and mixkey.unmix_keys stubbed
+     to raise (so in 8(a) and 9(a)), and the result must equal the plain
      functions composed on the same CUDA tensors, and the host stages must
      have called the port's own host library (from build/host/); read_dna_buffer
      stage by stage (.fai build and write, .fai parse, partition,
@@ -65,8 +77,8 @@ build/kernels/ at first use. Phases, each printing its findings:
      then the same count stage by stage with a synchronize after each, for
      the stage times (pack into pinned staging, which must be pinned; H2D;
      decode, which must launch the wire_decode kernel; keybuild; sort; count; compaction + D2H, with the copy-out's
-     part; the device histogram,
-     equal to host_histogram), each device stage also by CUDA events, and
+     part; the device histogram, binned in the compaction's kept_rows launch
+     (its span is the read), equal to host_histogram), each device stage also by CUDA events, and
      the device-busy share of the one-shot call (those events' sum over the
      best wall); then each of the host library's seven functions
      (.fai scan, FASTA strip, 2-bit pack, key decode, output lines, supermer
@@ -526,6 +538,7 @@ def phase1_synthetic(gen):
     phase1_mix_cases(errs)
     phase1_wire_scan_cases(errs)
     phase1_dest_pack_cases(errs)
+    phase1_kept_rows_cases(errs)
 
     # mix: full-range words (half with the top bit set), a sentinel tail of
     # 1/8 that must stay sentinel, at 2^26 x W=2.
@@ -933,6 +946,218 @@ def phase1_dest_pack_cases(errs) -> None:
         f"({testing.DEST_PACK_STAGED} table entries staged): {len(cases)} equal to the "
         f"plain version (send block, counts, overflow); kernel/plain/bound ms (S = 300: "
         f"the radix-sort composition): {'; '.join(timed)}")
+
+
+def same_kept(name: str, got, want) -> int:
+    """The largest difference between two ops/compact.Kept (keys, counts,
+    histogram, slots, offsets, the counts of rows and occurrences); raises
+    where they differ."""
+    got_t, want_t = [], []
+    for field in ("keys", "counts", "hist", "slots", "offsets"):
+        g, w = getattr(got, field), getattr(want, field)
+        if (g is None) != (w is None):
+            raise AssertionError(f"{name}: {field} given by one version only")
+        if w is not None:
+            got_t += [t.cpu() for t in (g if isinstance(g, list) else [g])]
+            want_t += [t.cpu() for t in (w if isinstance(w, list) else [w])]
+    e = max_abs_err(got_t, want_t)
+    if int(got.m) != int(want.m) or got.occ != want.occ:
+        e = max(e, 1)
+    require_equal(name, e)
+    return e
+
+
+def kept_bound(keep, rows, out_row_bytes: int, ops_per_row: int = 0):
+    """kept_rows' bound on this run's data: keep read once, of the key words
+    and the count only the 32-byte sectors that hold a kept slot
+    (testing.kept_read_bytes), each output row written once; about two
+    operations a slot and ops_per_row a kept row."""
+    from hysortk_tpu_torch import testing
+
+    m = int(keep.sum())
+    return bound(testing.kept_read_bytes(keep, rows) + out_row_bytes * m,
+                 2 * keep.numel() + ops_per_row * m)
+
+
+def phase1_kept_rows_cases(errs) -> None:
+    """The result stage's hard cases (testing.kept_rows_cases,
+    gather_runs_cases) on the card: compact_kept (csrc/kept_rows.cu, one
+    launch a call) exactly equal to its plain version in each of its modes
+    (histogram, slots and offsets; the sentinel tail to a pad; the output
+    that does not sync), counts_histogram on each case's counts, and
+    gather_runs equal to its plain version; the kernel's tiles held against
+    testing's, each case timed beside its plain version and its bound."""
+    import ctypes
+
+    import torch
+
+    from hysortk_tpu_torch import _build, testing
+    from hysortk_tpu_torch.ops import compact
+
+    geometry = [ctypes.c_int() for _ in range(4)]
+    _build.lib().hk_kept_rows_geometry(*[ctypes.byref(g) for g in geometry])
+    want_geometry = (testing.KEPT_ROWS_TILE, testing.KEPT_ROWS_BINS, testing.GATHER_TILE,
+                     testing.GATHER_STAGED)
+    if tuple(g.value for g in geometry) != want_geometry:
+        raise AssertionError(f"kept_rows' geometry {[g.value for g in geometry]} is not "
+                             f"testing's {want_geometry}, whose cases are sized by it")
+    timed = []
+    for name, words, cnt, keep, upper, hist_upper, mixed in testing.kept_rows_cases():
+        host = ([torch.from_numpy(w.view(np.int32)) for w in words],
+                torch.from_numpy(cnt), torch.from_numpy(keep))
+        card = ([w.cuda() for w in host[0]], host[1].cuda(), host[2].cuda())
+        m = int(keep.sum())
+        modes = [dict(upper=upper, mixed=mixed, hist_upper=hist_upper, slots=True,
+                      offsets=True),
+                 dict(upper=upper, mixed=mixed, rows=True, sync=False)]
+        if -(-m // 3) * 3 <= keep.size:
+            modes.append(dict(upper=upper, mixed=mixed, rows=True, pad=3))
+        for mode in modes:
+            before = _build.launches["kept_rows"]
+            got = compact.compact_kept(*card, **mode)
+            torch.cuda.synchronize()
+            if _build.launches["kept_rows"] != before + 1:
+                raise AssertionError(f"kept_rows case {name} launched no kernel")
+            e = same_kept(f"kept_rows case {name} {sorted(mode)}", got,
+                          compact.compact_kept_plain(*host, **mode))
+            errs["kept_rows"] = max(errs["kept_rows"], e)
+        e = max_abs_err([compact.counts_histogram(card[1], hist_upper).cpu()],
+                        [compact.counts_histogram_plain(host[1], hist_upper)])
+        require_equal(f"kept_rows histogram-only case {name}", e)
+        errs["kept_rows"] = max(errs["kept_rows"], e)
+        b = kept_bound(card[2], [*card[0], card[1]], 4 * len(words) + 4)
+        ms = cuda_ms(lambda: compact.compact_kept(*card, **modes[0]), 5)
+        pms = cuda_ms(lambda: compact.compact_kept_plain(*card, **modes[0]), 2)
+        timed.append(f"{name} {ms:.4f}/{pms:.4f}/{b[0]:.4f}")
+    log(f"phase1 kept_rows hard cases at tile {testing.KEPT_ROWS_TILE} "
+        f"({testing.KEPT_ROWS_BINS} shared bins): every mode and the histogram-only "
+        f"launch equal to the plain version; kernel/plain/bound ms (histogram, slots "
+        f"and offsets): {'; '.join(timed)}")
+    timed = []
+    for name, starts, lengths, arrays in testing.gather_runs_cases():
+        host = (torch.from_numpy(starts), torch.from_numpy(lengths),
+                *[torch.from_numpy(a) for a in arrays])
+        card = [t.cuda() for t in host]
+        before = _build.launches["gather_runs"]
+        got = compact.gather_runs(*card)
+        torch.cuda.synchronize()
+        if _build.launches["gather_runs"] != before + 1:
+            raise AssertionError(f"gather_runs case {name} launched no kernel")
+        e = max_abs_err([g.cpu() for g in got], compact.gather_runs_plain(*host))
+        require_equal(f"gather_runs case {name}", e)
+        errs["gather_runs"] = max(errs["gather_runs"], e)
+        total = int(lengths.sum())
+        b = bound(8 * arrays.shape[0] * total + 16 * starts.size, 4 * total)
+        ms = cuda_ms(lambda: compact.gather_runs(*card), 5)
+        pms = cuda_ms(lambda: compact.gather_runs_plain(*card), 2)
+        timed.append(f"{name} {ms:.4f}/{pms:.4f}/{b[0]:.4f}")
+    log(f"phase1 gather_runs hard cases at output tile {testing.GATHER_TILE} "
+        f"({testing.GATHER_STAGED} runs staged): equal to the plain version; "
+        f"kernel/plain/bound ms: {'; '.join(timed)}")
+
+
+def phase1_result_stage(codes_np, lengths_np, errs) -> dict:
+    """The result stage's kernels on the inputs the main paths give them:
+    kept_rows at phase 2's shape (the sorted block's kept rows, narrowed,
+    with the histogram) and at 9(a)'s (mixed keys unmixed), kept_rows and
+    gather_runs at 8(a)'s (slots, offsets, the occurrences), each equal to
+    its plain version and timed beside it, its bound and the library
+    composition it replaces (torch.nonzero + index_select + bincount; the
+    cumsum + repeat_interleave chain, which is gather_runs' plain version).
+    Returns the two kernels' measurements (phase 2's shape for kept_rows)."""
+    import torch
+
+    from hysortk_tpu_torch import pipeline
+    from hysortk_tpu_torch.ops import compact, fused_count, keybuild, mixkey, radix_sort
+    from hysortk_tpu_torch.ops import wire
+
+    packed, lens, n = pipeline.wire_batch(codes_np, lengths_np, slice_config(), "cuda")
+    codes, valid = wire.decode_block(packed, lens, K, n)
+    marked = keybuild.canonical_keys_fused(codes, valid, K)
+    w = len(marked)
+    words, _ = radix_sort.sort_words(marked)
+    cnt, keep = fused_count.run_length_count_filter(words, LOWER, UPPER)
+    mode = dict(upper=UPPER, hist_upper=UPPER)
+    kept = compact.compact_kept(words, cnt, keep, **mode)
+    e = same_kept("kept_rows phase 2 shape", kept,
+                  compact.compact_kept_plain(words, cnt, keep, **mode))
+    errs["kept_rows"] = max(errs["kept_rows"], e)
+    m = int(kept.m)
+
+    def library():
+        idx = torch.nonzero(keep).squeeze(1)
+        counts = cnt.index_select(0, idx)
+        return ([x.index_select(0, idx) for x in words],
+                torch.bincount(counts.to(torch.int64), minlength=UPPER + 2))
+
+    # Out: W words and a uint8 count a kept row (the histogram's 51 int64
+    # are noise).
+    kr_bound = kept_bound(keep, [*words, cnt], 4 * w + 1)
+    kr = dict(
+        ms=cuda_ms(lambda: compact.compact_kept(words, cnt, keep, **mode), 10),
+        plain_ms=cuda_ms(lambda: compact.compact_kept_plain(words, cnt, keep, **mode), 3),
+        bound_ms=kr_bound[0], bound_by=kr_bound[1], library_ms=None,
+    )
+    lib_ms = cuda_ms(library, 5)
+    log_kernel(f"phase1 kept_rows phase 2 shape n={n} W={w} m={m} U={UPPER} (library "
+               f"composition nonzero + index_select + bincount {lib_ms:.4f} ms)", kr)
+    del words, cnt, keep, kept
+
+    # 9(a)'s one rank: the mixed keys sorted and counted, unmixed in the
+    # compaction (2 x W fmix32 inversions, ~12 operations each, a row).
+    mixed_s, _ = radix_sort.sort_words(mixkey.mix_keys(marked))
+    cnt, keep = fused_count.run_length_count_filter(mixed_s, LOWER, UPPER)
+    mode = dict(upper=UPPER, hist_upper=UPPER, mixed=True)
+    e = same_kept("kept_rows 9(a) shape (mixed)",
+                  compact.compact_kept(mixed_s, cnt, keep, **mode),
+                  compact.compact_kept_plain(mixed_s, cnt, keep, **mode))
+    errs["kept_rows"] = max(errs["kept_rows"], e)
+    b = kept_bound(keep, [*mixed_s, cnt], 4 * w + 1, 24 * w)
+    ms = cuda_ms(lambda: compact.compact_kept(mixed_s, cnt, keep, **mode), 10)
+    pms = cuda_ms(lambda: compact.compact_kept_plain(mixed_s, cnt, keep, **mode), 3)
+    log(f"phase1 kept_rows 9(a) shape (mixed keys unmixed) n={n}: equal, kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    del mixed_s, cnt, keep, marked
+
+    # 8(a): the extension step's sorted outputs.
+    dev = wire.decode_block_ext(packed, lens, K, n, 0)
+    del packed, lens, codes, valid
+    words, cnt, keep, rid_s, pos_s = pipeline._count_device_ext(*dev, K, LOWER, UPPER)
+    del dev
+    mode = dict(slots=True, offsets=True)
+    kept = compact.compact_kept(words, cnt, keep, **mode)
+    e = same_kept("kept_rows 8(a) shape (slots, offsets)", kept,
+                  compact.compact_kept_plain(words, cnt, keep, **mode))
+    errs["kept_rows"] = max(errs["kept_rows"], e)
+    m = int(kept.m)
+    ms = cuda_ms(lambda: compact.compact_kept(words, cnt, keep, **mode), 10)
+    b = kept_bound(keep, [*words, cnt], 4 * w + 12)
+    log(f"phase1 kept_rows 8(a) shape (int32 counts, slots, offsets) n={n}: equal, "
+        f"kernel {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    hist = compact.counts_histogram(kept.counts, UPPER)
+    if not torch.equal(hist, compact.counts_histogram_plain(kept.counts, UPPER)):
+        raise AssertionError("the histogram-only launch differs from its plain version")
+    log(f"phase1 kept_rows histogram-only launch on {m} counts: equal, kernel "
+        f"{cuda_ms(lambda: compact.counts_histogram(kept.counts, UPPER), 10):.4f} ms, "
+        f"torch.bincount {cuda_ms(lambda: torch.bincount(kept.counts), 10):.4f} ms")
+    args = (kept.slots, kept.counts, rid_s, pos_s)
+    got = compact.gather_runs(*args, offsets=kept.offsets, total=kept.occ)
+    e = max_abs_err(got, compact.gather_runs_plain(*args))
+    require_equal("gather_runs 8(a) shape", e)
+    errs["gather_runs"] = max(errs["gather_runs"], e)
+    del got
+    # In: two int32 words an occurrence, a run's start and offset; out: two
+    # words an occurrence. About four operations an occurrence.
+    gr_bound = bound(16 * kept.occ + 8 * m, 4 * kept.occ)
+    gr = dict(
+        ms=cuda_ms(lambda: compact.gather_runs(*args, offsets=kept.offsets,
+                                               total=kept.occ), 10),
+        plain_ms=cuda_ms(lambda: compact.gather_runs_plain(*args), 3),
+        bound_ms=gr_bound[0], bound_by=gr_bound[1], library_ms=None,
+    )
+    log_kernel(f"phase1 gather_runs 8(a) shape {m} runs, {kept.occ} occurrences (the "
+               f"plain version is the cumsum + repeat_interleave chain)", gr)
+    return {"kept_rows": kr, "gather_runs": gr}
 
 
 def layout_rows(got, want):
@@ -1424,13 +1649,22 @@ KERNELS = {
     "dest_pack": ("hysortk_tpu_torch/csrc/dest_pack.cu",
                   "hysortk_tpu/parallel/exchange.py:33 pack_by_destination (called at "
                   "parallel/pipeline.py:346, :351, :1085; XLA, no pallas_call)"),
+    # The result stage, host numpy and XLA in the JAX package: kernels the
+    # port added for its result module.
+    "kept_rows": ("hysortk_tpu_torch/csrc/kept_rows.cu",
+                  "hysortk_tpu/pipeline.py:477 compact_keys + :482 host_histogram + "
+                  "device_compact's fold (:288) + ops/mixkey.py:105 unmix_keys_np "
+                  "(host numpy and XLA, no pallas_call)"),
+    "gather_runs": ("hysortk_tpu_torch/csrc/kept_rows.cu",
+                    "hysortk_tpu/pipeline.py:114 assemble_ext_result with :368 "
+                    "split_occurrences (host numpy, no pallas_call)"),
 }
 # Which path's run gives each kernel its launch count in the record:
 # phase 2 (the wire decode too), phase 4(a), and for fused_sort phase 6, for
 # block_sort phase 7, for mix_keys phase 9(a), for the supermer route's
 # kernels (the scan too) 11(a)'s first call, for dest_pack 10(d)'s one-rank
-# call.
-ONE_SHOT_KERNELS = ("keybuild", "radix_sort", "fused_count", "wire_decode")
+# call, for gather_runs 8(a)'s call.
+ONE_SHOT_KERNELS = ("keybuild", "radix_sort", "fused_count", "wire_decode", "kept_rows")
 STREAMING_KERNELS = ("run_length_sum", "merge_runs")
 SUPERMER_KERNELS = ("supermer_runs", "supermer_pack", "minimizer_scan")
 
@@ -1486,8 +1720,10 @@ def slice_config():
 
 def plain_count_reads(codes_np, lengths_np, cfg):
     """The slice composed from the plain versions, on the card."""
+    import torch
+
     from hysortk_tpu_torch import pipeline
-    from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort
+    from hysortk_tpu_torch.ops import compact, fused_count, keybuild, radix_sort
 
     codes, valid = pipeline.device_batch(codes_np, lengths_np, cfg, "cuda")
     marked = keybuild.canonical_keys_plain(codes, valid, cfg.k)
@@ -1495,8 +1731,25 @@ def plain_count_reads(codes_np, lengths_np, cfg):
     cnt, keep = fused_count.run_length_count_filter_plain(
         words, cfg.lower, cfg.upper
     )
-    kl = pipeline.compact_keys(words, cnt, pipeline.kept_slots(keep), cfg.k, cfg.upper)
+    kept = compact.compact_kept_plain(words, cnt, keep, upper=cfg.upper)
+    keys, counts = pipeline.to_host([kept.keys, kept.counts], [None, torch.int32])
+    kl = pipeline.KmerList(keys.view(np.uint32), counts, cfg.k)
     return kl, pipeline.host_histogram(kl.counts, cfg.upper)
+
+
+def library_result_ops():
+    """The library ops the result stage ran before its kernels (the plain
+    versions still do): (module, name) pairs for `refused`."""
+    import torch
+
+    from hysortk_tpu_torch.ops import mixkey
+
+    return ((torch, "nonzero"), (torch, "bincount"), (torch, "repeat_interleave"),
+            (mixkey, "unmix_keys"))
+
+
+def library_result_names() -> str:
+    return ", ".join(f"{mod.__name__}.{name}" for mod, name in library_result_ops())
 
 
 def phase2_slice(workdir: str, rng):
@@ -1523,7 +1776,6 @@ def phase2_slice(workdir: str, rng):
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    pipeline.reset_calls()
     t0 = time.perf_counter()
     kl, hist = ht.kmer_count(codes, lengths, cfg, device="cuda")
     first_s = time.perf_counter() - t0
@@ -1537,11 +1789,17 @@ def phase2_slice(workdir: str, rng):
     for name in ONE_SHOT_KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
-    if pipeline.calls["device_histogram"] != 4:
-        raise AssertionError(f"{pipeline.calls['device_histogram']} device histograms "
-                             f"in four calls: the histogram did not come from the device")
-    log("phase2 histogram check: each of the four calls computed its histogram on the "
-        "device (pipeline.device_histogram)")
+    if launches["kept_rows"] != 4:
+        raise AssertionError(f"{launches['kept_rows']} kept_rows launches in four calls: "
+                             f"the result did not come from the kernel")
+    log("phase2 result check: each of the four calls compacted its rows and binned its "
+        "histogram in one kept_rows launch")
+    with refused(*library_result_ops()):
+        again = ht.kmer_count(codes, lengths, cfg, device="cuda")
+    if not (same_list(again[0], kl) and np.array_equal(again[1], hist)):
+        raise AssertionError("phase 2's call under the refused library ops differs")
+    log(f"phase2 one call more with {library_result_names()} stubbed to raise: equal")
+    del again
     peak = torch.cuda.max_memory_allocated()
     best = min(walls)
     log(f"phase2 kmer_count first call {first_s:.4f} s; steady "
@@ -1742,7 +2000,7 @@ def phase2_stages(codes, lengths, cfg, best_wall: float) -> None:
 
     import hysortk_tpu_torch as ht
     from hysortk_tpu_torch import _build, pipeline
-    from hysortk_tpu_torch.ops import fused_count, keybuild, radix_sort, wire
+    from hysortk_tpu_torch.ops import compact, fused_count, keybuild, radix_sort, wire
 
     stages = []
     device_ms = []
@@ -1787,24 +2045,27 @@ def phase2_stages(codes, lengths, cfg, best_wall: float) -> None:
             words, cfg.lower, cfg.upper))
 
         def compaction():
-            idx = pipeline.kept_slots(keep)
+            kept = compact.compact_kept(words, cnt, keep, upper=cfg.upper,
+                                        hist_upper=cfg.upper)
             with copy_out_clock() as copy_ms:
-                kl = pipeline.compact_keys(words, cnt, idx, cfg.k, cfg.upper)
-            return kl, idx, copy_ms
+                keys, counts = pipeline.to_host([kept.keys, kept.counts],
+                                                [None, torch.int32])
+            return pipeline.KmerList(keys.view(np.uint32), counts, cfg.k), kept, copy_ms
 
-        kl, idx, copy_ms = timed("compaction + D2H", compaction, on_device=False)
+        before = _build.launches["kept_rows"]
+        kl, kept, copy_ms = timed("compaction + D2H", compaction, on_device=False)
         stages[-1] += f" (copy-out {sum(copy_ms):.1f})"
-        before = pipeline.calls["device_histogram"]
-        hist = timed("device histogram", lambda: pipeline.device_histogram(
-            cnt, idx, cfg.upper))
-        if pipeline.calls["device_histogram"] != before + 1 or not np.array_equal(
+        # Binned in the compaction's launch: this span is its read.
+        hist = timed("device histogram", lambda: pipeline.to_host(
+            [kept.hist], [torch.int32])[0])
+        if _build.launches["kept_rows"] != before + 1 or not np.array_equal(
                 hist, pipeline.host_histogram(kl.counts, cfg.upper)):
-            raise AssertionError("the device histogram differs from host_histogram")
-        del codes_d, valid_d, marked, words, cnt, keep, idx, kl
+            raise AssertionError("the kept_rows histogram differs from host_histogram")
+        del codes_d, valid_d, marked, words, cnt, keep, kept, kl
     busy = sum(device_ms)
     log(f"phase2 stages of the one-shot call, second of two, ms: {'; '.join(stages)}")
-    log(f"phase2 feed staged in pinned memory (is_pinned), histogram from "
-        f"device_histogram equal to host_histogram")
+    log(f"phase2 feed staged in pinned memory (is_pinned), histogram binned in the "
+        f"kept_rows launch (its span is the read) equal to host_histogram")
     traced_busy, traced_wall = profile_call(lambda: ht.kmer_count(
         codes, lengths, cfg, device="cuda"), "phase2 one-shot")
     log(f"phase2 device-busy share of the one-shot call: CUDA events of the stages "
@@ -2220,7 +2481,7 @@ def phase7_roll(codes, lengths, one_shot):
     radix_words, _ = radix_sort.sort_words(marked)
     require_equal("roll sort against the radix sort", max_abs_err(words, radix_words))
     del radix_words
-    kl = pipeline.compact_keys(words, cnt, pipeline.kept_slots(keep), cfg.k, cfg.upper)
+    kl, _ = pipeline.kept_result(words, cnt, keep, cfg, cfg.upper, histogram=False)
     if not same_list(kl, one_shot[0]):
         raise AssertionError("path B differs from phase 2's result")
     del words, cnt, keep
@@ -2296,7 +2557,8 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = dict(_build.launches)
-    if [launches[name] for name in ONE_SHOT_KERNELS] != [1] * len(ONE_SHOT_KERNELS):
+    if [launches[name] for name in ONE_SHOT_KERNELS + ("gather_runs",)] != [1] * (
+            len(ONE_SHOT_KERNELS) + 1):
         raise AssertionError(f"extension call launched {json.dumps(launches)}")
     if not isinstance(kl, ht.KmerListExt):
         raise AssertionError("extension call returned no KmerListExt")
@@ -2324,6 +2586,14 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
         f"D2H {d2h} B (phase 2: {plain_d2h} B); launches {json.dumps(launches)}")
     ext_one_shot = (kl, hist)
     del kl, sizes
+    with refused(*library_result_ops()):
+        again = ht.kmer_count(codes, lengths, cfg, device="cuda")
+    if not (all(np.array_equal(getattr(again[0], f), getattr(ext_one_shot[0], f))
+                for f in ("keys", "counts", "occ_rid", "occ_pos", "offsets"))
+            and np.array_equal(again[1], hist)):
+        raise AssertionError("phase 8(a)'s call under the refused library ops differs")
+    log(f"phase8a one call more with {library_result_names()} stubbed to raise: equal")
+    del again
 
     # (b) the one-shot call's stages, then its device outputs against the
     # plain composition on the same tensors.
@@ -2435,7 +2705,7 @@ def phase8_extension(workdir, codes, lengths, one_shot, one_shot_peak, fasta,
             f"to the oracle")
     # (e) the out-of-memory drain of the device merge.
     phase8_drain(sub_codes, sub_lengths, cfg, rid0, ext_sub_one_shot)
-    return ext_one_shot, ext_sub_one_shot
+    return ext_one_shot, ext_sub_one_shot, launches["gather_runs"]
 
 
 def phase8_streamed(tag, codes, lengths, cfg, batch_bases, rid0, want, one_wall):
@@ -2514,8 +2784,9 @@ def phase8_stream_stages(codes, lengths, cfg, batch_bases, want) -> None:
     at both edges and timed on the host and by CUDA events: the batch steps
     (wire feed, then decode, key build, sort, count), holding (the partial
     made from the step's outputs), the device merge (merge_runs,
-    run_length_sum, the gather, each on its own), the D2H of the result and
-    the device histogram; the call's host wall beside them."""
+    run_length_sum, the gather with the kept totals' histogram, each on its
+    own), the D2H of the result with the histogram; the call's host wall
+    beside them."""
     import collections
 
     import torch
@@ -2556,8 +2827,8 @@ def phase8_stream_stages(codes, lengths, cfg, batch_bases, want) -> None:
             (scheduler, "ext_partial", "hold"), (scheduler, "merge_ext_partials_device", "merge"),
             (merge_ops, "merge_runs_at", "merge_runs"),
             (run_length_sum, "run_length_sum_fused", "run_length_sum"),
-            (pipeline, "gather_kept_ext", "gather"), (pipeline.ExtPartial, "to_host", "d2h"),
-            (pipeline, "device_histogram", "histogram")):
+            (pipeline, "gather_kept_ext", "gather"),
+            (pipeline.ExtPartial, "to_host_with_hist", "d2h")):
         clock(owner, name, key)
     try:
         t0 = time.perf_counter()
@@ -2575,13 +2846,13 @@ def phase8_stream_stages(codes, lengths, cfg, batch_bases, want) -> None:
     ht.count_reads_streaming_ext(codes, lengths, cfg, batch_bases, device="cuda")
     wall = time.perf_counter() - t0
     rest = host["merge"] - host["merge_runs"] - host["run_length_sum"] - host["gather"] \
-        - host["d2h"] - host["histogram"]
+        - host["d2h"]
     line = "; ".join(f"{what} {host[key]:.1f} (device {dev[key]:.1f})"
                      for what, key in (("wire feed", "feed"), ("batch steps", "step"),
                                        ("holding", "hold"), ("merge_runs", "merge_runs"),
                                        ("run_length_sum", "run_length_sum"),
-                                       ("gather", "gather"), ("D2H of the result", "d2h"),
-                                       ("device histogram", "histogram")))
+                                       ("gather (with the histogram)", "gather"),
+                                       ("D2H of the result and histogram", "d2h")))
     log(f"phase8c stream stages (ms, host with the device's events in brackets; "
         f"{calls['step']} batches of {batch_bases}): {line}; the rest of the merge "
         f"{rest:.1f}; device merge in all {host['merge']:.1f}; wall {staged_wall:.4f} s "
@@ -2807,6 +3078,12 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
         backend = dist.get_backend()
         a = sharded_run_stats(lambda: sharded.count_reads_sharded(
             codes, lengths, cfg), 3)
+        with refused(*library_result_ops()):
+            again = sharded.count_reads_sharded(codes, lengths, cfg)
+        require_same_result("phase 9(a) under the refused library ops", again, one_shot)
+        log(f"phase9a one call more with {library_result_names()} stubbed to raise: "
+            f"equal")
+        del again
         phase9_stages(codes, lengths, cfg)
     finally:
         dist.destroy_process_group()
@@ -2817,6 +3094,10 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
     for name in ("keybuild", "mix_keys", "radix_sort", "fused_count"):
         if not a["launches"].get(name):
             raise AssertionError(f"phase 9(a) did not launch {name}")
+    # One compaction a call: the rank's rows unmixed and binned in it.
+    if a["launches"].get("kept_rows") != 1:
+        raise AssertionError(f"phase 9(a) launched kept_rows {a['launches'].get('kept_rows')} "
+                             f"times in one call")
     log(f"phase9a 1 rank, best wall {min(a['walls']):.4f} s")
     log_sharded("a", [a], len(one_shot[0]))
 
@@ -2844,7 +3125,7 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
             with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
                 stats.append(json.load(fh))
         needed = ["wire_decode", "keybuild", "mix_keys", "radix_sort", "merge_runs",
-                  "fused_count"]
+                  "fused_count", "kept_rows"]
         if f["combiner"]:
             needed.append("run_length_sum")
         for r, st in enumerate(stats):
@@ -2863,7 +3144,7 @@ def phase9_sharded(workdir, codes, lengths, one_shot):
 
 STREAM_BATCH = 1 << 24  # phase 4(a)'s batches: four of phase 2's reads
 # The kernels every phase-10 run launches, and those of some of them.
-CORE_KERNELS = ("wire_decode", "keybuild", "radix_sort", "fused_count")
+CORE_KERNELS = ("wire_decode", "keybuild", "radix_sort", "fused_count", "kept_rows")
 MINIMIZER_KERNELS = CORE_KERNELS + ("minimizer_scan", "dest_pack")
 
 
@@ -3265,7 +3546,7 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
         c["backend"] = "nccl"
         log_phase10("c", f"count_reads_sharded_ext, {int(codes.size)} bases (held against "
                     f"phase 8(a) in {time.perf_counter() - t0:.1f} s)", [c],
-                    len(ext_one_shot[0]), CORE_KERNELS + ("mix_keys",))
+                    len(ext_one_shot[0]), CORE_KERNELS + ("mix_keys", "gather_runs"))
         torch.cuda.empty_cache()
         d = phase10_call("count_reads_sharded", codes, lengths, mini)
         require_same_result("phase 10(d) one rank", d.pop("result"), one_shot)
@@ -3300,10 +3581,11 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
              "count_reads_sharded_streaming", "all", base, (STREAM_BATCH,), {},
              one_shot, stream_needed),
             ("c", "count_reads_sharded_ext, 2^24 bases", "count_reads_sharded_ext",
-             "sub", ext, (), rid0, ext_sub_one_shot, CORE_KERNELS + ("mix_keys",)),
+             "sub", ext, (), rid0, ext_sub_one_shot,
+             CORE_KERNELS + ("mix_keys", "gather_runs")),
             ("c", "count_reads_sharded_ext_streaming, 2^24 bases in batches of 2^22",
              "count_reads_sharded_ext_streaming", "sub", ext, (EXT_STREAM_BATCH,), rid0,
-             ext_sub_one_shot, CORE_KERNELS + ("mix_keys",) + STREAMING_KERNELS),
+             ext_sub_one_shot, CORE_KERNELS + ("mix_keys", "gather_runs") + STREAMING_KERNELS),
             ("e", "minimizer, round_robin + combiner, 2^24 bases", "count_reads_sharded",
              "sub", dict(mini, dispatcher="round_robin", combiner=True), (), {},
              sub_one_shot, MINIMIZER_KERNELS + ("run_length_sum",)),
@@ -3312,7 +3594,7 @@ def phase10_sharded(workdir, codes, lengths, one_shot, ext_one_shot,
              CORE_KERNELS + ("dest_pack",)),
             ("e", "kmer_hash + extension, 2^24 bases", "count_reads_sharded_ext", "sub",
              dict(ext, routing="kmer_hash"), (), rid0, ext_sub_one_shot,
-             CORE_KERNELS + ("dest_pack",)),
+             CORE_KERNELS + ("dest_pack", "gather_runs")),
         ],
         4: [
             ("d", "minimizer (balanced), 2^26 bases", "count_reads_sharded", "all", mini,
@@ -4016,10 +4298,12 @@ def phase11_supermer(workdir, codes, lengths, one_shot, ext_sub_one_shot,
         ],
         2: [
             ("d", "count_reads_sharded_ext, routing supermer, 2^24 bases",
-             "count_reads_sharded_ext", "sub", ext, (), rid0, ext_sub_one_shot, needed),
+             "count_reads_sharded_ext", "sub", ext, (), rid0, ext_sub_one_shot,
+             needed + ("gather_runs",)),
             ("d", "count_reads_sharded_ext_streaming, routing supermer, 2^24 bases in "
              "batches of 2^22", "count_reads_sharded_ext_streaming", "sub", ext,
-             (EXT_STREAM_BATCH,), rid0, ext_sub_one_shot, needed + STREAMING_KERNELS),
+             (EXT_STREAM_BATCH,), rid0, ext_sub_one_shot,
+             needed + ("gather_runs",) + STREAMING_KERNELS),
             ("e", "count_reads_sharded_streaming, routing supermer, 2^26 bases in "
              "batches of 2^24", "count_reads_sharded_streaming", "all", sm,
              (STREAM_BATCH,), {}, one_shot, stream_needed),
@@ -4172,8 +4456,8 @@ def phase12_multiprocess(workdir: str, one_shot, ext_one_shot) -> None:
         ht.KmerList(ext_kl.keys, ext_kl.counts, K)).splitlines())
     phase12_run("d", f"extension mode streamed in batches of {STREAM_BATCH}", fasta,
                 workdir, 2, ["--extension", "--stream-batch-bases", str(STREAM_BATCH)],
-                want_ext, writer.format_histogram(ext_hist), range_kernels + STREAMING_KERNELS,
-                "gloo")
+                want_ext, writer.format_histogram(ext_hist),
+                range_kernels + ("gather_runs",) + STREAMING_KERNELS, "gloo")
     log(f"phase12 {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -4398,6 +4682,8 @@ def main() -> int:
         phase2_host_functions(workdir, codes, lengths, one_shot)
         torch.cuda.empty_cache()
         times = phase1_main_path(codes, lengths, errs)
+        times.update(phase1_result_stage(codes, lengths, errs))
+        torch.cuda.empty_cache()
         fasta, reads = phase3_small(workdir, rng)
         stream_launches, stream_times = phase4_streaming(
             codes, lengths, one_shot, peak, errs)
@@ -4408,7 +4694,7 @@ def main() -> int:
         log(f"phase6 best wall {fused_wall:.4f} s beside phase 2's {best_wall:.4f} s")
         roll_launches = phase7_roll(codes, lengths, one_shot)
         torch.cuda.empty_cache()
-        ext_one_shot, ext_sub_one_shot = phase8_extension(
+        ext_one_shot, ext_sub_one_shot, gather_launches = phase8_extension(
             workdir, codes, lengths, one_shot, peak, fasta, reads, errs)
         footprints["after phase 8"] = pinned_footprint()
         torch.cuda.empty_cache()
@@ -4438,6 +4724,7 @@ def main() -> int:
     launches["fused_sort"] = fused_launches["fused_sort"]
     launches["block_sort"] = roll_launches["block_sort"]
     launches["mix_keys"] = sharded_launches["mix_keys"]
+    launches["gather_runs"] = gather_launches
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

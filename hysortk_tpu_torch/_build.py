@@ -64,6 +64,7 @@ launches = {
     "fused_sort": 0, "block_sort": 0, "mix_keys": 0,
     "supermer_runs": 0, "supermer_pack": 0,
     "wire_decode": 0, "minimizer_scan": 0, "dest_pack": 0,
+    "kept_rows": 0, "gather_runs": 0,
 }
 
 _lock = threading.Lock()
@@ -282,6 +283,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_dest_pack.argtypes = [ptr, ptr, i64, ptr, i32, ptrs, i32, i64, i32, i64, ptr,
                                  ptr, ptr, ptr]
     lib.hk_dest_pack.restype = i32
+    lib.hk_kept_rows_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    lib.hk_kept_rows_geometry.restype = None
+    lib.hk_kept_rows_scratch.argtypes = [i64]
+    lib.hk_kept_rows_scratch.restype = i64
+    lib.hk_kept_count.argtypes = [ptr, ptr, i64, ptr, ptr, ptr]
+    lib.hk_kept_count.restype = i32
+    lib.hk_kept_write.argtypes = [ptr, ptrs, i32, ptr, i64, ptr, ptr, ptr, i64, i64, i64,
+                                  ptr, i32, ptr, ptr, u32s, i32, u32s, ptr, i32, ptr]
+    lib.hk_kept_write.restype = i32
+    lib.hk_count_histogram.argtypes = [ptr, i64, ptr, i32, ptr]
+    lib.hk_count_histogram.restype = i32
+    lib.hk_gather_runs.argtypes = [ptr, ptr, i64, i64, ptrs, ptrs, i32, ptr]
+    lib.hk_gather_runs.restype = i32
     lib.hk_error_string.argtypes = [i32]
     lib.hk_error_string.restype = ctypes.c_char_p
     return lib

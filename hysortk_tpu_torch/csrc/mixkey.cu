@@ -7,8 +7,9 @@
 //   w[i] = fmix32(w[i] + w[(i+1) % W] + rc[r*W + i])   (W > 1)
 //   w[0] = fmix32(w[0] + rc[r])                          (W = 1)
 // then w[i] ^= fix[i], the XORs that keep the all-ones sentinel a fixed
-// point. The round constants and the XORs are computed on the host
-// (ops/mixkey.py _RC, _sentinel_fix) and passed by value.
+// point (mixkey.cuh, which kept_rows.cu's unmix shares). The round
+// constants and the XORs are computed on the host (ops/mixkey.py _RC,
+// _sentinel_fix) and passed by value.
 //
 // Bound on the H100: HBM bytes, 8W B a slot (W words in, W out); the 4 W
 // rounds of fmix32 are 20 W integer operations a slot, far below the
@@ -21,36 +22,22 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mixkey.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kItems = 4;
-constexpr int kMaxWords = 6;
-constexpr int kMaxRounds = 4;
+constexpr int kMaxWords = mixkey::kMaxWords;
 
 struct Rows {
   const uint32_t* in[kMaxWords];
   uint32_t* out[kMaxWords];
 };
 
-struct MixConsts {
-  uint32_t rc[kMaxRounds * kMaxWords];
-  uint32_t fix[kMaxWords];
-  int rounds;
-};
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
 template <int W>
 __global__ void __launch_bounds__(kThreads)
-mix_kernel(Rows rows, int64_t n, MixConsts c) {
+mix_kernel(Rows rows, int64_t n, mixkey::Consts c) {
   const int64_t base =
       static_cast<int64_t>(blockIdx.x) * (kThreads * kItems) + threadIdx.x;
   uint32_t w[kItems][W];
@@ -61,26 +48,13 @@ mix_kernel(Rows rows, int64_t n, MixConsts c) {
     for (int k = 0; k < W; ++k) w[j][k] = i < n ? rows.in[k][i] : 0u;
   }
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    // Unrolled to the largest round count, so that every constant is read
-    // at a fixed offset of the kernel's parameters (a dynamic index would
-    // copy them to local memory).
-#pragma unroll
-    for (int r = 0; r < kMaxRounds; ++r) {
-      if (r >= c.rounds) break;
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        const uint32_t next = W == 1 ? 0u : w[j][(k + 1) % W];
-        w[j][k] = fmix32(w[j][k] + next + c.rc[r * W + k]);
-      }
-    }
-  }
+  for (int j = 0; j < kItems; ++j) mixkey::mix<W>(w[j], c);
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const int64_t i = base + j * kThreads;
     if (i < n) {
 #pragma unroll
-      for (int k = 0; k < W; ++k) rows.out[k][i] = w[j][k] ^ c.fix[k];
+      for (int k = 0; k < W; ++k) rows.out[k][i] = w[j][k];
     }
   }
 }
@@ -95,18 +69,15 @@ extern "C" int hk_mix_keys(void* const* in_rows, void* const* out_rows,
                            const uint32_t* round_consts, int rounds,
                            const uint32_t* fix, void* stream) {
   if (n <= 0 || w_count < 1 || w_count > kMaxWords || rounds < 1 ||
-      rounds > kMaxRounds) {
+      rounds > mixkey::kMaxRounds) {
     return cudaErrorInvalidValue;
   }
   Rows rows{};
-  MixConsts c{};
   for (int k = 0; k < w_count; ++k) {
     rows.in[k] = static_cast<const uint32_t*>(in_rows[k]);
     rows.out[k] = static_cast<uint32_t*>(out_rows[k]);
-    c.fix[k] = fix[k];
   }
-  for (int i = 0; i < rounds * w_count; ++i) c.rc[i] = round_consts[i];
-  c.rounds = rounds;
+  const mixkey::Consts c = mixkey::make_consts(round_consts, rounds, fix, w_count);
   const int64_t per_block = static_cast<int64_t>(kThreads) * kItems;
   const dim3 grid(static_cast<unsigned>((n + per_block - 1) / per_block));
   const auto s = static_cast<cudaStream_t>(stream);

@@ -7,7 +7,8 @@ the destination of a key is a range of mixed[0], a monotone function of the
 sort order, so one local sort orders the keys and groups the destinations
 into contiguous segments; equal mixed keys are equal keys, so counting in
 mixed space is exact; the compacted results are un-mixed where they lie
-(`unmix_keys`, plain PyTorch on any device).
+(on the card in the write epilogue of ops/compact.compact_kept, in plain
+PyTorch by `unmix_keys`).
 
 M is a cyclic Feistel-style network of murmur3 fmix32 steps
 (w[i] = fmix32(w[i] + w[(i+1) % W] + C)), finished with a constant XOR that
@@ -19,7 +20,9 @@ On a CUDA tensor `mix_keys` launches the hand-written kernel of
 csrc/mixkey.cu (in the JAX package the mix is XLA code, no Pallas kernel);
 on a CPU tensor it runs the plain version, `mix_keys_plain`. The inverse,
 `unmix_keys`, is elementwise int64 arithmetic masked to 32 bits (the JAX
-package unmixes in numpy). The numpy functions are copied from the JAX
+package unmixes in numpy): the plain version of the unmix that
+csrc/kept_rows.cu runs on the kept rows (csrc/mixkey.cuh holds both
+directions). The numpy functions are copied from the JAX
 module as they are.
 """
 
@@ -181,6 +184,13 @@ def mix_keys(words: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     return _mix_cuda([w.contiguous() for w in words])
 
 
+def kernel_consts(W: int) -> tuple[ctypes.Array, int, ctypes.Array]:
+    """(round constants, rounds, sentinel XORs) of the mix at W words, as
+    the kernels take them (csrc/mixkey.cuh Consts)."""
+    return ((ctypes.c_uint32 * (_ROUNDS * W))(*_RC[: _ROUNDS * W]), _ROUNDS,
+            (ctypes.c_uint32 * W)(*_sentinel_fix(W)))
+
+
 def _mix_cuda(words: list[torch.Tensor]) -> list[torch.Tensor]:
     W = len(words)
     n = words[0].shape[0]
@@ -188,12 +198,11 @@ def _mix_cuda(words: list[torch.Tensor]) -> list[torch.Tensor]:
     if n == 0:
         return out
     lib = _build.lib()
-    rc = (ctypes.c_uint32 * (_ROUNDS * W))(*_RC[: _ROUNDS * W])
-    fix = (ctypes.c_uint32 * W)(*_sentinel_fix(W))
+    rc, rounds, fix = kernel_consts(W)
     with torch.cuda.device(words[0].device):
         status = lib.hk_mix_keys(
             _build.pointer_array(words), _build.pointer_array(out), W, n,
-            rc, _ROUNDS, fix, torch.cuda.current_stream().cuda_stream,
+            rc, rounds, fix, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, "mix_keys launch")
     _build.launches["mix_keys"] += 1

@@ -44,7 +44,8 @@ import torch.distributed as dist
 
 from ..config import KmerConfig
 from ..io import fasta as fasta_io
-from ..pipeline import KmerList, KmerListExt, counts_histogram, resolve_device
+from ..ops.compact import counts_histogram
+from ..pipeline import KmerList, KmerListExt, resolve_device
 from ..runtime.scheduler import ExtPartialStore
 from ..runtime.timer import stage
 from . import group as group_mod

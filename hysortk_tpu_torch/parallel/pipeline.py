@@ -76,6 +76,7 @@ import torch.distributed as dist
 from ..config import KmerConfig
 from ..io import fasta as fasta_io
 from ..io import supermer as supermer_io
+from ..ops import compact
 from ..ops import count as count_ops
 from ..ops import fused_count
 from ..ops import hashes
@@ -91,10 +92,8 @@ from ..pipeline import (
     ExtPartial,
     KmerList,
     KmerListExt,
-    counts_histogram,
     feed_wire,
     kept_partial,
-    narrow_counts,
     to_host,
 )
 from ..runtime.scheduler import (
@@ -523,21 +522,13 @@ def _gather_rows(rows: torch.Tensor, group) -> list[torch.Tensor]:
     return [p[:m] for p, m in zip(_gather_padded(padded, group), sizes)]
 
 
-def _unmixed(keys: torch.Tensor, mixed: bool) -> torch.Tensor:
-    """(m, W) int32 key rows, unmixed where they lie (mixkey.unmix_keys)
-    if they are in the mixed key space (range routing)."""
-    if not mixed:
-        return keys
-    return torch.stack(mixkey.unmix_keys(keys.unbind(1)), dim=1)
-
-
 @dataclasses.dataclass
 class RankRows:
     """A rank's share of a filtered list where its step left it, on the
     rank's device: the kept rows at their final size, keys unmixed (m, W)
     int32 (uint32 bit patterns), counts (m,) narrowed to the filter's bound
-    (narrow_counts), and `hist`, the (upper + 1,) int64 histogram of the
-    kept counts (counts_histogram). Nothing of it has crossed to the host."""
+    (compact.narrow_dtype), and `hist`, the (upper + 1,) int64 histogram of the
+    kept counts. Nothing of it has crossed to the host."""
 
     keys: torch.Tensor
     counts: torch.Tensor
@@ -548,19 +539,21 @@ class RankRows:
 
 
 def _rank_list(words, cnt, keep, cfg: KmerConfig, mixed: bool, upper: int) -> RankRows:
-    """The rank's kept rows as its RankRows: gathered and, where `mixed`
-    (range routing), unmixed on the device; the counts narrowed to the
-    narrowest width `upper`, the bound `keep` was filtered by, fits; their
-    histogram over [0, cfg.upper] by one bincount there."""
+    """The rank's kept rows as its RankRows, in one compaction on the device
+    (ops/compact.compact_kept): unmixed where `mixed` (range routing), the
+    counts narrowed to the narrowest width `upper`, the bound `keep` was
+    filtered by, fits, and binned over [0, cfg.upper] in the same pass (the
+    "histogram" span is empty)."""
     dev = keep.device
     with stage("result", dev):
         with stage("compaction + unmix", dev):
-            idx = torch.nonzero(keep).squeeze(1)
-            kept = cnt[idx]
-            keys = _unmixed(torch.stack([w[idx] for w in words], dim=-1), mixed)
+            kept = compact.compact_kept(words, cnt, keep, upper=upper, mixed=mixed,
+                                        hist_upper=cfg.upper)
+        # Kept, empty, so that the result's spans compare with earlier runs':
+        # the bins came with the compaction.
         with stage("histogram", dev):
-            hist = counts_histogram(kept, cfg.upper)
-    return RankRows(keys, narrow_counts(kept, upper), hist)
+            pass
+    return RankRows(kept.keys, kept.counts, kept.hist)
 
 
 def _empty_rows(cfg: KmerConfig, dev) -> RankRows:
@@ -912,8 +905,8 @@ def _hold_kept(store: KeyPartialStore, words, cnt, keep) -> None:
     """A batch's kept rows (one ascending run) into the rank's store, where
     they lie."""
     with stage("hold", keep.device):
-        idx = torch.nonzero(keep).squeeze(1)
-        store.add([w[idx] for w in words] + [cnt[idx]])
+        kept = compact.compact_kept(words, cnt, keep, rows=True)
+        store.add(kept.keys + [kept.counts])
 
 
 def _merge_held(store: KeyPartialStore, extra=None):
@@ -1114,12 +1107,10 @@ def ext_stream_dims(
 
 def _ext_rows(words, cnt, keep, rid_s, pos_s, mixed: bool) -> ExtPartial:
     """The rank's kept keys and counts and their occurrences as an
-    ExtPartial on the device (kept_partial), keys unmixed there where
-    `mixed` (its rows then stay in mixed-key order, not ascending)."""
+    ExtPartial on the device (kept_partial), keys unmixed in its compaction
+    where `mixed` (its rows then stay in mixed-key order, not ascending)."""
     with stage("result", keep.device):
-        part, _ = kept_partial(words, cnt, keep, rid_s, pos_s)
-        return dataclasses.replace(part, keys=_unmixed(part.keys, mixed),
-                                   ascending=not mixed)
+        return kept_partial(words, cnt, keep, rid_s, pos_s, mixed)[0]
 
 
 def _ext_list(part: ExtPartial, k: int) -> KmerListExt:
@@ -1179,12 +1170,14 @@ def count_reads_sharded_ext(
 
 def _ext_result(part: ExtPartial, cfg: KmerConfig, group, dev):
     """A one-shot extension-mode result from the rank's rows (_ext_rows):
-    the histogram of its counts over [0, cfg.upper], by one bincount on its
-    card, summed over the ranks (_sum_histograms), then every rank's rows
-    in rank order (_gather_ext) in one copy-out (_ext_list)."""
+    the histogram of its counts over [0, cfg.upper], binned on its card
+    (ops/compact.counts_histogram), summed over the ranks
+    (_sum_histograms), then every rank's rows in rank order (_gather_ext)
+    in one copy-out (_ext_list)."""
     with stage("result", dev):
         with stage("histogram", dev):
-            hist = _sum_histograms(counts_histogram(part.counts, cfg.upper), dev, group)
+            hist = _sum_histograms(compact.counts_histogram(part.counts, cfg.upper), dev,
+                                   group)
     return _ext_list(_gather_ext(part, group, dev), cfg.k), hist
 
 

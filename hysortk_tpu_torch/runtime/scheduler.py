@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..config import KmerConfig
+from ..ops import compact
 from ..ops import count as count_ops
 from ..ops import merge as merge_ops
 from ..ops import run_length_sum as sum_ops
@@ -53,12 +54,10 @@ from ..pipeline import (
     _count_device_packed,
     _count_device_packed_compact,
     ascending_partial,
-    compact_keys,
     ext_partial,
     feed_wire,
     host_histogram,
     kept_result,
-    kept_slots,
     merge_ext_partials,
     merge_ext_partials_device,
     pull_prefix,
@@ -534,20 +533,17 @@ def _consolidate_device_runs(dev_words, dev_cnts, cfg, run_len):
         dev_words, dev_cnts, *_UNFILTERED,
         words=cfg.words, run_len=run_len, pad_runs=_next_pow2(g) - g,
     )
-    # The merged rows are in key order, so the kept ones, gathered in
-    # order and cut into run_len pieces, are sorted runs already.
-    idx = torch.nonzero(keep).squeeze(1)
-    del keep
-    union = int(idx.shape[0])
+    # The merged rows are in key order, so the kept ones, compacted in order
+    # with the sentinel tail to whole runs (ops/compact.compact_kept) and cut
+    # into run_len pieces, are sorted runs already.
+    kept = compact.compact_kept(words_s, total, keep, rows=True, pad=run_len)
+    del words_s, total, keep
+    union = kept.m
     n_runs = -(-union // run_len)
-    rows = []
-    for src, fill in [(w, -1) for w in words_s] + [(total, 0)]:
-        flat = torch.full((n_runs * run_len,), fill, dtype=torch.int32,
-                          device=src.device)
-        flat[:union] = src[idx]
-        rows.append(flat.split(run_len))
-    new_w = [[r[i] for r in rows[:-1]] for i in range(n_runs)]
-    new_c = [rows[-1][i] for i in range(n_runs)]
+    rows = [r.split(run_len) for r in kept.keys]
+    new_w = [[r[i] for r in rows] for i in range(n_runs)]
+    counts = kept.counts.split(run_len)
+    new_c = [counts[i] for i in range(n_runs)]
     new_n = [min(run_len, union - i * run_len) for i in range(n_runs)]
     _LOG.info(
         "consolidate: %d runs -> %d (union %d rows) in %.2fs",
@@ -656,7 +652,8 @@ def count_reads_streaming(
             # (one copy-out through the pinned ring, pipeline.to_host).
             with annotate("stream/count_batch"):
                 words, cnt, keep = _count_device_packed(*args)
-                partial = compact_keys(words, cnt, kept_slots(keep), cfg.k, _UNFILTERED[1])
+                partial, _ = kept_result(words, cnt, keep, cfg, _UNFILTERED[1],
+                                         histogram=False)
                 del words, cnt, keep
             partial_keys.append(partial.keys)
             partial_cnts.append(partial.counts)

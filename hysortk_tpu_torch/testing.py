@@ -1177,6 +1177,164 @@ def dest_pack_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int
     return cases
 
 
+KEPT_ROWS_TILE = 2048  # slots a tile of csrc/kept_rows.cu: 256 threads x 8
+KEPT_ROWS_BINS = 1024  # the counts below it binned in shared memory there
+GATHER_TILE = 4096  # occurrences an output tile of its gather: 256 threads x 16
+GATHER_STAGED = 2048  # runs a gather tile stages in shared memory
+
+
+def kept_read_bytes(keep: torch.Tensor, rows: Sequence[torch.Tensor]) -> int:
+    """The bytes csrc/kept_rows.cu must read on this data, for its bound:
+    keep once (1 B a slot), and of each row in `rows` (the key words, the
+    counts) only the 32-byte sectors that hold a kept slot, as the kernel
+    reads no dropped slot's word. The sectors are counted at the rows'
+    addresses."""
+    idx = torch.nonzero(keep).squeeze(1)
+    sectors = 0
+    for r in rows:
+        at = (r.data_ptr() + r.element_size() * r.stride(0) * idx) // 32
+        sectors += int(torch.unique_consecutive(at).numel())
+    return keep.numel() + 32 * sectors
+
+
+def _kept_counts(rng, n: int, upper: int) -> np.ndarray:
+    """Filtered counts in [1, upper], as skewed as a real block's (most
+    small), with some at upper and, where upper allows, some past the
+    shared bins."""
+    c = np.minimum(rng.geometric(0.2, n), upper)
+    pick = rng.random(n)
+    c = np.where(pick < 0.05, upper, c)
+    if upper > KEPT_ROWS_BINS:
+        c = np.where((pick >= 0.05) & (pick < 0.1),
+                     rng.integers(KEPT_ROWS_BINS, upper + 1, n), c)
+    return c.astype(np.int64)
+
+
+def kept_rows_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int, int,
+                                     bool]]:
+    """(name, words (W, n) uint32, cnt (n,) int32, keep (n,) bool, upper,
+    hist_upper, mixed) of every compaction case: the kept rows' counts lie
+    in [1, upper] (the filter's), the dropped rows' hold anything (0, past
+    upper, 2^31 - 1); `mixed`: the words are mixed keys (mixkey.mix_keys_np
+    of random keys, the sentinel kept as it is) to be unmixed.
+
+    empty, one_kept, one_dropped   n = 0 and n = 1
+    w1 .. w6         one to six key words, ragged n, U = 50
+    u255 .. u65536   U = 255, 256, 65535, 65536: counts narrowed to uint8,
+                     uint16, uint16, int32, histograms over [0, U]
+    unfiltered       U = 2^31 - 1 (int32 counts, kept ones up to 10^6 so
+                     that their sum stays below 2^31), histogram over [0,
+                     50]: counts above 50 dropped from it
+    none_kept, all_kept
+    top_bit          top-bit and all-ones words; sentinel rows kept
+    tile-1, tile, tile+1   n = KEPT_ROWS_TILE - 1, KEPT_ROWS_TILE, + 1
+    gap              kept rows in tiles 0, 2 and 4, none in tiles 1 and 3
+    mixed_w1 .. mixed_w6   mixed keys with sentinel rows among the kept
+    """
+    from .ops import mixkey
+
+    rng = np.random.default_rng(31)
+    t = KEPT_ROWS_TILE
+    cases = []
+
+    def add(name, n, n_words, upper=50, hist_upper=None, keep_p=0.3, keep=None,
+            words=None, mixed=False, top=None):
+        if words is None:
+            words = rng.integers(0, 2**32, (n_words, n), dtype=np.uint64).astype(np.uint32)
+        if keep is None:
+            keep = rng.random(n) < keep_p
+        junk = rng.choice(np.array([0, upper + 1, 2**31 - 1, 7], dtype=np.int64), n)
+        cnt = np.where(keep, _kept_counts(rng, n, top or upper), junk)
+        cnt = np.minimum(cnt, 2**31 - 1).astype(np.int32)
+        if mixed:
+            sentinel = rng.random(n) < 0.05
+            words[:, sentinel] = 0xFFFFFFFF
+            words = mixkey.mix_keys_np(words.T).T.copy()
+        cases.append((name, words, cnt, keep, upper,
+                      upper if hist_upper is None else hist_upper, mixed))
+
+    add("empty", 0, 2)
+    add("one_kept", 1, 2, keep=np.ones(1, bool))
+    add("one_dropped", 1, 3, keep=np.zeros(1, bool))
+    for w in range(1, 7):
+        add(f"w{w}", 3 * t + 100 * w + 3, w)
+    for upper in (255, 256, 65535, 65536):
+        add(f"u{upper}", 2 * t + 57, 2, upper=upper)
+    add("unfiltered", 2 * t + 9, 2, upper=2**31 - 1, hist_upper=50, top=10**6)
+    add("none_kept", 2 * t + 5, 2, keep_p=0.0)
+    add("all_kept", 2 * t + 5, 2, keep_p=1.0)
+    n = t + 301
+    top = np.where(rng.random((4, n)) < 0.3, np.uint32(0xFFFFFFFF),
+                   np.uint32(0x80000000) | rng.integers(0, 2**31, (4, n)).astype(np.uint32))
+    add("top_bit", n, 4, words=top.astype(np.uint32), keep_p=0.7)
+    for name, n in (("tile-1", t - 1), ("tile", t), ("tile+1", t + 1)):
+        add(name, n, 2, keep_p=0.5)
+    n = 5 * t - 13
+    keep = rng.random(n) < 0.4
+    keep[t:2 * t] = False
+    keep[3 * t:4 * t] = False
+    add("gap", n, 2, keep=keep)
+    for w in range(1, 7):
+        add(f"mixed_w{w}", 2 * t + 31 * w, w, keep_p=0.5, mixed=True)
+    return cases
+
+
+def gather_runs_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray]]:
+    """(name, starts (m,) int64, lengths (m,) int64, arrays (A, N) int32) of
+    every gather case: the runs arrays[:, starts[j]:starts[j] + lengths[j]]
+    laid end to end, A = 1 or 2.
+
+    one_run          a single run
+    long_run         a run of 100,000 (many output tiles) among short ones
+    tile-1 .. tile+1 GATHER_TILE - 1, GATHER_TILE, + 1 occurrences in all
+    many_runs        runs of 1 and 2: more runs in an output tile than it
+                     stages
+    zero_length      empty runs among the others, some at tile starts
+    aligned          every start and length a multiple of 4 (the 16-byte
+                     loads)
+    one_array        one array
+    kept_heads       the kept runs of a sorted block: starts at the heads,
+                     lengths the runs' counts, ascending
+    """
+    rng = np.random.default_rng(37)
+    t = GATHER_TILE
+    cases = []
+
+    def add(name, lengths, n_arrays=2, starts=None, size=None):
+        lengths = np.asarray(lengths, dtype=np.int64)
+        size = size or int(lengths.sum()) + 1000
+        if starts is None:
+            starts = rng.integers(0, size - lengths + 1)
+        arrays = rng.integers(-2**31, 2**31, (n_arrays, size)).astype(np.int32)
+        cases.append((name, np.asarray(starts, dtype=np.int64), lengths, arrays))
+
+    add("one_run", [777])
+    add("long_run", np.concatenate([rng.integers(1, 20, 300), [100_000],
+                                    rng.integers(1, 20, 300)]))
+
+    def summing_to(total):
+        lengths = rng.integers(1, 40, total)
+        lengths = lengths[np.cumsum(lengths) <= total]
+        return np.append(lengths, total - lengths.sum())
+
+    for name, total in (("tile-1", t - 1), ("tile", t), ("tile+1", t + 1)):
+        add(name, summing_to(total))
+    add("many_runs", rng.integers(1, 3, 3 * t))
+    lengths = rng.integers(0, 30, 2000)
+    lengths[rng.random(2000) < 0.3] = 0
+    add("zero_length", np.concatenate([[0], summing_to(t), [0, 0], summing_to(t), [0],
+                                       lengths]))
+    m = 1500
+    lengths = 4 * rng.integers(1, 12, m)
+    add("aligned", lengths, starts=4 * rng.integers(0, 5000, m), size=4 * 5000 + 64)
+    add("one_array", rng.integers(1, 25, 900), n_arrays=1)
+    runs = rng.geometric(0.15, 3000)
+    heads = np.concatenate([[0], np.cumsum(runs)[:-1]])
+    kept = rng.random(3000) < 0.5
+    add("kept_heads", runs[kept], starts=heads[kept], size=int(runs.sum()))
+    return cases
+
+
 PACK_TILE = 32768  # bases a word block of csrc/supermer_pack.cu: 256 threads x 8 words
 PACK_STAGED = 1024  # runs a word block stages in shared memory
 

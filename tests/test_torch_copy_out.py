@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from hysortk_tpu_torch import pipeline
+from hysortk_tpu_torch import config, pipeline
 from hysortk_tpu_torch.runtime import scheduler
 
 CHUNK = 256  # bytes a block in the CPU cases: a handful of elements
@@ -156,7 +156,8 @@ def test_cpu_route_asks_for_no_staging(monkeypatch):
 
 
 def test_results_leave_through_the_copy_out(monkeypatch):
-    """compact_keys, pull_prefix and ExtPartial.to_host each make one call
+    """kept_result (keys, counts and histogram), pull_prefix,
+    ExtPartial.to_host and ExtPartial.to_host_with_hist each make one call
     of to_host for their whole result."""
     calls = []
     real = pipeline.to_host
@@ -165,15 +166,20 @@ def test_results_leave_through_the_copy_out(monkeypatch):
     rng = np.random.default_rng(5)
     words = [_tensor(rng, (30,), torch.int32) for _ in range(2)]
     cnt = torch.from_numpy(rng.integers(1, 40, 30).astype(np.int32))
-    kl = pipeline.compact_keys(words, cnt, torch.arange(0, 30, 3), 31, 50)
+    keep = torch.arange(30) % 3 == 0
+    kl, hist = pipeline.kept_result(words, cnt, keep, config.KmerConfig(k=31, upper=50), 50)
     assert kl.counts.dtype == np.int32 and kl.keys.dtype == np.uint32
     assert np.array_equal(kl.counts, cnt.numpy()[::3])
+    assert hist.dtype == np.int32 and np.array_equal(
+        hist, pipeline.host_histogram(cnt.numpy()[::3], 50))
     pipeline.pull_prefix(words + [cnt], torch.tensor(7))
     part = pipeline.ExtPartial(torch.stack(words, -1), torch.ones(30, dtype=torch.int32),
                                words[0].clone(), words[1].clone())
     got = part.to_host(31)
     assert np.array_equal(got.occ_pos, words[1].numpy().view(np.uint32))
-    assert calls == [2, 3, 4]
+    again, ones = part.to_host_with_hist(31, torch.tensor([0, 30], dtype=torch.int64))
+    assert np.array_equal(again.occ_rid, got.occ_rid) and ones.tolist() == [0, 30]
+    assert calls == [3, 3, 4, 5]
 
 
 # ---------------------------------------------------------------------------

@@ -204,12 +204,13 @@ def test_ext_partial_is_the_kept_prefix(k):
     packed, lens, n = pipeline.wire_batch(codes, lengths, cfg, "cpu")
     outs = pipeline._count_device_ext_packed(packed, lens, 7, k, n, *pipeline.UNFILTERED)
     part = pipeline.ext_partial(*outs)
-    starts, counts, rid, pos = pipeline.kept_occurrences(outs[1], outs[2], outs[3], outs[4])
+    kept, rid, pos = pipeline.kept_occurrences(*outs)
+    starts, counts = kept.slots.to(torch.int64), kept.counts
     assert len(part) == starts.shape[0] > 0 and part.ascending
     assert torch.equal(part.keys, torch.stack([w[starts] for w in outs[0]], dim=-1))
-    assert torch.equal(part.counts.to(torch.int64), counts)
+    assert torch.equal(part.counts, counts) and torch.equal(part.keys, kept.keys)
     assert torch.equal(part.occ_rid, rid) and torch.equal(part.occ_pos, pos)
-    assert part.n_occ == int(counts.sum()) < n
+    assert part.n_occ == int(counts.sum()) == kept.occ < n
     want = pipeline.count_reads_ext(codes, lengths, dataclasses.replace(cfg, unfiltered=True),
                                     7, device="cpu")[0]
     got = part.to_host(k)

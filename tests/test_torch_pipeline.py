@@ -18,6 +18,7 @@ from hysortk_tpu import pipeline as jpipeline
 from hysortk_tpu import testing as oracle
 from hysortk_tpu.ops import pallas_sort
 from hysortk_tpu_torch import config, pipeline, testing
+from hysortk_tpu_torch.ops import compact
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # W = 1, 2 and 4 words; few enough bases that each interpret-mode member
@@ -194,7 +195,8 @@ def test_count_reads_device_compact_is_the_same_list(k):
                                          (256, torch.uint16), (65535, torch.uint16)])
 def test_narrow_counts_and_pull_prefix(upper, dtype):
     cnt = torch.tensor([1, 2, upper, 7, 0, 0], dtype=torch.int32)
-    narrow = pipeline.narrow_counts(cnt, upper)
+    narrow = compact.compact_kept_plain([cnt], cnt, torch.ones(6, dtype=torch.bool),
+                                        upper=upper).counts
     assert narrow.dtype == dtype
     pulled, words = pipeline.pull_prefix([narrow, cnt], 4)
     assert pulled.astype(np.int32).tolist() == [1, 2, upper, 7]

@@ -24,6 +24,7 @@ from hysortk_tpu.runtime import scheduler as jsched
 from hysortk_tpu_torch import config, pipeline
 from hysortk_tpu_torch.io import fasta as fasta_io
 from hysortk_tpu_torch.io import native, supermer
+from hysortk_tpu_torch.ops import compact
 from hysortk_tpu_torch.runtime import scheduler
 
 THREADS = [1, 2, 7]
@@ -34,6 +35,22 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def binned(monkeypatch):
+    """The histograms the port's result stage bins, one entry each: its
+    plain version (ops/compact.counts_histogram_plain), which CPU tensors
+    take."""
+    calls = []
+    real = compact.counts_histogram_plain
+
+    def spy(counts, upper):
+        calls.append(upper)
+        return real(counts, upper)
+
+    monkeypatch.setattr(compact, "counts_histogram_plain", spy)
+    return calls
 
 
 def _threads(n: int):
@@ -189,10 +206,10 @@ def test_feed_stages_through_pinned_memory(cuda, monkeypatch):
 
 @pytest.mark.parametrize("unfiltered", [False, True])
 @pytest.mark.parametrize("upper", [1, 50, 255, 65535])
-def test_device_histogram_matches_host_and_jax(upper, unfiltered):
-    """Random counts, kept by a mask; under `unfiltered` many exceed upper
-    (up to 2**31 - 1) and fall outside the histogram, as host_histogram's
-    slice drops them."""
+def test_device_histogram_matches_host_and_jax(upper, unfiltered, binned):
+    """Random counts, kept by a mask, binned in kept_result's compaction;
+    under `unfiltered` many exceed upper (up to 2**31 - 1) and fall outside
+    the histogram, as host_histogram's slice drops them."""
     rng = np.random.default_rng(upper + unfiltered)
     n = 5000
     hi = 2**31 - 1 if unfiltered else upper + 1
@@ -202,27 +219,30 @@ def test_device_histogram_matches_host_and_jax(upper, unfiltered):
         cnt[40:80] = upper + 1
         cnt[80:90] = 2**31 - 1
     keep = rng.random(n) < 0.7
-    idx = torch.nonzero(torch.from_numpy(keep)).squeeze(1)
-    before = pipeline.calls["device_histogram"]
-    got = pipeline.device_histogram(torch.from_numpy(cnt), idx, upper)
-    assert pipeline.calls["device_histogram"] == before + 1
+    words = [torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32))]
+    cfg, _ = _cfgs(lower=1, upper=upper)
+    kl, got = pipeline.kept_result(words, torch.from_numpy(cnt), torch.from_numpy(keep),
+                                   cfg, pipeline.UNFILTERED[1])
+    assert len(binned) == 1
+    assert np.array_equal(kl.counts, cnt[keep])
     want = pipeline.host_histogram(cnt[keep], upper)
     assert got.dtype == np.int32 and got.shape == (upper + 1,)
     assert np.array_equal(got, want)
     assert np.array_equal(got, jpipeline.host_histogram(cnt[keep], upper))
-    empty = pipeline.device_histogram(torch.from_numpy(cnt), idx[:0], upper)
+    _, empty = pipeline.kept_result(words, torch.from_numpy(cnt),
+                                    torch.zeros(n, dtype=torch.bool), cfg,
+                                    pipeline.UNFILTERED[1])
     assert empty.shape == (upper + 1,) and not empty.any()
 
 
 @pytest.mark.parametrize("upper", [1, 50, 255, 65535])
-def test_count_reads_histogram_comes_from_the_device(upper):
+def test_count_reads_histogram_comes_from_the_device(upper, binned):
     """count_reads and count_reads_ext (filtered and under cfg.unfiltered)
     return device_histogram's histogram, equal to the JAX package's."""
     codes, lengths = fasta_io.reads_to_codes(_reads(9, repeat=25))
     cfg, jcfg = _cfgs(lower=1, upper=upper)
-    before = pipeline.calls["device_histogram"]
     kl, hist = pipeline.count_reads(codes, lengths, cfg, device="cpu")
-    assert pipeline.calls["device_histogram"] == before + 1
+    assert len(binned) == 1
     jkl, jhist = jpipeline.count_reads(codes, lengths, jcfg)
     assert np.array_equal(kl.keys, jkl.keys) and np.array_equal(kl.counts, jkl.counts)
     assert np.array_equal(hist, jhist)
@@ -234,7 +254,7 @@ def test_count_reads_histogram_comes_from_the_device(upper):
         assert np.array_equal(ehist, jehist)
         assert np.array_equal(ehist, pipeline.host_histogram(ekl.counts, upper))
         assert ekl.as_dict() == jekl.as_dict()
-    assert pipeline.calls["device_histogram"] == before + 3
+    assert len(binned) == 3
 
 
 # ---------------------------------------------------------------------------
@@ -339,15 +359,14 @@ def test_host_list_merge_lays_out_on_the_device(monkeypatch, k, upper):
         assert np.array_equal(got_h, pipeline.host_histogram(want_c, upper))
 
 
-def test_host_held_stream_equals_jax_with_device_histograms():
+def test_host_held_stream_equals_jax_with_device_histograms(binned):
     """count_reads_streaming on host-held partials: every batch's rows out
     through `to_host`, the merge's histogram from the device; equal to the
     JAX stream and to one-shot."""
     codes, lengths = fasta_io.reads_to_codes(_reads(13, n=40))
     cfg, jcfg = _cfgs(lower=1, upper=20)
-    before = pipeline.calls["device_histogram"]
     kl, hist = scheduler.count_reads_streaming(codes, lengths, cfg, 700, device="cpu")
-    assert pipeline.calls["device_histogram"] == before + 1
+    assert len(binned) == 1
     jkl, jhist = jsched.count_reads_streaming(codes, lengths, jcfg, 700)
     assert np.array_equal(kl.keys, jkl.keys) and np.array_equal(kl.counts, jkl.counts)
     assert np.array_equal(hist, jhist)
