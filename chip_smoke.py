@@ -57,9 +57,11 @@ build/kernels/ at first use. Phases, each printing its findings:
      more runs in a tile than it stages, aligned runs; the kernels' tiles
      against testing's), then the inputs the main paths give each kernel
      at the size of phases 2 and 4 (the wire decode on phase 2's wire, also
-     in extension mode; kept_rows at phase 2's, 9(a)'s and 8(a)'s shapes
-     and gather_runs at 8(a)'s, beside torch.nonzero + index_select +
-     bincount), with each kernel's bound (the least time the card could
+     in extension mode; kept_rows at phase 2's (with the histogram, and
+     with sync=False as the streams' compact step runs it), 9(a)'s and
+     8(a)'s shapes and in histogram-only mode, and gather_runs at 8(a)'s,
+     beside torch.nonzero + index_select + bincount), with each kernel's
+     bound (the least time the card could
      take) and, where one PyTorch call computes the same function, that
      call's time
   2  the slice at a size users run: a seeded 2^22-base genome sampled into
@@ -994,10 +996,10 @@ def phase1_kept_rows_cases(errs) -> None:
     from hysortk_tpu_torch import _build, testing
     from hysortk_tpu_torch.ops import compact
 
-    geometry = [ctypes.c_int() for _ in range(4)]
+    geometry = [ctypes.c_int() for _ in range(6)]
     _build.lib().hk_kept_rows_geometry(*[ctypes.byref(g) for g in geometry])
-    want_geometry = (testing.KEPT_ROWS_TILE, testing.KEPT_ROWS_BINS, testing.GATHER_TILE,
-                     testing.GATHER_STAGED)
+    want_geometry = (testing.KEPT_ROWS_TILE, testing.KEPT_ROWS_BINS, testing.KEPT_ROWS_GROUP,
+                     testing.KEPT_ROWS_WINDOW, testing.GATHER_TILE, testing.GATHER_STAGED)
     if tuple(g.value for g in geometry) != want_geometry:
         raise AssertionError(f"kept_rows' geometry {[g.value for g in geometry]} is not "
                              f"testing's {want_geometry}, whose cases are sized by it")
@@ -1030,7 +1032,9 @@ def phase1_kept_rows_cases(errs) -> None:
         pms = cuda_ms(lambda: compact.compact_kept_plain(*card, **modes[0]), 2)
         timed.append(f"{name} {ms:.4f}/{pms:.4f}/{b[0]:.4f}")
     log(f"phase1 kept_rows hard cases at tile {testing.KEPT_ROWS_TILE} "
-        f"({testing.KEPT_ROWS_BINS} shared bins): every mode and the histogram-only "
+        f"({testing.KEPT_ROWS_BINS} shared bins, count blocks of "
+        f"{testing.KEPT_ROWS_GROUP} slots, a look-back window of "
+        f"{testing.KEPT_ROWS_WINDOW} blocks): every mode and the histogram-only "
         f"launch equal to the plain version; kernel/plain/bound ms (histogram, slots "
         f"and offsets): {'; '.join(timed)}")
     timed = []
@@ -1067,7 +1071,7 @@ def phase1_result_stage(codes_np, lengths_np, errs) -> dict:
     Returns the two kernels' measurements (phase 2's shape for kept_rows)."""
     import torch
 
-    from hysortk_tpu_torch import pipeline
+    from hysortk_tpu_torch import pipeline, testing
     from hysortk_tpu_torch.ops import compact, fused_count, keybuild, mixkey, radix_sort
     from hysortk_tpu_torch.ops import wire
 
@@ -1101,6 +1105,18 @@ def phase1_result_stage(codes_np, lengths_np, errs) -> dict:
     lib_ms = cuda_ms(library, 5)
     log_kernel(f"phase1 kept_rows phase 2 shape n={n} W={w} m={m} U={UPPER} (library "
                f"composition nonzero + index_select + bincount {lib_ms:.4f} ms)", kr)
+    # The streams' compact step on the same block: no host read, n rows
+    # out (the kept ones, then the sentinel tail), int32 counts.
+    mode = dict(rows=True, sync=False)
+    e = same_kept("kept_rows phase 2 shape, sync=False",
+                  compact.compact_kept(words, cnt, keep, **mode),
+                  compact.compact_kept_plain(words, cnt, keep, **mode))
+    errs["kept_rows"] = max(errs["kept_rows"], e)
+    b = bound(testing.kept_read_bytes(keep, [*words, cnt]) + n * (4 * w + 4), 2 * n)
+    ms = cuda_ms(lambda: compact.compact_kept(words, cnt, keep, **mode), 10)
+    pms = cuda_ms(lambda: compact.compact_kept_plain(words, cnt, keep, **mode), 3)
+    log(f"phase1 kept_rows phase 2 shape with sync=False (the streams' compact step) n={n}: "
+        f"equal, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
     del words, cnt, keep, kept
 
     # 9(a)'s one rank: the mixed keys sorted and counted, unmixed in the
@@ -1131,15 +1147,19 @@ def phase1_result_stage(codes_np, lengths_np, errs) -> dict:
     errs["kept_rows"] = max(errs["kept_rows"], e)
     m = int(kept.m)
     ms = cuda_ms(lambda: compact.compact_kept(words, cnt, keep, **mode), 10)
+    pms = cuda_ms(lambda: compact.compact_kept_plain(words, cnt, keep, **mode), 3)
     b = kept_bound(keep, [*words, cnt], 4 * w + 12)
     log(f"phase1 kept_rows 8(a) shape (int32 counts, slots, offsets) n={n}: equal, "
-        f"kernel {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
     hist = compact.counts_histogram(kept.counts, UPPER)
     if not torch.equal(hist, compact.counts_histogram_plain(kept.counts, UPPER)):
         raise AssertionError("the histogram-only launch differs from its plain version")
+    b = bound(4 * m, 2 * m)
     log(f"phase1 kept_rows histogram-only launch on {m} counts: equal, kernel "
         f"{cuda_ms(lambda: compact.counts_histogram(kept.counts, UPPER), 10):.4f} ms, "
-        f"torch.bincount {cuda_ms(lambda: torch.bincount(kept.counts), 10):.4f} ms")
+        f"plain {cuda_ms(lambda: compact.counts_histogram_plain(kept.counts, UPPER), 3):.4f} "
+        f"ms, torch.bincount {cuda_ms(lambda: torch.bincount(kept.counts), 10):.4f} ms, "
+        f"bound {b[0]:.4f} ms ({b[1]})")
     args = (kept.slots, kept.counts, rid_s, pos_s)
     got = compact.gather_runs(*args, offsets=kept.offsets, total=kept.occ)
     e = max_abs_err(got, compact.gather_runs_plain(*args))

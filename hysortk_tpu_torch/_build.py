@@ -283,14 +283,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_dest_pack.argtypes = [ptr, ptr, i64, ptr, i32, ptrs, i32, i64, i32, i64, ptr,
                                  ptr, ptr, ptr]
     lib.hk_dest_pack.restype = i32
-    lib.hk_kept_rows_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    lib.hk_kept_rows_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 6
     lib.hk_kept_rows_geometry.restype = None
     lib.hk_kept_rows_scratch.argtypes = [i64]
     lib.hk_kept_rows_scratch.restype = i64
-    lib.hk_kept_count.argtypes = [ptr, ptr, i64, ptr, ptr, ptr]
+    lib.hk_kept_mask_bytes.argtypes = [i64]
+    lib.hk_kept_mask_bytes.restype = i64
+    lib.hk_kept_count.argtypes = [ptr, ptr, i64, ptr, i32, ptr, ptr, ptr,
+                                  ctypes.POINTER(ctypes.c_int64)]
     lib.hk_kept_count.restype = i32
-    lib.hk_kept_write.argtypes = [ptr, ptrs, i32, ptr, i64, ptr, ptr, ptr, i64, i64, i64,
-                                  ptr, i32, ptr, ptr, u32s, i32, u32s, ptr, i32, ptr]
+    lib.hk_kept_write.argtypes = [ptr, ptrs, i32, ptr, i64, ptr, ptr, ptr, i64, i64, i64, ptr,
+                                  i32, ptr, ptr, u32s, i32, u32s, i32, ptr]
     lib.hk_kept_write.restype = i32
     lib.hk_count_histogram.argtypes = [ptr, i64, ptr, i32, ptr]
     lib.hk_count_histogram.restype = i32

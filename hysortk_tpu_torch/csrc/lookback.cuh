@@ -58,6 +58,7 @@ constexpr uint64_t kSumInclusive = uint64_t{2} << 62;
 constexpr uint64_t kPairMask = (uint64_t{1} << 31) - 1;
 constexpr unsigned kAllLanes = 0xFFFFFFFFu;
 constexpr int64_t kDescOffset = 8;
+constexpr int kWindow = 32;  // descriptors a walk reads at a time: a lane each
 
 template <typename Desc>
 struct Scratch {
@@ -110,7 +111,7 @@ __device__ __forceinline__ void publish_value(unsigned* desc, int tile, unsigned
 __device__ __forceinline__ unsigned walk_right(const unsigned* desc, int tile,
                                                int num_tiles, unsigned end_value) {
   const int lane = threadIdx.x & 31;
-  for (int first = tile + 1;; first += 32) {
+  for (int first = tile + 1;; first += kWindow) {
     const int t = first + lane;
     unsigned v, with_value, pending;
     do {
@@ -153,7 +154,7 @@ template <int kStep, typename Add>
 __device__ __forceinline__ void walk_sums(const uint64_t* desc, int tile, int num_tiles,
                                           Add add) {
   const int lane = threadIdx.x & 31;
-  for (int first = tile + kStep;; first += 32 * kStep) {
+  for (int first = tile + kStep;; first += kWindow * kStep) {
     const int t = first + kStep * lane;
     const bool inside = kStep > 0 ? t < num_tiles : t >= 0;
     uint64_t d;

@@ -16,6 +16,7 @@ itself, and a failed build or launch raises.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Sequence
 
@@ -212,36 +213,46 @@ def _compact_cuda(words, cnt, keep, upper, mixed, hist_upper, slots, offsets, ro
     n = keep.shape[0]
     n_words = len(words)
     lib = _build.lib()
+    # The head holds the header (the kept rows and their occurrences) and the
+    # histogram, which are returned as views of it (the kept rows' number
+    # where the call does not sync); the scratch the count launch's
+    # look-back and the tiles' prefixes. Every piece of host work but the
+    # outputs' allocation comes before the host read, which the count's
+    # entry point makes itself.
+    bins = -1 if hist_upper is None else hist_upper
+    head = torch.empty(2 + bins + 1, dtype=torch.int64, device=dev)
     scratch = torch.empty(lib.hk_kept_rows_scratch(n), dtype=torch.uint8, device=dev)
-    header = torch.empty(2, dtype=torch.int64, device=dev)
+    mask = torch.empty(lib.hk_kept_mask_bytes(n), dtype=torch.uint8, device=dev)
+    word_ptrs = _build.pointer_array(words)
+    rc, rounds, fix = mixkey.kernel_consts(n_words) if mixed else (None, 0, None)
+    header = (ctypes.c_int64 * 2)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.hk_kept_count(keep.data_ptr(), cnt.data_ptr() if offsets else None, n,
-                                   scratch.data_ptr(), header.data_ptr(), stream)
+                                   head.data_ptr(), bins, scratch.data_ptr(), mask.data_ptr(),
+                                   stream, header if sync else None)
         _build.check(status, "kept_rows count launch")
         if sync:
-            m, occ = header.tolist()
+            m, occ = header
             length = _length(m, pad, n)
         else:
-            m, occ, length = header[0], 0, n
+            m, occ, length = head[0], 0, n
         keys = torch.empty((n_words, length) if rows else (length, n_words),
                            dtype=torch.int32, device=dev)
         counts = torch.empty(length, dtype=narrow_dtype(upper), device=dev)
         slot_t = torch.empty(m, dtype=torch.int32, device=dev) if slots else None
         offs_t = torch.empty(m, dtype=torch.int32, device=dev) if offsets else None
-        hist = (None if hist_upper is None else
-                torch.empty(hist_upper + 1, dtype=torch.int64, device=dev))
-        rc, rounds, fix = mixkey.kernel_consts(n_words) if mixed else (None, 0, None)
         row_stride, word_stride = (1, length) if rows else (n_words, 1)
         status = lib.hk_kept_write(
-            keep.data_ptr(), _build.pointer_array(words), n_words, cnt.data_ptr(), n,
-            scratch.data_ptr(), header.data_ptr(), keys.data_ptr(), row_stride, word_stride,
-            length, counts.data_ptr(), counts.element_size(), _ptr(slot_t), _ptr(offs_t),
-            rc, rounds, fix, _ptr(hist), 0 if hist_upper is None else hist_upper, stream)
+            mask.data_ptr(), word_ptrs, n_words, cnt.data_ptr(), n, head.data_ptr(),
+            scratch.data_ptr(), keys.data_ptr(), row_stride, word_stride, length,
+            counts.data_ptr(), counts.element_size(), _ptr(slot_t), _ptr(offs_t), rc, rounds,
+            fix, bins, stream)
     _build.check(status, "kept_rows write launch")
     _build.launches["kept_rows"] += 1
-    return Kept(keys=list(keys.unbind(0)) if rows else keys, counts=counts, m=m, hist=hist,
-                slots=slot_t, offsets=offs_t, occ=occ)
+    return Kept(keys=list(keys.unbind(0)) if rows else keys, counts=counts, m=m,
+                hist=None if hist_upper is None else head[2:], slots=slot_t, offsets=offs_t,
+                occ=occ)
 
 
 def gather_runs_plain(starts: torch.Tensor, lengths: torch.Tensor, *arrays: torch.Tensor

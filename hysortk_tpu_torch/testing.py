@@ -1177,8 +1177,10 @@ def dest_pack_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int
     return cases
 
 
-KEPT_ROWS_TILE = 2048  # slots a tile of csrc/kept_rows.cu: 256 threads x 8
+KEPT_ROWS_TILE = 2048  # slots a write tile of csrc/kept_rows.cu: 256 threads x 8
 KEPT_ROWS_BINS = 1024  # the counts below it binned in shared memory there
+KEPT_ROWS_GROUP = 32768  # slots a count block covers: the unit of its look-back
+KEPT_ROWS_WINDOW = 32  # count blocks its look-back reads at a time (lookback.cuh kWindow)
 GATHER_TILE = 4096  # occurrences an output tile of its gather: 256 threads x 16
 GATHER_STAGED = 2048  # runs a gather tile stages in shared memory
 
@@ -1227,8 +1229,16 @@ def kept_rows_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int
                      50]: counts above 50 dropped from it
     none_kept, all_kept
     top_bit          top-bit and all-ones words; sentinel rows kept
+    small            n = 100, below one tile
     tile-1, tile, tile+1   n = KEPT_ROWS_TILE - 1, KEPT_ROWS_TILE, + 1
+    group-1 .. group+1   n = KEPT_ROWS_GROUP - 1, + 0, + 1: one count
+                     block, or a second one with a slot
     gap              kept rows in tiles 0, 2 and 4, none in tiles 1 and 3
+    far_gap          kept rows in the first count block and the last two,
+                     none in the KEPT_ROWS_WINDOW + 2 between: the
+                     look-back walks past a whole window of blocks without
+                     a row
+    last_kept        only the block's last slot kept, n past a tile edge
     mixed_w1 .. mixed_w6   mixed keys with sentinel rows among the kept
     """
     from .ops import mixkey
@@ -1267,13 +1277,25 @@ def kept_rows_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int
     top = np.where(rng.random((4, n)) < 0.3, np.uint32(0xFFFFFFFF),
                    np.uint32(0x80000000) | rng.integers(0, 2**31, (4, n)).astype(np.uint32))
     add("top_bit", n, 4, words=top.astype(np.uint32), keep_p=0.7)
+    add("small", 100, 3, keep_p=0.5)
     for name, n in (("tile-1", t - 1), ("tile", t), ("tile+1", t + 1)):
         add(name, n, 2, keep_p=0.5)
+    g = KEPT_ROWS_GROUP
+    for name, n in (("group-1", g - 1), ("group", g), ("group+1", g + 1)):
+        add(name, n, 2, keep_p=0.1)
     n = 5 * t - 13
     keep = rng.random(n) < 0.4
     keep[t:2 * t] = False
     keep[3 * t:4 * t] = False
     add("gap", n, 2, keep=keep)
+    n = (KEPT_ROWS_WINDOW + 5) * g - 7
+    keep = rng.random(n) < 0.02
+    keep[g:(KEPT_ROWS_WINDOW + 3) * g] = False
+    add("far_gap", n, 2, keep=keep)
+    n = 3 * t + 5
+    keep = np.zeros(n, bool)
+    keep[-1] = True
+    add("last_kept", n, 2, keep=keep)
     for w in range(1, 7):
         add(f"mixed_w{w}", 2 * t + 31 * w, w, keep_p=0.5, mixed=True)
     return cases

@@ -91,10 +91,15 @@ def test_tail_and_unsynced_modes_hold_the_same_rows(case):
     assert isinstance(outs[1][0].m, torch.Tensor) and outs[1][0].m.dim() == 0
 
 
+def _at(t: torch.Tensor, off: int) -> torch.Tensor:
+    """t as a view `off` elements into a larger tensor."""
+    return torch.cat([t.new_zeros(off), t])[off:]
+
+
 def test_kept_rows_cases_reach_their_edges():
     by_name = {c[0]: c for c in CASES}
-    t = testing.KEPT_ROWS_TILE
-    assert {c[3].size for c in CASES} >= {0, 1, t - 1, t, t + 1}
+    t, g = testing.KEPT_ROWS_TILE, testing.KEPT_ROWS_GROUP
+    assert {c[3].size for c in CASES} >= {0, 1, 100, t - 1, t, t + 1, g - 1, g, g + 1}
     assert {c[1].shape[0] for c in CASES} == set(range(1, 7))
     assert {compact.narrow_dtype(c[4]) for c in CASES} == {torch.uint8, torch.uint16,
                                                           torch.int32}
@@ -102,6 +107,15 @@ def test_kept_rows_cases_reach_their_edges():
     assert not by_name["none_kept"][3].any() and by_name["all_kept"][3].all()
     gap = by_name["gap"][3]
     assert gap[:t].any() and not gap[t:2 * t].any() and gap[2 * t:3 * t].any()
+    # far_gap: more than a look-back window of count blocks without a kept
+    # row between blocks that have some.
+    far = by_name["far_gap"][3]
+    blocks = np.add.reduceat(far, np.arange(0, far.size, g))
+    empty = np.flatnonzero(blocks == 0)
+    assert blocks[0] and blocks[-1] and empty.size > testing.KEPT_ROWS_WINDOW
+    assert np.array_equal(empty, np.arange(empty[0], empty[0] + empty.size))
+    last = by_name["last_kept"][3]
+    assert last[-1] and last.sum() == 1 and last.size % t != 0
     unf = by_name["unfiltered"]
     assert (unf[2][unf[3]] > unf[5]).any()  # kept counts past the histogram
     big = by_name["u65535"]
@@ -253,8 +267,7 @@ def test_kept_rows_kernel_matches_plain(case, cuda):
     # Rows at odd offsets: keep not 8- or 16-byte aligned.
     _, _, _, _, upper, hist_upper, mixed = case
     words, cnt, keep = _tensors(case, cuda)
-    at = lambda t, off: torch.cat([t.new_zeros(off), t])[off:]
-    got = compact.compact_kept([at(w, 1) for w in words], at(cnt, 1), at(keep, 3),
+    got = compact.compact_kept([_at(w, 1) for w in words], _at(cnt, 1), _at(keep, 3),
                                upper=upper, mixed=mixed, hist_upper=hist_upper,
                                slots=True, offsets=True)
     _same(got, _kept(case, fn=compact.compact_kept_plain, slots=True, offsets=True))
@@ -266,6 +279,9 @@ def test_histogram_kernel_matches_plain(upper, cuda):
     rng = np.random.default_rng(upper)
     counts = torch.from_numpy(rng.integers(0, 2 * upper, 100_003).astype(np.int32))
     got = compact.counts_histogram(counts.to(cuda), upper)
+    assert torch.equal(got.cpu(), compact.counts_histogram_plain(counts, upper))
+    # Off the 16-byte boundary: the scalar loads.
+    got = compact.counts_histogram(_at(counts.to(cuda), 1), upper)
     assert torch.equal(got.cpu(), compact.counts_histogram_plain(counts, upper))
 
 
