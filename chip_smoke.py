@@ -2367,13 +2367,16 @@ def profile_call(run, what: str) -> tuple[float, float]:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from hysortk_tpu_torch.runtime import timer
+
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     run()  # warm
     with profile(activities=activities):  # the tracer's own start-up
         torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=activities) as prof:
+    # The stage spans recorded, so that each is a range of the trace.
+    with timer.record_stages() as stages, profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2381,8 +2384,7 @@ def profile_call(run, what: str) -> tuple[float, float]:
     on_device = torch.autograd.DeviceType.CUDA
     # Kernels and copies as the device ran them; the spans' device-side
     # twins cover the same time again and are left out.
-    kernels = [e for e in events
-               if e.device_type == on_device and not e.key.startswith("stream/")]
+    kernels = [e for e in events if e.device_type == on_device and e.key not in stages]
     spans = [e for e in events
              if e.device_type != on_device and e.key.startswith("stream/")]
 
@@ -3002,7 +3004,7 @@ def log_sharded(tag: str, ranks: list[dict], n_kept: int) -> None:
         log(f"phase9{tag} rank {r} ({st['backend']}): walls "
             f"{', '.join(f'{w:.4f}' for w in st['walls'])} s; peak device memory "
             f"{st['peak'] / 2**30:.3f} GiB; sent {t['bytes_sent']} B in "
-            f"{t['calls']} exchange(s), {t['seconds'] * 1e3:.1f} ms in the exchange; "
+            f"{t['calls']} exchange(s); "
             f"launches {json.dumps(st['launches'])}")
     log(f"phase9{tag} {n_kept} k-mers, keys, counts and histogram equal to the "
         f"one-shot result after sorting by key")
@@ -3020,7 +3022,6 @@ def phase9_stages(codes, lengths, cfg) -> None:
     import torch
 
     from hysortk_tpu_torch.ops import keybuild, mixkey, radix_sort, wire
-    from hysortk_tpu_torch.parallel import exchange
     from hysortk_tpu_torch.parallel import pipeline as sharded
     from hysortk_tpu_torch.runtime import timer
 
@@ -3035,7 +3036,6 @@ def phase9_stages(codes, lengths, cfg) -> None:
 
     for _ in range(2):
         stages.clear()
-        exchange.reset_traffic()
 
         def host_pack():
             shards = sharded._shard_reads(codes, lengths, 1)
@@ -3073,8 +3073,7 @@ def phase9_stages(codes, lengths, cfg) -> None:
     missing = [name for name in RESULT_SPANS if name not in parts]
     if missing:
         raise AssertionError(f"phase 9(a)'s result entered no {missing} span")
-    log(f"phase9a stages of one sharded call, second of two, ms: {'; '.join(stages)} "
-        f"(the exchange itself {exchange.traffic['seconds'] * 1e3:.1f})")
+    log(f"phase9a stages of one sharded call, second of two, ms: {'; '.join(stages)}")
 
 
 def phase9_sharded(workdir, codes, lengths, one_shot):
@@ -3304,7 +3303,7 @@ def log_phase10(tag: str, what: str, ranks: list[dict], n_kept: int,
         log(f"phase{phase}{tag} {what} rank {r}/{len(ranks)} ({st['backend']}): wall "
             f"{st['walls'][0]:.4f} s; peak device memory {st['peak'] / 2**30:.3f} GiB; "
             f"{st['passes']} step passes; sent {t['bytes_sent']} B in {t['calls']} "
-            f"exchange(s), {t['seconds'] * 1e3:.1f} ms in the exchange{merge}; "
+            f"exchange(s){merge}; "
             f"launches {json.dumps(st['launches'])}")
     log(f"phase{phase}{tag} {what}: {n_kept} k-mers equal to the reference")
 
@@ -4092,7 +4091,8 @@ def phase11_stubbed(codes, lengths, sm: dict, one_shot) -> None:
 
 def phase11_stages(codes, lengths, cfg, range_traffic, wire_info) -> None:
     """11(a)'s call twice more under the route's own stage spans
-    (runtime/timer.record_stages: each span ends with a synchronize), the
+    (runtime/timer.record_stages: a host-clock span ends with a synchronize,
+    a device-clock one is timed by CUDA events), the
     second's line logged, with the wire bytes beside the range route's of
     9(a). Inside phase 11's one-rank group."""
     import dataclasses

@@ -206,12 +206,13 @@ def _run(args, p, cfg, sharded: bool, multiproc: bool) -> int:
              + f"{n_reads} reads, {n_bases} bases "
              f"({n_bases / max(timer.last('read_fasta'), 1e-9) / 1e6:.1f} Mb/s)")
 
+    profile_cm = contextlib.ExitStack()
     if args.profile:
         from .runtime.profiling import trace as profile_trace
 
-        profile_cm = profile_trace(args.profile)
-    else:
-        profile_cm = contextlib.nullcontext()
+        # The stage spans recorded, so that each is a range of the trace.
+        profile_cm.enter_context(profile_trace(args.profile))
+        profile_cm.enter_context(timer_mod.record_stages())
 
     stages = {}  # the last count's stage seconds, multi-process runs only
 

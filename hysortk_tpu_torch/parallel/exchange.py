@@ -15,15 +15,13 @@ collective takes the rank's CUDA tensors; under gloo (ranks sharing one
 card, or the CPU) it takes host tensors, so CUDA rows are staged through
 pinned host buffers, a copy out and a copy back around the collective.
 
-`traffic` counts, per process, the exchanges run, the bytes of their send
-tensors (the rank's own block included) and their seconds on the host
-clock with the device synchronized at both ends (staging copies included).
-`reset_traffic` clears it before a run whose traffic is to be shown.
+`traffic` counts, per process, the exchanges run and the bytes of their
+send tensors (the rank's own block included). `reset_traffic` clears it
+before a run whose traffic is to be shown.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Sequence
 
 import numpy as np
@@ -34,12 +32,12 @@ from .. import _build
 from ..ops import radix_sort
 from . import group as group_mod
 
-traffic = {"calls": 0, "bytes_sent": 0, "seconds": 0.0}
+traffic = {"calls": 0, "bytes_sent": 0}
 MAX_KERNEL_DEST = 255  # the pack kernel's S + 1 digits fit one byte
 
 
 def reset_traffic() -> None:
-    traffic.update(calls=0, bytes_sent=0, seconds=0.0)
+    traffic.update(calls=0, bytes_sent=0)
 
 
 def pack_sorted_ranges(
@@ -280,9 +278,6 @@ def all_to_all_exchange(
                          f"got {tuple(send.shape)}")
     dev = send.device
     cdev = group_mod.collective_device(dev, group)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
     counts = torch.as_tensor(np.asarray(send_counts, dtype=np.int32), device=cdev)
     recv_counts = torch.empty_like(counts)
     if cdev == dev:
@@ -298,11 +293,8 @@ def all_to_all_exchange(
         recv = host_recv.to(dev)
     dist.all_to_all_single(recv_counts, counts, group=group)
     recv_counts = recv_counts.to(dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
     traffic["calls"] += 1
     traffic["bytes_sent"] += send.numel() * send.element_size() + counts.numel() * 4
-    traffic["seconds"] += time.perf_counter() - t0
     capacity = send.shape[2]
     slot = torch.arange(capacity, dtype=torch.int32, device=dev)
     recv_valid = slot[None, :] < recv_counts[:, None]

@@ -621,15 +621,14 @@ def _gather_list(rows: RankRows, cfg: KmerConfig, group, dev, tail=None,
                          torch.cat([p[:n] for p, n in zip(parts, sizes)]))
         n = sum(sizes)
         keys, counts = _result_arrays(n, w, tail)
+        # The copy-out's own span is pipeline.CopyRing's "copy-out".
         if nccl:
-            with stage("copy-out", dev):
-                # Every rank's counts fit its own narrowed width: one bound.
-                to_host([every[:, :w], every[:, w].to(rows.counts.dtype)],
-                        [None, torch.int32], out=[keys.view(np.int32)[:n], counts[:n]])
+            # Every rank's counts fit its own narrowed width: one bound.
+            to_host([every[:, :w], every[:, w].to(rows.counts.dtype)],
+                    [None, torch.int32], out=[keys.view(np.int32)[:n], counts[:n]])
             del parts, every
         else:
-            with stage("copy-out", dev):
-                host = torch.from_numpy(to_host([padded])[0])
+            host = torch.from_numpy(to_host([padded])[0])
             with stage("gather", dev):
                 parts = [host] if num_shards == 1 else _gather_padded(host, group)
                 key_t = torch.from_numpy(keys.view(np.int32))
@@ -653,10 +652,9 @@ def _own_list(rows: RankRows, cfg: KmerConfig, group, dev, tail=None,
     `extra_hist` added once)."""
     m = len(rows)
     with stage("result", dev):
-        with stage("copy-out", dev):
-            keys, counts = _result_arrays(m, cfg.words, tail)
-            to_host([rows.keys, rows.counts], [None, torch.int32],
-                    out=[keys.view(np.int32)[:m], counts[:m]])
+        keys, counts = _result_arrays(m, cfg.words, tail)
+        to_host([rows.keys, rows.counts], [None, torch.int32],
+                out=[keys.view(np.int32)[:m], counts[:m]])
         with stage("histogram", dev):
             hist = _sum_histograms(rows.hist, dev, group, extra_hist)
     return KmerList(keys=keys, counts=counts, k=cfg.k), hist

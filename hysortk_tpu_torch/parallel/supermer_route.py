@@ -433,10 +433,10 @@ def _count_received(recv, cfg: KmerConfig, block_len: int, lmax: int):
         codes, valid, payloads = _decode_received(recv, cfg, block_len, lmax)
         marked = keybuild.canonical_keys_fused(codes, valid, cfg.k)
         del codes, valid
-    with stage("radix sort", dev):
+    with stage("radix sort", dev, events=True):
         words_s, pay_s = radix_sort.sort_words(marked, payloads)
         del marked, payloads
-    with stage("fused count", dev):
+    with stage("fused count", dev, events=True):
         cnt, keep = sharded._count_merged(words_s, cfg)
     return words_s, cnt, keep, pay_s
 
@@ -500,9 +500,9 @@ def _supermer_step(codes, lengths, cfg: KmerConfig, group, dev, *, assign=None,
     with stage("pack", dev):
         with stage("feed", dev):
             lens = np.asarray(lengths).astype(np.int32)
-            with stage("wire feed", dev):  # pipeline.stage_wire's spans, then H2D
+            with stage("wire feed", dev):  # pipeline.stage_wire's spans, then "wire copy"
                 packed, lens_d, n = wire_batch(codes, lens, cfg, dev)
-            with stage("wire decode", dev):
+            with stage("wire decode", dev, events=True):
                 codes_d, valid = wire.decode_block(packed, lens_d, cfg.k, n)
                 del packed
         with stage("plan", dev):

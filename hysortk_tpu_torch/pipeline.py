@@ -42,6 +42,7 @@ from .ops import radix_sort
 from .ops import run_length_sum
 from .ops import wire
 from .ops.compact import gather_runs
+from .runtime import timer
 from .runtime.timer import stage
 
 
@@ -200,12 +201,17 @@ def _count_core(
     codes: torch.Tensor, valid: torch.Tensor, k: int, lower: int, upper: int
 ) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor]:
     """codes (N,) int8, valid (N,) bool -> sorted key words, counts, keep."""
+    dev = codes.device
     if os.environ.get("HYSORTK_FUSED_SORT"):  # read at call time
-        words_s = fused_sort.sort_codes_fused(codes, valid, k)
+        with stage("fused sort", dev, events=True):
+            words_s = fused_sort.sort_codes_fused(codes, valid, k)
     else:
-        marked = keybuild.canonical_keys_fused(codes, valid, k)
-        words_s, _ = radix_sort.sort_words(marked)
-    cnt, keep = fused_count.run_length_count_filter(words_s, lower, upper)
+        with stage("key build", dev, events=True):
+            marked = keybuild.canonical_keys_fused(codes, valid, k)
+        with stage("radix sort", dev, events=True):
+            words_s, _ = radix_sort.sort_words(marked)
+    with stage("fused count", dev, events=True):
+        cnt, keep = fused_count.run_length_count_filter(words_s, lower, upper)
     return words_s, cnt, keep
 
 
@@ -301,15 +307,17 @@ class CopyRing:
             event.record(torch.cuda.current_stream(dev))
             return view, event
 
-        with self._lock:
+        with self._lock, stage("copy-out"):
             pending = send(0)
             for p, (i, lo, hi) in enumerate(plan):
                 view, event = pending
                 if p + 1 < len(plan):
                     pending = send(p + 1)
-                if event is not None:
-                    event.synchronize()
-                dsts[i][lo:hi].copy_(view)
+                with stage("copy-out wait"):
+                    if event is not None:
+                        event.synchronize()
+                with stage("copy-out host copy"):
+                    dsts[i][lo:hi].copy_(view)
         return outs
 
 
@@ -347,9 +355,12 @@ def to_host(tensors, dtypes=None, out=None) -> list[np.ndarray]:
         for o, a in zip(out, arrays):
             o.reshape(-1)[:] = a.reshape(-1)
         return list(out)
-    if out is None:
-        return RING.copy_out(tensors, dtypes)
-    return RING.copy_out(tensors, dtypes, out)
+    arrays = (RING.copy_out(tensors, dtypes) if out is None
+              else RING.copy_out(tensors, dtypes, out))
+    # Every event-timed span queued before the copy-out has passed its last
+    # piece's event: their seconds are read with no wait.
+    timer.resolve()
+    return arrays
 
 
 def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -398,7 +409,8 @@ def feed_wire(
     staging, so a batch packed while the one before still copies cannot
     overwrite it."""
     packed, lens = stage_wire(codes, lengths, n, dev, lmax)
-    return packed.to(dev, non_blocking=True), lens.to(dev, non_blocking=True)
+    with stage("wire copy", dev, events=True):
+        return packed.to(dev, non_blocking=True), lens.to(dev, non_blocking=True)
 
 
 def kept_result(
@@ -410,8 +422,9 @@ def kept_result(
     narrowest width the filter's `upper` fits, widened to int32 on the
     host) and, where `histogram`, their histogram over [0, cfg.upper],
     binned in the same pass; all of it in one copy-out (`to_host`)."""
-    kept = compact.compact_kept(words, cnt, keep, upper=upper,
-                                hist_upper=cfg.upper if histogram else None)
+    with stage("compaction", cnt.device, events=True):
+        kept = compact.compact_kept(words, cnt, keep, upper=upper,
+                                    hist_upper=cfg.upper if histogram else None)
     tensors = [kept.keys, kept.counts] + ([kept.hist] if histogram else [])
     out = to_host(tensors, [None, torch.int32, torch.int32][: len(tensors)])
     return KmerList(keys=out[0].view(np.uint32), counts=out[1], k=cfg.k), (
@@ -433,7 +446,8 @@ def _count_device_packed(
     """Wire-fed single-device step: (n/16,) packed words + (R,) read lengths
     -> decode on the device -> sorted key words, counts, keep. The bounds
     are arguments: streaming pre-counts pass (1, 2**31 - 1)."""
-    codes, valid = wire.decode_block(packed, lengths, k, n)
+    with stage("wire decode", packed.device, events=True):
+        codes, valid = wire.decode_block(packed, lengths, k, n)
     return _count_core(codes, valid, k, lower, upper)
 
 
@@ -497,7 +511,8 @@ def device_batch(
     """Host reads -> (codes int8 (n,), valid bool (n,)) on the device: the
     packed wire (`wire_batch`) decoded there (ops/wire.decode_block)."""
     packed, lens, n = wire_batch(codes, lengths, cfg, device)
-    return wire.decode_block(packed, lens, cfg.k, n)
+    with stage("wire decode", packed.device, events=True):
+        return wire.decode_block(packed, lens, cfg.k, n)
 
 
 def count_reads(
@@ -537,9 +552,13 @@ def _count_device_ext(
     include/kmer.hpp:402-430). Returns (sorted words, cnt, keep, sorted rid,
     sorted pos). The sort is stable, so a k-mer's occurrences come out in
     ascending flat position."""
-    marked = keybuild.canonical_keys_fused(codes, valid, k)
-    words_s, (rid_s, pos_s) = radix_sort.sort_words(marked, [rid, pos])
-    cnt, keep = fused_count.run_length_count_filter(words_s, lower, upper)
+    dev = codes.device
+    with stage("key build", dev, events=True):
+        marked = keybuild.canonical_keys_fused(codes, valid, k)
+    with stage("radix sort", dev, events=True):
+        words_s, (rid_s, pos_s) = radix_sort.sort_words(marked, [rid, pos])
+    with stage("fused count", dev, events=True):
+        cnt, keep = fused_count.run_length_count_filter(words_s, lower, upper)
     return words_s, cnt, keep, rid_s, pos_s
 
 
@@ -550,7 +569,8 @@ def _count_device_ext_packed(
     """Wire-fed extension step: (rid, pos) are derived on the device from
     the read lengths (ops/wire.rid_pos_from_lengths), so the feed is the
     packed wire of the non-extension step plus one scalar."""
-    codes, valid, rid, pos = wire.decode_block_ext(packed, lengths, k, n, rid_base)
+    with stage("wire decode", packed.device, events=True):
+        codes, valid, rid, pos = wire.decode_block_ext(packed, lengths, k, n, rid_base)
     return _count_device_ext(codes, valid, rid, pos, k, lower, upper)
 
 
@@ -576,10 +596,11 @@ def kept_occurrences(words, cnt, keep, rid_s, pos_s, mixed: bool = False,
     counts, slots, occurrence offsets, the histogram over [0, hist_upper]
     where asked) and their occurrences laid end to end in run order
     (gather_runs from those slots and offsets)."""
-    kept = compact.compact_kept(words, cnt, keep, mixed=mixed, hist_upper=hist_upper,
-                                slots=True, offsets=True)
-    rid, pos = gather_runs(kept.slots, kept.counts, rid_s, pos_s, offsets=kept.offsets,
-                           total=kept.occ)
+    with stage("compaction", cnt.device, events=True):
+        kept = compact.compact_kept(words, cnt, keep, mixed=mixed, hist_upper=hist_upper,
+                                    slots=True, offsets=True)
+        rid, pos = gather_runs(kept.slots, kept.counts, rid_s, pos_s,
+                               offsets=kept.offsets, total=kept.occ)
     return kept, rid, pos
 
 
@@ -767,8 +788,9 @@ class ExtPartial:
         keys, counts, rid, pos, h = to_host(
             [self.keys, self.counts, self.occ_rid, self.occ_pos, hist],
             [None, None, None, None, torch.int32])
-        return KmerListExt.from_flat(keys.view(np.uint32), counts, k, rid,
-                                     pos.view(np.uint32)), h
+        with stage("result assembly"):
+            return KmerListExt.from_flat(keys.view(np.uint32), counts, k, rid,
+                                         pos.view(np.uint32)), h
 
 
 def ext_partial(words, cnt, keep, rid_s, pos_s) -> ExtPartial:

@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from .timer import stage
+
 
 def _proc_status_kb(field: str) -> Optional[int]:
     try:
@@ -60,8 +62,9 @@ def get_hbm_stats(device) -> Optional[dict]:
     dev = torch.device(device)
     if dev.type != "cuda":
         return None
-    free, total = torch.cuda.mem_get_info(dev)
-    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    with stage("headroom check"):
+        free, total = torch.cuda.mem_get_info(dev)
+        cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
     return {"bytes_in_use": total - free - cached, "bytes_limit": total}
 
 

@@ -11,10 +11,10 @@ partial lists are merged in a final device pass: a merge of sorted runs
 (ops/merge.py) + a weighted run-length sum (ops/run_length_sum.py), the
 analogue of count_sorted_kmerlist, src/kmerops.cpp:1447-1476.
 
-The stages carry trace spans (`stream/pack`: the pack into pinned staging
-and its copy to the device queued, `stream/count_batch`,
-`stream/consolidate`, `stream/final_merge`; runtime/profiling.annotate)
-that a torch.profiler trace sums by name.
+The stages are `stage` spans (runtime/timer: `stream/pack`, the pack into
+pinned staging and its copy to the device queued, `stream/count_batch`,
+`stream/consolidate`, `stream/final_merge`), which inside `record_stages`
+are timed and are ranges of a torch.profiler trace.
 
 Partials are held on the host by default. Under cfg.device_compact they
 stay on the device as sorted sentinel-padded runs, folded together every
@@ -66,7 +66,6 @@ from ..pipeline import (
     to_host,
 )
 from . import memcheck
-from .profiling import annotate
 from .timer import stage
 
 _LOG = logging.getLogger("hysortk_tpu_torch.stream")
@@ -633,7 +632,7 @@ def count_reads_streaming(
         if b_codes.size + 16 > target:
             # One read larger than the batch budget: rare one-off shape.
             n = -(-(b_codes.size + 16) // cfg.pad_multiple) * cfg.pad_multiple
-        with annotate("stream/pack"):
+        with stage("stream/pack"):
             packed, lens = feed_wire(b_codes, b_lengths, n, dev)
         # Unfiltered per-batch pre-count. The upper bound here must be
         # unbounded (NOT cfg.upper, and not 65535): dropping a partial count
@@ -650,7 +649,7 @@ def count_reads_streaming(
         if not device_resident:
             # Gather the kept rows on the device, copy only those out
             # (one copy-out through the pinned ring, pipeline.to_host).
-            with annotate("stream/count_batch"):
+            with stage("stream/count_batch"):
                 words, cnt, keep = _count_device_packed(*args)
                 partial, _ = kept_result(words, cnt, keep, cfg, _UNFILTERED[1],
                                          histogram=False)
@@ -658,7 +657,7 @@ def count_reads_streaming(
             partial_keys.append(partial.keys)
             partial_cnts.append(partial.counts)
             continue
-        with annotate("stream/count_batch"):
+        with stage("stream/count_batch"):
             keys, cnt, n_kept = _count_device_packed_compact(*args)
         # Partials stay on the device; nothing crosses to the host, and
         # n_kept stays a device scalar.
@@ -668,7 +667,7 @@ def count_reads_streaming(
         if len(dev_words) < group:
             continue
         try:
-            with annotate("stream/consolidate"):
+            with stage("stream/consolidate"):
                 dev_words, dev_cnts, dev_nks = _consolidate_device_runs(
                     dev_words, dev_cnts, cfg, target
                 )
@@ -702,7 +701,7 @@ def count_reads_streaming(
 
     if dev_words:
         try:
-            with annotate("stream/final_merge"):
+            with stage("stream/final_merge"):
                 return _merge_device_resident(dev_words, dev_cnts, cfg, target)
         except torch.cuda.OutOfMemoryError:
             # The merge did not fit the device after all (the budget rule
@@ -720,7 +719,7 @@ def count_reads_streaming(
             np.zeros(cfg.upper + 1, np.int32),
         )
 
-    with annotate("stream/final_merge"):
+    with stage("stream/final_merge"):
         keys_np, cnts_np, hist = merge_partial_lists(
             partial_keys, partial_cnts, cfg,
             budget_elems=4 * snap_batch_to_pow2_flat(batch_bases, cfg.pad_multiple),

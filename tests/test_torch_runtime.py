@@ -194,10 +194,10 @@ def test_logger_layout():
 
 def test_profiling_on_cpu(tmp_path):
     with profiling.trace(str(tmp_path / "prof")):
-        with profiling.annotate("span"):
+        with timer.record_stages() as seconds, timer.stage("span"):
             torch.arange(1000).sum()
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
-    assert 0 <= profiling.device_seconds(lambda: torch.arange(1000).sum(), iters=2) < 1
+    assert 0 <= seconds["span"] < 1
+    assert '"span"' in (tmp_path / "prof" / "trace.json").read_text()
 
 
 # --------------------------------------------------------------------------

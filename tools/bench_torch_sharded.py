@@ -16,13 +16,13 @@ and R timed calls), then spawns N ranks (default: one per card) that count
 them with count_reads_sharded, one warm-up call and R timed calls each: by
 the range exchange (the default route), and with --with-supermer by the
 supermer route too (parallel/supermer_route.py), so that each rank's bytes
-and seconds in the exchange stand beside the range route's. The backend
+sent stand beside the range route's. The backend
 follows parallel/group.backend_for: NCCL when every rank has a card of its
 own, gloo through pinned host buffers when ranks share one. Every sharded
 result must equal the one-device result after sorting by key, histogram
 included. It prints the card's name and power limit, per rank and route the
-walls, the peak device memory, the bytes sent and the seconds in the
-exchange, and as its last line one JSON object.
+walls, the peak device memory and the bytes sent, and as its last line one
+JSON object.
 """
 
 from __future__ import annotations
@@ -185,8 +185,7 @@ def main() -> int:
             t = st["traffic"]
             print(f"rank {r} {routing} ({st['backend']}, cuda:{st['device']}): walls "
                   f"{', '.join(f'{w:.4f}' for w in st['walls'])} s; peak "
-                  f"{st['peak'] / 2**30:.3f} GiB; sent {t['bytes_sent']} B, "
-                  f"{t['seconds'] * 1e3:.1f} ms in the exchange; launches "
+                  f"{st['peak'] / 2**30:.3f} GiB; sent {t['bytes_sent']} B; launches "
                   f"{json.dumps(st['launches'])}", flush=True)
     record = {
         "card": smi, "cards": torch.cuda.device_count(), "ranks": ranks,
@@ -199,7 +198,6 @@ def main() -> int:
         sts = stats[routing]
         record[routing] = {
             "rank_walls_s": [st["walls"] for st in sts],
-            "rank_exchange_s": [st["traffic"]["seconds"] for st in sts],
             "rank_bytes_sent": [st["traffic"]["bytes_sent"] for st in sts],
             "rank_peak_b": [st["peak"] for st in sts],
         }
