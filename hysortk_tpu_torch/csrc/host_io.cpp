@@ -1,7 +1,9 @@
 // Host-side hot loops of hysortk_tpu_torch, a C ABI shared library bound with
 // ctypes (io/native.py): the FASTA index scan, FASTA newline strip + 2-bit
-// code, the 2-bit wire pack, packed-key decode, output formatting, and the
-// supermer encoder's run decomposition and run gather.
+// code, the 2-bit wire pack, packed-key decode, output formatting, the
+// supermer encoder's run decomposition and run gather, and the one-shot
+// result's host pages, mapped and faulted in by background workers while
+// the card counts (hk_prefault_*; runtime/prefault.py).
 //
 // The port's own copy of native/host_io.cpp (the JAX package's library),
 // with the same entry points and results, and one more (hk_fai_build). The
@@ -20,13 +22,21 @@
 // (src/hysortk.cpp:138-164). Each has a numpy plain version in the package
 // (io/fasta, io/supermer, io/writer, ops/kmer) that the tests hold it to.
 
+#include <sys/mman.h>
+#include <unistd.h>
+
 #include <algorithm>
 #include <atomic>
+#include <cerrno>
 #include <cstdint>
 #include <cstring>
 #include <system_error>
 #include <thread>
 #include <vector>
+
+#ifndef MADV_POPULATE_WRITE
+#define MADV_POPULATE_WRITE 23  // Linux 5.14 and later
+#endif
 
 namespace {
 
@@ -113,6 +123,86 @@ inline void put_decimal(uint8_t *&out, int64_t v) {
 inline int64_t line_end(const uint8_t *data, int64_t size, int64_t pos) {
   const void *q = std::memchr(data + pos, '\n', (size_t)(size - pos));
   return q ? (int64_t)((const uint8_t *)q - data) : size;
+}
+
+// The one-shot result's host pages (hk_prefault_*): two anonymous mappings
+// of `rows` rows each (the keys and the counts, row_bytes[a] bytes a row),
+// faulted in by background workers in chunks of chunk_rows rows, taken in
+// ascending order across both arrays. Chunk c covers, in array a, the pages
+// from fault_end(a, c) to fault_end(a, c + 1): the chunks partition each
+// mapping, so when every claimed chunk is done the faulted pages are a
+// prefix of each. stop() ends the faulting (each worker finishes its chunk)
+// and hands the pages past the kept rows to one more thread, which releases
+// them (MADV_DONTNEED, under the mm lock for reading) and then unmaps the
+// tail; finish() joins that thread.
+struct Prefault {
+  uint8_t *base[2] = {nullptr, nullptr};
+  int64_t row_bytes[2] = {0, 0};
+  int64_t mapped[2] = {0, 0};
+  int64_t rows = 0, chunk_rows = 1, chunks = 0, fault_chunks = 0, page = 4096;
+  int32_t advice = -1;
+  std::atomic<int32_t> populate{0};  // 1 while madvise(advice) serves
+  std::atomic<bool> go{false}, stop{false};
+  std::atomic<int64_t> next{0};
+  std::atomic<int64_t> failed{INT64_MAX};  // the first chunk that failed
+  bool stopped = false;                     // hk_prefault_stop has run
+  std::vector<std::thread> workers;
+  std::thread tail;
+
+  int64_t fault_end(int a, int64_t c) const {
+    if (c >= chunks) return mapped[a];
+    return c * chunk_rows * row_bytes[a] / page * page;
+  }
+
+  // Pages [lo, hi) of array a written: by madvise(advice) while the kernel
+  // takes it, else one byte a page. false where the kernel refused them.
+  bool fault(int a, int64_t lo, int64_t hi) {
+    if (populate.load(std::memory_order_relaxed)) {
+      for (;;) {
+        if (madvise(base[a] + lo, (size_t)(hi - lo), advice) == 0) return true;
+        if (errno == EINTR || errno == EAGAIN) continue;
+        if (errno != EINVAL) return false;
+        populate.store(0, std::memory_order_relaxed);  // advice unknown here
+        break;
+      }
+    }
+    volatile uint8_t *p = base[a];
+    for (int64_t off = lo; off < hi; off += page) p[off] = 0;
+    return true;
+  }
+
+  void work() {
+    while (!stop.load(std::memory_order_relaxed)) {
+      const int64_t c = next.fetch_add(1, std::memory_order_relaxed);
+      if (c >= fault_chunks) return;
+      for (int a = 0; a < 2; ++a) {
+        const int64_t lo = fault_end(a, c), hi = fault_end(a, c + 1);
+        if (hi > lo && !fault(a, lo, hi)) {
+          int64_t f = failed.load();
+          while (c < f && !failed.compare_exchange_weak(f, c)) {
+          }
+          stop.store(true);
+          return;
+        }
+      }
+    }
+  }
+};
+
+int64_t page_bytes() {
+  static const int64_t page = sysconf(_SC_PAGESIZE) > 0 ? sysconf(_SC_PAGESIZE) : 4096;
+  return page;
+}
+
+int64_t page_ceil(int64_t bytes) {
+  const int64_t p = page_bytes();
+  return (bytes + p - 1) / p * p;
+}
+
+void *map_pages(int64_t bytes) {
+  void *p = mmap(nullptr, (size_t)bytes, PROT_READ | PROT_WRITE,
+                 MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+  return p == MAP_FAILED ? nullptr : p;
 }
 
 }  // namespace
@@ -407,6 +497,140 @@ void hk_gather_runs(const int8_t *codes, const int64_t *starts,
       std::memcpy(out + out_off[r], codes + starts[r], (size_t)bases[r]);
     }
   });
+}
+
+// Valid k-mer starts of reads of the given lengths: the sum of
+// max(len - k + 1, 0).
+int64_t hk_valid_kmers(const int64_t *lengths, int64_t n, int32_t k) {
+  const int64_t parts = std::max<int64_t>(1, std::min<int64_t>(
+      4 * (int64_t)g_threads.load(std::memory_order_relaxed), n / 65536 + 1));
+  const int64_t per = (n + parts - 1) / parts;
+  std::vector<int64_t> sums(parts, 0);
+  parallel_for(parts, 1, [&](int64_t lo, int64_t hi) {
+    for (int64_t c = lo; c < hi; ++c) {
+      int64_t s = 0;
+      for (int64_t i = c * per; i < std::min(n, (c + 1) * per); ++i)
+        s += std::max<int64_t>(lengths[i] - k + 1, 0);
+      sums[c] = s;
+    }
+  });
+  int64_t total = 0;
+  for (const int64_t s : sums) total += s;
+  return total;
+}
+
+// Unmaps [p, p + bytes) (pages a job kept, hk_prefault_stop); 0, or the
+// errno of munmap.
+int32_t hk_unmap(void *p, int64_t bytes) {
+  if (p == nullptr || bytes <= 0) return 0;
+  return munmap(p, (size_t)bytes) == 0 ? 0 : errno;
+}
+
+// Maps the result's two arrays, rows rows of row_bytes0 and row_bytes1
+// bytes (lazily: MAP_NORESERVE, so only touched pages take memory), and
+// starts max(1, threads - 1) workers that fault in the pages of their first
+// fault_rows rows (at most rows), chunk_rows rows a chunk, by
+// madvise(advice) (MADV_POPULATE_WRITE; a negative advice, or one the
+// kernel does not know, writes one byte a page instead). Returns at once:
+// the job, or null where a mapping was refused (nothing is left mapped
+// then) or rows < 1.
+void *hk_prefault_start(int64_t rows, int64_t row_bytes0, int64_t row_bytes1,
+                        int64_t chunk_rows, int32_t advice, int64_t fault_rows) {
+  if (rows < 1 || row_bytes0 < 1 || row_bytes1 < 1) return nullptr;
+  auto *job = new Prefault;
+  job->rows = rows;
+  job->page = page_bytes();
+  job->chunk_rows = std::max<int64_t>(chunk_rows, 1);
+  fault_rows = std::min(std::max<int64_t>(fault_rows, 0), rows);
+  job->fault_chunks = (fault_rows + job->chunk_rows - 1) / job->chunk_rows;
+  job->chunks = (rows + job->chunk_rows - 1) / job->chunk_rows;
+  job->advice = advice;
+  job->populate.store(advice >= 0 ? 1 : 0);
+  const int64_t rb[2] = {row_bytes0, row_bytes1};
+  for (int a = 0; a < 2; ++a) {
+    job->row_bytes[a] = rb[a];
+    job->mapped[a] = page_ceil(rows * rb[a]);
+    job->base[a] = (uint8_t *)map_pages(job->mapped[a]);
+    if (job->base[a] == nullptr) {
+      if (a == 1) munmap(job->base[0], (size_t)job->mapped[0]);
+      delete job;
+      return nullptr;
+    }
+  }
+  // The workers wait until all are made: a thread's stack is mapped under
+  // the mm lock, which a worker's faults take for reading.
+  const int64_t n = std::min<int64_t>(
+      std::max<int64_t>(g_threads.load(std::memory_order_relaxed) - 1, 1), job->fault_chunks);
+  for (int64_t t = 0; t < n; ++t) {
+    try {
+      job->workers.emplace_back([job] {
+        while (!job->go.load(std::memory_order_acquire)) std::this_thread::yield();
+        job->work();
+      });
+    } catch (const std::system_error &) {
+      break;
+    }
+  }
+  job->go.store(true, std::memory_order_release);
+  return job;
+}
+
+// The base address of array a (0: keys, 1: counts) of a job.
+void *hk_prefault_base(void *job, int32_t a) {
+  return static_cast<Prefault *>(job)->base[a];
+}
+
+// Stops the job's workers and joins them (each finishes the chunk it
+// holds), then keeps each array's pages up to its first keep_rows rows and
+// hands the rest to a thread of its own: the faulted pages past them
+// released (MADV_DONTNEED), then the tail unmapped. out[0..1]: the bytes
+// faulted in each array (a prefix), out[2..3] the bytes released,
+// out[4..5] the bytes each array keeps mapped, out[6] 1 where madvise
+// faulted the pages, 0 where they were written a byte a page.
+void hk_prefault_stop(void *handle, int64_t keep_rows, int64_t *out) {
+  auto *job = static_cast<Prefault *>(handle);
+  if (job->stopped) return;  // stopped once; out is left as it was
+  job->stop.store(true);
+  for (auto &w : job->workers) w.join();
+  job->workers.clear();
+  const int64_t done = std::min({job->next.load(), job->fault_chunks, job->failed.load()});
+  keep_rows = std::min(std::max<int64_t>(keep_rows, 0), job->rows);
+  int64_t keep[2], faulted[2];
+  for (int a = 0; a < 2; ++a) {
+    faulted[a] = job->fault_end(a, done);
+    keep[a] = std::min(page_ceil(keep_rows * job->row_bytes[a]), job->mapped[a]);
+    out[a] = faulted[a];
+    out[2 + a] = std::max<int64_t>(faulted[a] - keep[a], 0);
+    out[4 + a] = keep[a];
+  }
+  out[6] = job->populate.load();
+  auto release = [job, keep, faulted] {
+    for (int a = 0; a < 2; ++a) {
+      if (faulted[a] > keep[a])
+        madvise(job->base[a] + keep[a], (size_t)(faulted[a] - keep[a]), MADV_DONTNEED);
+      if (job->mapped[a] > keep[a])
+        munmap(job->base[a] + keep[a], (size_t)(job->mapped[a] - keep[a]));
+    }
+  };
+  job->stopped = true;
+  try {
+    job->tail = std::thread(release);
+  } catch (const std::system_error &) {
+    release();  // no thread to be had: released here
+  }
+}
+
+// Joins the job's release thread (stopping the job first, with no rows
+// kept, where it was not stopped) and frees the job. The kept pages stay
+// mapped: the caller unmaps them (hk_unmap).
+void hk_prefault_finish(void *handle) {
+  auto *job = static_cast<Prefault *>(handle);
+  if (!job->stopped) {
+    int64_t out[7];
+    hk_prefault_stop(handle, 0, out);
+  }
+  if (job->tail.joinable()) job->tail.join();
+  delete job;
 }
 
 }  // extern "C"

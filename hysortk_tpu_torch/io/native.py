@@ -2,8 +2,10 @@
 
 The C++ loops of the host hot paths: the FASTA index scan, strip and code
 of FASTA records, the
-2-bit wire pack, key decode, output formatting, and the supermer encoder's
-run decomposition and run gather (io/supermer.py). The library is the
+2-bit wire pack, key decode, output formatting, the supermer encoder's
+run decomposition and run gather (io/supermer.py), and the one-shot
+result's host pages faulted in by background workers (`prefault_start`
+and the calls after it; runtime/prefault.py drives them). The library is the
 port's own, built at first use by `_build.host_library_path` (std::thread,
 no OpenMP); a failed build raises. Every call first hands the library
 `torch.get_num_threads()` as its worker count, so ranks that share a host's
@@ -13,8 +15,9 @@ Each function has a numpy plain version beside its caller
 (`fasta.fai_columns_plain`, `fasta.strip_and_pack_plain`, `supermer.pack_codes_2bit_plain`,
 `kmer.decode_keys_plain`, `writer.format_output_plain`,
 `supermer.run_boundaries_plain`, `supermer.gather_runs_plain`) with the
-same results. The callers take the native route while `available()` is
-true, which it always is; tests patch it to take the plain versions.
+same results; the page calls and `valid_kmers` have none. The callers take
+the native route while `available()` is true, which it always is; tests
+patch it to take the plain versions.
 
 `calls` counts each function's calls into the library; `reset_calls`
 clears it before a run whose use of the library is to be shown.
@@ -23,6 +26,7 @@ clears it before a run whose use of the library is to be shown.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 
 import numpy as np
@@ -37,6 +41,7 @@ _path: str | None = None
 calls = {
     "fai_build": 0, "strip_and_pack": 0, "pack_2bit": 0, "decode_keys": 0,
     "format_output": 0, "run_boundaries": 0, "gather_runs": 0,
+    "valid_kmers": 0, "prefault_start": 0,
 }
 
 
@@ -84,6 +89,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hk_run_boundaries.restype = i64
     lib.hk_gather_runs.argtypes = [i8p, i64p, i64p, i64p, i64, i8p]
     lib.hk_gather_runs.restype = None
+    vp = ctypes.c_void_p
+    lib.hk_valid_kmers.argtypes = [i64p, i64, i32]
+    lib.hk_valid_kmers.restype = i64
+    lib.hk_unmap.argtypes = [vp, i64]
+    lib.hk_unmap.restype = i32
+    lib.hk_prefault_start.argtypes = [i64, i64, i64, i64, i32, i64]
+    lib.hk_prefault_start.restype = vp
+    lib.hk_prefault_base.argtypes = [vp, i32]
+    lib.hk_prefault_base.restype = vp
+    lib.hk_prefault_stop.argtypes = [vp, i64, i64p]
+    lib.hk_prefault_stop.restype = None
+    lib.hk_prefault_finish.argtypes = [vp]
+    lib.hk_prefault_finish.restype = None
     return lib
 
 
@@ -261,3 +279,73 @@ def gather_runs(
     out = np.empty(total, dtype=np.int8)
     _enter("gather_runs").hk_gather_runs(codes, starts, bases, out_off, starts.size, out)
     return out
+
+
+def valid_kmers(lengths: np.ndarray, k: int) -> int:
+    """The valid k-mer starts of reads of these lengths: the sum of
+    max(length - k + 1, 0), in one pass on the library's workers."""
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64).reshape(-1)
+    return int(_enter("valid_kmers").hk_valid_kmers(lengths, lengths.size, int(k)))
+
+
+# madvise's advice that faults a range in writable (Linux 5.14 and later);
+# the library writes a byte a page where the kernel does not know it.
+MADV_POPULATE_WRITE = 23
+
+
+@dataclasses.dataclass
+class Stopped:
+    """What `prefault_stop` reports, per array (keys, counts): the bytes
+    faulted in (a prefix), released past the kept rows, and kept mapped;
+    whether madvise faulted them (else a byte a page was written)."""
+
+    faulted: tuple[int, int]
+    released: tuple[int, int]
+    kept: tuple[int, int]
+    populate: bool
+
+
+def prefault_start(rows: int, row_bytes: tuple[int, int], chunk_rows: int,
+                   advice: int = MADV_POPULATE_WRITE, fault_rows: int | None = None
+                   ) -> int | None:
+    """Maps two arrays of `rows` rows of row_bytes[0] and row_bytes[1]
+    bytes (MAP_NORESERVE: only touched pages take memory) and starts
+    max(1, torch threads - 1) workers that fault in their first fault_rows
+    rows (all by default), chunk_rows rows a chunk in ascending order across
+    both, by madvise(advice) (a negative advice, or one the kernel refuses
+    as unknown, writes a byte a page). Returns at once: the job's handle,
+    or None where a mapping was refused or rows < 1. Each handle is
+    stopped (`prefault_stop`) and finished (`prefault_finish`) once."""
+    job = _enter("prefault_start").hk_prefault_start(
+        int(rows), int(row_bytes[0]), int(row_bytes[1]), int(chunk_rows), int(advice),
+        int(rows if fault_rows is None else fault_rows))
+    return job or None
+
+
+def prefault_base(job: int, array: int) -> int:
+    """The address of array 0 (keys) or 1 (counts) of a job."""
+    return _load().hk_prefault_base(job, array)
+
+
+def prefault_stop(job: int, keep_rows: int) -> Stopped:
+    """Stops the job's workers (each ends the chunk it holds) and keeps the
+    pages of each array's first keep_rows rows mapped, which the caller
+    then owns (`unmap_entry`); a thread of the library releases the
+    faulted pages past them and unmaps the rest."""
+    out = np.zeros(7, dtype=np.int64)
+    _load().hk_prefault_stop(job, int(keep_rows), out)
+    v = out.tolist()
+    return Stopped((v[0], v[1]), (v[2], v[3]), (v[4], v[5]), bool(v[6]))
+
+
+def prefault_finish(job: int) -> None:
+    """Joins the job's release thread (stopping it with no rows kept where
+    it was not stopped) and frees the job."""
+    _load().hk_prefault_finish(job)
+
+
+def unmap_entry():
+    """hk_unmap itself, (addr, nbytes) -> errno, which unmaps pages a job
+    kept; for a finalizer that may run after this module's globals are
+    gone."""
+    return _load().hk_unmap

@@ -42,7 +42,7 @@ from .ops import radix_sort
 from .ops import run_length_sum
 from .ops import wire
 from .ops.compact import gather_runs
-from .runtime import timer
+from .runtime import prefault, timer
 from .runtime.timer import stage
 
 
@@ -257,8 +257,9 @@ class CopyRing:
     work that made the arrays) with an event while the host waits for piece
     p's event and copies it out of the other block into its destination (by
     torch's threaded copy, widening where a dtype is asked for), so the
-    card's copy runs while the host's does. The destinations are fresh
-    np.empty arrays that the result owns. A failed copy raises; nothing
+    card's copy runs while the host's does. The destinations are the
+    caller's arrays where given, else fresh np.empty arrays that the result
+    owns. A failed copy raises; nothing
     retries through pageable memory. Calls are serialized by a lock."""
 
     def __init__(self, chunk_bytes: int = COPY_CHUNK_BYTES):
@@ -333,9 +334,9 @@ def to_host(tensors, dtypes=None, out=None) -> list[np.ndarray]:
     at most 2 x COPY_CHUNK_BYTES = 128 MiB page-locked), into fresh arrays
     that own their memory; on the CPU each tensor is turned into an array
     as it is, with no pinned memory. `out`, where given, holds the arrays
-    to fill instead (C-contiguous views into a caller's larger result, each
-    of its tensor's size and dtype): they are filled and returned, on the
-    CPU by one copy each."""
+    to fill instead (C-contiguous, each of its tensor's size and dtype: views
+    into a caller's larger result, or pages faulted in beforehand): they are
+    filled and returned, on the CPU by one copy each."""
     tensors = list(tensors)
     dtypes = [None] * len(tensors) if dtypes is None else list(dtypes)
     if len(dtypes) != len(tensors) or (out is not None and len(out) != len(tensors)):
@@ -415,18 +416,33 @@ def feed_wire(
 
 def kept_result(
     words: list[torch.Tensor], cnt: torch.Tensor, keep: torch.Tensor, cfg: KmerConfig,
-    upper: int, histogram: bool = True,
+    upper: int, histogram: bool = True, pages: prefault.Reservation | None = None,
 ) -> tuple[KmerList, np.ndarray | None]:
     """A filtered device result at its final size on the host: the kept rows
     compacted on the device (ops/compact.compact_kept: the counts at the
     narrowest width the filter's `upper` fits, widened to int32 on the
     host) and, where `histogram`, their histogram over [0, cfg.upper],
-    binned in the same pass; all of it in one copy-out (`to_host`)."""
-    with stage("compaction", cnt.device, events=True):
-        kept = compact.compact_kept(words, cnt, keep, upper=upper,
-                                    hist_upper=cfg.upper if histogram else None)
-    tensors = [kept.keys, kept.counts] + ([kept.hist] if histogram else [])
-    out = to_host(tensors, [None, torch.int32, torch.int32][: len(tensors)])
+    binned in the same pass; all of it in one copy-out (`to_host`). The
+    keys and counts land in fresh arrays, or, where `pages` is given (a
+    reservation of at least the kept rows, being faulted in), in its pages:
+    its faulting is stopped once the compaction has read the kept rows."""
+    try:
+        with stage("compaction", cnt.device, events=True):
+            kept = compact.compact_kept(words, cnt, keep, upper=upper,
+                                        hist_upper=cfg.upper if histogram else None)
+            if pages is not None:
+                pages.stop(kept.m)
+        tensors = [kept.keys, kept.counts] + ([kept.hist] if histogram else [])
+        dtypes = [None, torch.int32, torch.int32][: len(tensors)]
+        out = None if pages is None else pages.arrays()
+        if out is None:
+            out = to_host(tensors, dtypes)
+        else:
+            hist = [np.empty(tuple(kept.hist.shape), np.int32)] if histogram else []
+            out = to_host(tensors, dtypes, out + hist)
+    finally:
+        if pages is not None:
+            pages.close()
     return KmerList(keys=out[0].view(np.uint32), counts=out[1], k=cfg.k), (
         out[2] if histogram else None)
 
@@ -528,12 +544,20 @@ def count_reads(
     `cfg.device_compact` selects nothing here: the JAX count_reads uses it
     to compact on the device before the host copy, and `kept_result`
     already compacts the kept rows on the device in every configuration, so
-    the result is the same KmerList either way."""
+    the result is the same KmerList either way.
+
+    On a card the result's host pages are reserved once the device core is
+    queued and faulted in while it runs (runtime/prefault), so the copy-out
+    writes into touched pages; the bound on the kept rows comes from the
+    read lengths."""
     codes_d, valid_d = device_batch(codes, lengths, cfg, device)
     words, cnt, keep = _count_core(
         codes_d, valid_d, cfg.k, cfg.lower, cfg.upper
     )
-    return kept_result(words, cnt, keep, cfg, cfg.upper)
+    pages = None
+    if codes_d.device.type == "cuda":  # the device core runs: fault the result in
+        pages = prefault.reserve(prefault.rows_bound(lengths, cfg.k, cfg.lower), len(words))
+    return kept_result(words, cnt, keep, cfg, cfg.upper, pages=pages)
 
 
 # --------------------------------------------------------------------------

@@ -237,7 +237,8 @@ def test_entries_cross_in_one_copy_out_a_result(cuda, monkeypatch):
     calls = []
     monkeypatch.setattr(pipeline, "RING", ring)
     real = ring.copy_out
-    monkeypatch.setattr(ring, "copy_out", lambda ts, ds: calls.append(len(ts)) or real(ts, ds))
+    monkeypatch.setattr(ring, "copy_out",
+                        lambda ts, ds, *out: calls.append(len(ts)) or real(ts, ds, *out))
     for count in (pipeline.count_reads, pipeline.count_reads_ext):
         calls.clear()
         got, hist = count(codes, lengths, cfg, device=cuda)

@@ -305,7 +305,8 @@ def cuda():
 def test_event_spans_are_in_the_dict_when_kmer_count_returns(cuda, extension):
     """On the card every span of the one-shot path, the event-timed ones
     included, is in the dict as kmer_count returns, before record_stages
-    ends, with positive seconds; none is left pending."""
+    ends, with positive seconds; none is left pending. The keys-only call
+    also stops its result pages' faulting ("prefault stop")."""
     codes, lengths = _reads()
     cfg = dataclasses.replace(CFG, extension=extension)
     hysortk_tpu_torch.kmer_count(codes, lengths, cfg, "cuda")  # kernels built
@@ -313,7 +314,7 @@ def test_event_spans_are_in_the_dict_when_kmer_count_returns(cuda, extension):
         hysortk_tpu_torch.kmer_count(codes, lengths, cfg, "cuda")
         got = dict(seconds)
         assert not timer._pending
-    want = (EXT if extension else ("headroom check",) + ONE_SHOT) + COPY_OUT
+    want = (EXT if extension else ("headroom check",) + ONE_SHOT + ("prefault stop",)) + COPY_OUT
     assert set(got) == set(want)
     assert all(got[name] > 0 for name in ("wire copy", "wire decode", "key build",
                                           "radix sort", "fused count", "compaction"))
